@@ -1,0 +1,77 @@
+"""Synthetic graph generators (GAP-style workload inputs).
+
+RMAT/Kronecker power-law graphs (the "kron" GAP input family) and
+uniform-random ("urand") graphs, generated vectorized on the host.  The
+edge lists equal those of ``pygraphblas_tpu.generators`` for the same
+seed (same numpy RandomState draws in the same order).
+"""
+
+import numpy as np
+
+__all__ = ["rmat_edges", "urand_edges", "to_matrix"]
+
+
+def rmat_edges(scale, edgefactor=16, a=0.57, b=0.19, c=0.19, seed=42,
+               dedup=True):
+    """Generate an RMAT (Graph500-style) edge list: 2^scale vertices,
+    edgefactor * 2^scale directed edges (before dedup)."""
+    rng = np.random.RandomState(seed)
+    n = 1 << scale
+    m = edgefactor << scale
+    rows = np.zeros(m, np.int64)
+    cols = np.zeros(m, np.int64)
+    ab = a + b
+    c_norm = c / (1 - ab)
+    a_norm = a / ab
+    for bit in range(scale):
+        r_bit = rng.rand(m) > ab
+        c_bit = np.where(
+            r_bit,
+            rng.rand(m) > c_norm,
+            rng.rand(m) > a_norm,
+        )
+        rows |= (r_bit.astype(np.int64) << bit)
+        cols |= (c_bit.astype(np.int64) << bit)
+    # permute vertex ids to remove locality
+    perm = rng.permutation(n)
+    rows = perm[rows]
+    cols = perm[cols]
+    if dedup:
+        rows, cols = _dedup(rows, cols, scale)
+    return rows, cols, n
+
+
+def _dedup(rows, cols, scale):
+    """Drop self-loops + duplicate edges (unique on packed keys)."""
+    keep = rows != cols
+    if scale > 31:          # packed keys would overflow int64
+        return rows[keep], cols[keep]
+    keys = (rows[keep] << scale) | cols[keep]
+    keys = np.unique(keys)
+    return keys >> scale, keys & ((np.int64(1) << scale) - 1)
+
+
+def urand_edges(scale, edgefactor=16, seed=42, dedup=True):
+    """Uniform-random directed edges: 2^scale vertices."""
+    rng = np.random.RandomState(seed)
+    n = 1 << scale
+    m = edgefactor << scale
+    rows = rng.randint(0, n, m)
+    cols = rng.randint(0, n, m)
+    if dedup:
+        rows, cols = _dedup(rows, cols, scale)
+    return rows, cols, n
+
+
+def to_matrix(rows, cols, n, typ=None, vals=None):
+    """Build a Matrix from an edge list."""
+    from . import types
+    from .matrix import Matrix
+
+    if typ is None:
+        typ = types.FP32
+    A = Matrix.sparse(typ, n, n)
+    if vals is None:
+        vals = np.ones(len(rows), typ.numpy_dtype)
+    A._build(np.asarray(rows), np.asarray(cols), vals)
+    return A

@@ -1,0 +1,130 @@
+"""Port parity for the slice as a whole: fused PageRank over xspmv, the
+generators, the entry points' device rules, and the import boundary
+(the port never imports JAX or the JAX package)."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pygraphblas_tpu import fused as jfused, generators as jgen
+from pygraphblas_tpu_torch import fused, generators, options_set, types
+from pygraphblas_tpu_torch.core import xspmv as TX
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def kron12():
+    rows, cols, n = generators.rmat_edges(12, 16)
+    return rows, cols, n
+
+
+@pytest.mark.parametrize("itermax,tol", [(100, 1e-4), (30, -1.0)])
+def test_pagerank_matches_jax(kron12, itermax, tol):
+    rows, cols, n = kron12
+    A = generators.to_matrix(rows, cols, n, types.FP32)
+    assert A.nvals >= TX.MIN_NNZ            # the xspmv engine applies
+    got = fused.pagerank(A, itermax=itermax, tol=tol,
+                         device="cpu").to_numpy()
+    jA = jgen.to_matrix(rows, cols, n)
+    want = np.asarray(jfused.pagerank(jA, itermax=itermax,
+                                      tol=tol).to_numpy())
+    # fp32 reduction order differs between XLA on the CPU and torch
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_pagerank_matches_coo_oracle(kron12):
+    rows, cols, n = kron12
+    A = generators.to_matrix(rows, cols, n, types.FP32)
+    r5 = fused.pagerank(A, itermax=5, tol=0.0, device="cpu")
+    rows_d, cols_d, _ = A._device_coo("cpu")
+    d_inv = fused._d_inv(fused._deg_vec(A, "cpu"), 0.85)
+    ref, _, iters = fused._pagerank_loop_coo(
+        rows_d, cols_d, n, 5, d_inv, np.float32(0.15 / n), 0.0)
+    assert iters == 5
+    err = (r5._vals - ref).abs().max()
+    assert err <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("gen", ["rmat_edges", "urand_edges"])
+def test_generators_equal_jax(gen):
+    a = getattr(generators, gen)(10, 8, seed=3)
+    b = getattr(jgen, gen)(10, 8, seed=3)
+    for x, y in zip(a, b):
+        assert np.array_equal(x, y)
+
+
+def test_build_dedups_last_wins():
+    A = generators.to_matrix(np.array([2, 0, 2]), np.array([1, 1, 1]), 3,
+                             types.FP32, vals=np.array([1, 2, 3],
+                                                       np.float32))
+    r, c, v = A._coo()
+    assert r.tolist() == [0, 2] and c.tolist() == [1, 1]
+    assert v.tolist() == [2.0, 3.0]
+
+
+def test_csr8_and_small_graphs_raise():
+    rows, cols, n = generators.rmat_edges(8, 4)
+    A = generators.to_matrix(rows, cols, n)
+    assert A.nvals < TX.MIN_NNZ
+    with pytest.raises(NotImplementedError, match="csr8"):
+        fused.pagerank(A, device="cpu")
+    options_set(spmv_engine="xspmv")
+    try:
+        r = fused.pagerank(A, itermax=3, device="cpu")
+        assert r.to_numpy().shape == (n,)
+        options_set(spmv_engine="csr8")
+        with pytest.raises(NotImplementedError, match="csr8"):
+            fused.pagerank(A, device="cpu")
+    finally:
+        options_set(spmv_engine="auto")
+
+
+def test_default_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    A = generators.to_matrix(*generators.rmat_edges(6, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused.pagerank(A)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "pygraphblas_tpu_torch")
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_port_never_imports_jax():
+    files = _port_files()
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "pygraphblas_tpu"), \
+                (path, mod)
+    # and at run time, in a fresh interpreter
+    code = ("import sys, pygraphblas_tpu_torch.fused, "
+            "pygraphblas_tpu_torch.convert, pygraphblas_tpu_torch._kernels;"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'pygraphblas_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -1,0 +1,175 @@
+"""Port parity: pygraphblas_tpu_torch.core.perm against the JAX package.
+
+Both routing routes of the port's PermPlan.build are checked:
+  - the greedy route (no native code), which must give the very stage
+    arrays the JAX package's greedy route gives for the same seed;
+  - the native K == 128 route (csrc/benes.cpp, built here with g++),
+    at n = 2 * 128^3 (D = 3, S = 2), which takes the fused middle and
+    the fold8-fused ascend.
+The plain versions of kernels 5-7 must equal the JAX Pallas kernels in
+interpret mode: moves exactly, PLUS folds within rtol 1e-6.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import pygraphblas_tpu.io.native as jnative
+from pygraphblas_tpu.core import perm as jperm
+from pygraphblas_tpu_torch import _native
+from pygraphblas_tpu_torch.core import perm as tperm
+
+
+def test_choose_shape_equal():
+    for n in [16400, 100000, 1 << 21, 1 << 24, 18694144, 75 * 10 ** 6]:
+        for fill in (112, 128):
+            assert tperm._choose_shape(n, fill) == \
+                jperm._choose_shape(n, fill)
+
+
+def _no_native(monkeypatch):
+    monkeypatch.setattr(jnative, "HAVE_NATIVE", False)
+    monkeypatch.setattr(_native, "available", lambda: False)
+
+
+@pytest.mark.parametrize("n", [5, 1000, 16385, 40000])
+def test_greedy_route_equals_jax(n, monkeypatch):
+    _no_native(monkeypatch)
+    rng = np.random.RandomState(n)
+    src = rng.permutation(n)
+    jp = jperm.PermPlan.build(src)
+    tp = tperm.PermPlan.build(src)
+    for k in ("n", "trivial", "D", "S", "R0", "K"):
+        assert getattr(tp, k) == getattr(jp, k), k
+    if tp.trivial:
+        assert np.array_equal(tp.src_idx, np.asarray(jp.src_idx))
+    else:
+        for a, b in zip(tp.a_stages + tp.c_stages,
+                        jp.a_stages + jp.c_stages):
+            assert a.dtype == np.int8
+            assert np.array_equal(a, np.asarray(b))
+        assert (tp.ssel is None) == (jp.ssel is None)
+        if tp.ssel is not None:
+            assert np.array_equal(tp.ssel, np.asarray(jp.ssel))
+    pt = tp.to("cpu")
+    x = (np.arange(n, dtype=np.float32) * 2.0 + 1.0)
+    assert np.array_equal(pt.apply(torch.from_numpy(x)).numpy(), x[src])
+    xi = np.arange(n, dtype=np.int32)
+    assert np.array_equal(pt.apply(torch.from_numpy(xi)).numpy(), xi[src])
+
+
+@pytest.mark.parametrize("fold", ["PLUS", "MAX"])
+def test_greedy_route_apply_fold8(fold, monkeypatch):
+    _no_native(monkeypatch)
+    n = 1 << 15
+    rng = np.random.RandomState(5)
+    src = rng.permutation(n)
+    pt = tperm.PermPlan.build(src).to("cpu")
+    assert pt.K < 128
+    x = rng.rand(n).astype(np.float32)
+    out, folded = pt.apply_fold8(torch.from_numpy(x), np.float32(0), fold)
+    assert folded
+    f3 = x[src].reshape(-1, 8, 128)
+    want = f3.sum(axis=1) if fold == "PLUS" else f3.max(axis=1)
+    assert np.allclose(out.numpy()[:want.size], want.reshape(-1),
+                       rtol=1e-6)
+
+
+def test_native_route_fused_plan():
+    """n == 2*128^3: the port's own native K == 128 plan, D == 3, runs
+    tdesc -> inner3 -> tasc(fold8) (their plain versions here)."""
+    assert _native.available()
+    n = 2 * 128 ** 3
+    rng = np.random.RandomState(7)
+    src = rng.permutation(n)
+    p = tperm.PermPlan.build(src)
+    assert (p.D, p.S, p.K) == (3, 2, 128)
+    pt = p.to("cpu")
+    x = rng.rand(n).astype(np.float32)
+    assert np.array_equal(pt.apply(torch.from_numpy(x)).numpy(), x[src])
+    folded, ok = pt.apply_fold8(torch.from_numpy(x), np.float32(0), "PLUS")
+    assert ok
+    want = x[src].reshape(-1, 8, 128).sum(axis=1).reshape(-1)
+    assert np.allclose(folded.numpy()[:want.size], want, rtol=1e-6)
+
+
+def test_native_color_is_exact():
+    rng = np.random.RandomState(3)
+    rows = 40
+    u = np.repeat(np.arange(rows), 128)
+    v = rng.permutation(u)
+    col = _native.benes_color(u, v, rows, rows)
+    assert len(np.unique(u * 128 + col)) == len(u)
+    assert len(np.unique(v * 128 + col)) == len(u)
+
+
+def _rand(rng, shape, dtype):
+    if dtype == np.float32:
+        return rng.rand(*shape).astype(dtype)
+    return rng.randint(-1000, 1000, shape).astype(dtype)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setattr(jperm, "_FORCE_INTERPRET", True)
+
+
+@pytest.mark.parametrize("g,rb,dtype", [(1, 2, np.float32),
+                                        (2, 3, np.float32),
+                                        (1, 8, np.int32)])
+def test_tdesc_tasc_plain_match_interpret(g, rb, dtype, interpret):
+    """Kernels 5 and 6 (with and without the fold8)."""
+    rng = np.random.RandomState(g * 10 + rb)
+    r_l = rb * 128
+    x = _rand(rng, (g * r_l, 128), dtype)
+    idx = rng.randint(0, 128, (g * r_l, 128)).astype(np.int8)
+    want = np.asarray(jperm._lane_gather_tdesc(jnp.asarray(x),
+                                               jnp.asarray(idx), g, r_l))
+    got = tperm._lane_gather_tdesc(torch.from_numpy(x),
+                                   torch.from_numpy(idx), g, r_l)
+    assert np.array_equal(got.numpy(), want)
+    for fold, jfold in ((None, None), ("PLUS", jnp.add),
+                        ("MIN", jnp.minimum)):
+        want = np.asarray(jperm._lane_gather_tasc(
+            jnp.asarray(x), jnp.asarray(idx), g, r_l, fold8=jfold))
+        got = tperm._lane_gather_tasc(torch.from_numpy(x),
+                                      torch.from_numpy(idx), g, r_l,
+                                      fold8=fold).numpy()
+        if fold == "PLUS" and dtype == np.float32:
+            assert np.allclose(got, want, rtol=1e-6)
+        else:
+            assert np.array_equal(got, want), fold
+
+
+@pytest.mark.parametrize("g,S,dtype", [(2, 1, np.float32),
+                                       (3, 3, np.float32),
+                                       (2, 9, np.float32),
+                                       (2, 3, np.int32)])
+def test_inner3_plain_matches_interpret(g, S, dtype, interpret):
+    """Kernel 7 for any index content."""
+    rng = np.random.RandomState(g * 100 + S)
+    r_l = 128 * S
+    x = _rand(rng, (g * r_l, 128), dtype)
+    ix = [rng.randint(0, 128, (g * S * 128, 128)).astype(np.int8)
+          for _ in range(4)]
+    ssel = (rng.randint(0, S, (g * 128, S, 128)).astype(np.int8)
+            if S > 1 else None)
+    J = lambda a: None if a is None else jnp.asarray(a)
+    T = lambda a: None if a is None else torch.from_numpy(a)
+    want = np.asarray(jperm._inner3(J(x), J(ix[0]), J(ix[1]), J(ssel),
+                                    J(ix[2]), J(ix[3]), g, S))
+    got = tperm._inner3(T(x), T(ix[0]), T(ix[1]), T(ssel), T(ix[2]),
+                        T(ix[3]), g, S)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_wrappers_reject_other_devices():
+    x = torch.zeros((128, 128), device="meta")
+    idx = torch.zeros((128, 128), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        tperm._lane_gather_tdesc(x, idx, 1, 128)
+    with pytest.raises(ValueError):
+        tperm._lane_gather_tasc(x, idx, 1, 128)
+    with pytest.raises(ValueError):
+        tperm._inner3(x, idx, idx, None, idx, idx, 1, 1)
