@@ -28,8 +28,9 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # kernel name -> launches since the last reset
-launches = {"mono_span": 0, "lane_gather_tdesc": 0,
-            "lane_gather_tasc": 0, "inner3": 0}
+launches = {"mono_span": 0, "mono_cascade": 0, "mono_rows": 0,
+            "lane_gather": 0, "lane_gather_tdesc": 0, "lane_gather_tasc": 0,
+            "inner3": 0, "mid_pass": 0}
 
 _lib = None
 build_log = ""
@@ -118,8 +119,15 @@ def lib():
         L.pgb_lane_gather_tasc.argtypes = [p, p, p, i64, i64, i32, i32, p]
         L.pgb_inner3.argtypes = [p, p, p, p, p, p, p, p, i64, i32, i32,
                                  p]
+        L.pgb_mono_rows.argtypes = [p, p, i32, p, i64, i64, p, i64, p, p,
+                                    i64, i32, i32, i32, ctypes.c_uint32, p]
+        L.pgb_mono_cascade.argtypes = [i32, p, p, p, p, p, i32, i32,
+                                       ctypes.c_uint32, p]
+        L.pgb_lane_gather.argtypes = [p, p, p, i64, i32, p]
+        L.pgb_mid_pass.argtypes = [p, p, p, p, p, i64, i32, i32, p]
         for fn in (L.pgb_mono_span, L.pgb_lane_gather_tdesc,
-                   L.pgb_lane_gather_tasc, L.pgb_inner3):
+                   L.pgb_lane_gather_tasc, L.pgb_inner3, L.pgb_mono_rows,
+                   L.pgb_mono_cascade, L.pgb_lane_gather, L.pgb_mid_pass):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

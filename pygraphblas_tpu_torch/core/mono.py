@@ -11,14 +11,21 @@ Modes (op names from ``semiring.ADDS`` / ``semiring.MULS``):
   - fused multiply: mul(vals, gathered)
   - fold:   out (S/8,128) = lanewise fold of each 8-row slot group
 
-Kernel: ``mono_span`` (``csrc/mono.cu``) replaces the TPU kernel
-``pygraphblas_tpu/core/mono.py:_mono_pallas_span`` for resident,
-span-encoded plans (``wva > 0``) -- every plan of the xspmv pipeline at
-kron-20.  It is bound by bytes: dm (2 B a cell), the output (4 B a
+Kernels (``csrc/mono.cu``, ``csrc/cascade.cu``), each beside its plain
+PyTorch version:
+  - ``mono_span`` replaces ``pygraphblas_tpu/core/mono.py:_mono_pallas_span``
+    (resident, span-encoded plans: ``wva > 0``);
+  - ``mono_rows`` replaces ``pygraphblas_tpu/core/mono.py:_mono_pallas``
+    (per-row windows, ``wva == 0``, resident or streamed);
+  - ``mono_cascade`` replaces ``pygraphblas_tpu/core/mono.py:mono_cascade``
+    (every xspmv fold level and the final placement in one launch).
+All three are bound by bytes: dm (2 or 4 B a cell), the output (4 B a
 cell, or 4 B per 8 cells folded) and the source, each moved once.
-Plans that need ``_mono_pallas`` (per-row windows, streaming sources)
-raise on the card: that kernel is not ported yet.
+Plans with ``ok == False`` raise on the card (no plan of the xspmv
+engine at kron-16..21 has it).
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -173,17 +180,19 @@ def mono_gather(plan, src, fill, vals=None, mul=None, fold=None):
     fill: scalar for invalid lanes (monoid identity / zero).
     vals/mul: optional fused product mul(vals, gathered); invalid -> fill.
     fold: optional add-monoid name, folding 8-row slot groups.
-    On the card, span-encoded resident plans launch ``mono_span``; any
-    other plan raises (its kernel, ``_mono_pallas``, is not ported).
+    On the card, span-encoded resident plans launch ``mono_span`` and
+    every other plan ``mono_rows``, as the JAX package's dispatch
+    (mono.py:234-236); a plan with ``ok == False`` raises.
     """
     if src.device.type == "cpu":
         return mono_gather_plain(plan, src, fill, vals, mul, fold)
-    if plan.stream or not plan.ok or plan.wva == 0:
+    if not plan.ok:
         raise NotImplementedError(
-            "MonoPlan with per-row windows or a streamed source needs "
-            "the _mono_pallas kernel (core/mono.py), not ported yet: "
-            "ROADMAP Queue B")
-    return mono_span(plan, src, fill, vals, mul, fold)
+            "MonoPlan with ok == False (a streaming span wider than "
+            f"{_MAX_XB} rows) has no kernel on the card: ROADMAP Queue C")
+    if plan.wva:
+        return mono_span(plan, src, fill, vals, mul, fold)
+    return mono_rows(plan, src, fill, vals, mul, fold)
 
 
 def _repeat(t, k):
@@ -223,16 +232,11 @@ def mono_gather_plain(plan, src, fill, vals=None, mul=None, fold=None):
     return g
 
 
-def mono_span(plan, src, fill, vals=None, mul=None, fold=None):
-    """The span gather: plain version for CPU tensors, the CUDA kernel
-    (``csrc/mono.cu``) for CUDA tensors."""
-    if src.device.type == "cpu":
-        return mono_gather_plain(plan, src, fill, vals, mul, fold)
-    name = "mono_span"
+def _prepare(name, plan, src, vals, mul, fold, *index):
+    """Checks and buffers shared by the gather kernels' wrappers: returns
+    (src, vals pointer, out, dtype code, mul code, fold code)."""
     if src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {src.device}")
-    if plan.wva == 0 or plan.stream or plan.dm.dtype != torch.int16:
-        raise ValueError(f"{name}: needs a resident span-encoded plan")
     code = _kernels.dtype_code(src, name)
     S = plan.S
     src = src.contiguous()
@@ -240,15 +244,126 @@ def mono_span(plan, src, fill, vals=None, mul=None, fold=None):
         vals = vals.reshape(-1).to(src.dtype).contiguous()
         if vals.numel() < S * 128:
             raise ValueError(f"{name}: vals shorter than the plan")
-    _kernels.cuda_args(name, src, vals, plan.dm, plan.qg)
+    _kernels.cuda_args(name, src, vals, plan.dm, *index)
     out = torch.empty((S // 8 if fold is not None else S, 128),
                       dtype=src.dtype, device=src.device)
+    return (src, vals.data_ptr() if mul is not None else None, out, code,
+            MULS[mul][1] if mul is not None else -1,
+            ADDS[fold][1] if fold is not None else -1)
+
+
+def mono_span(plan, src, fill, vals=None, mul=None, fold=None):
+    """The span gather: plain version for CPU tensors, the CUDA kernel
+    (``csrc/mono.cu``) for CUDA tensors."""
+    if src.device.type == "cpu":
+        return mono_gather_plain(plan, src, fill, vals, mul, fold)
+    name = "mono_span"
+    src, vp, out, code, mop, fop = _prepare(name, plan, src, vals, mul, fold,
+                                            plan.qg)
+    if plan.wva == 0 or plan.stream or plan.dm.dtype != torch.int16:
+        raise ValueError(f"{name}: needs a resident span-encoded plan")
     rc = _kernels.lib().pgb_mono_span(
         plan.qg.data_ptr(), plan.dm.data_ptr(), src.data_ptr(), src.numel(),
-        vals.data_ptr() if mul is not None else None, out.data_ptr(),
-        S // 8, code, MULS[mul][1] if mul is not None else -1,
-        ADDS[fold][1] if fold is not None else -1,
+        vp, out.data_ptr(), plan.S // 8, code, mop, fop,
         _kernels.fill_bits(fill, src.dtype), _kernels.stream())
+    _kernels.check(rc, name)
+    _kernels.count(name)
+    return out
+
+
+def mono_rows(plan, src, fill, vals=None, mul=None, fold=None):
+    """The per-row gather (resident or streamed plans): plain version
+    for CPU tensors, the CUDA kernel (``csrc/mono.cu``) for CUDA
+    tensors."""
+    if src.device.type == "cpu":
+        return mono_gather_plain(plan, src, fill, vals, mul, fold)
+    name = "mono_rows"
+    xblk = plan.xblk if plan.stream else None
+    src, vp, out, code, mop, fop = _prepare(name, plan, src, vals, mul, fold,
+                                            plan.q0, xblk)
+    if plan.wva or not plan.ok:
+        raise ValueError(f"{name}: needs a per-row plan with ok == True")
+    if plan.dm.dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"{name}: dm must be int16 or int32")
+    rc = _kernels.lib().pgb_mono_rows(
+        plan.q0.data_ptr(), plan.dm.data_ptr(), plan.dm.element_size(),
+        xblk.data_ptr() if xblk is not None else None, plan.xb, plan.blk,
+        src.data_ptr(), src.numel(), vp, out.data_ptr(), plan.S // 8, code,
+        mop, fop, _kernels.fill_bits(fill, src.dtype), _kernels.stream())
+    _kernels.check(rc, name)
+    _kernels.count(name)
+    return out
+
+
+# the TPU kernel's VMEM budget for the whole cascade (mono.py:384): kept
+# as the dispatch rule, so that both packages take the same path
+_CASCADE_BUDGET = 90 << 20
+
+
+def _cascade_applies(levels, place, dtype):
+    """The JAX package's dispatch rules (mono.py:361-385)."""
+    if not levels:
+        return False
+    isz = dtype.itemsize
+    if isz > 4:
+        return False
+    plans = list(levels) + [place]
+    if any((not p.ok) or p.stream or p.wva == 0 for p in plans):
+        return False
+    budget = (levels[0].src_rows + levels[0].wva + 2) * 128 * isz
+    for l, p in enumerate(levels):
+        budget += (p.S // 8 + plans[l + 1].wva + 2) * 128 * isz
+    for p in plans:
+        budget += p.dm.numel() * p.dm.element_size() + p.qg.numel() * 4
+    budget += place.S * 128 * isz
+    return budget <= _CASCADE_BUDGET
+
+
+def mono_cascade(levels, place, src, fill, fold):
+    """Every fold level (add-monoid name `fold`) and the final placement
+    in one launch.  Returns the placed (place.S, 128) tensor, or None
+    where the JAX package's mono_cascade does not apply (no levels, a
+    dtype wider than 4 bytes, a plan that is streamed, per-row or not
+    ok, or its budget): callers then run the per-level chain.
+
+    CPU tensors take the plain version, the chain of
+    ``mono_gather_plain`` calls; CUDA tensors launch the cooperative
+    ``mono_cascade`` kernel (``csrc/cascade.cu``)."""
+    if not _cascade_applies(levels, place, src.dtype):
+        return None
+    if src.device.type == "cpu":
+        cur = src
+        for lp in levels:
+            cur = mono_gather_plain(lp, cur.reshape(-1), fill,
+                                    fold=fold).reshape(-1)
+        return mono_gather_plain(place, cur, fill)
+    name = "mono_cascade"
+    if src.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {src.device}")
+    code = _kernels.dtype_code(src, name)
+    plans = list(levels) + [place]
+    src = src.contiguous()
+    _kernels.cuda_args(name, src, *[p.dm for p in plans],
+                       *[p.qg for p in plans])
+    if any(p.dm.dtype != torch.int16 for p in plans):
+        raise ValueError(f"{name}: needs span-encoded (int16) plans")
+    bufs = [src] + [torch.empty((p.S // 8, 128), dtype=src.dtype,
+                                device=src.device) for p in levels]
+    out = torch.empty((place.S, 128), dtype=src.dtype, device=src.device)
+    bufs.append(out)
+    n = len(plans)
+    ptrs = ctypes.c_void_p * n
+    qg = ptrs(*[p.qg.data_ptr() for p in plans])
+    dm = ptrs(*[p.dm.data_ptr() for p in plans])
+    groups = (ctypes.c_int64 * n)(*[p.S // 8 for p in plans])
+    bufp = (ctypes.c_void_p * (n + 1))(*[b.data_ptr() for b in bufs])
+    lens = (ctypes.c_int64 * (n + 1))(*[b.numel() for b in bufs])
+    rc = _kernels.lib().pgb_mono_cascade(
+        n, ctypes.cast(qg, ctypes.c_void_p), ctypes.cast(dm, ctypes.c_void_p),
+        ctypes.cast(groups, ctypes.c_void_p),
+        ctypes.cast(bufp, ctypes.c_void_p), ctypes.cast(lens, ctypes.c_void_p),
+        code, ADDS[fold][1], _kernels.fill_bits(fill, src.dtype),
+        _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
     return out

@@ -14,16 +14,21 @@ same host code: an exact 128-edge-coloring per level, in native code
 else the numpy greedy colorer with the pure-Python exact colorer.
 
 Kernels (``csrc/perm.cu``), each beside its plain PyTorch version:
+  - ``_lane_gather`` replaces perm.py:_lane_gather (a per-row lane
+    gather, for levels shorter than 128 rows; no plan of either package
+    reaches it, since every level has r_l >= S * 128);
   - ``_lane_gather_tdesc`` replaces perm.py:_lane_gather_tdesc
     (lane gather + 128x128 tile transpose, a descend pass);
   - ``_lane_gather_tasc`` replaces perm.py:_lane_gather_tasc
     (inverse tile transpose + lane gather, optional 8-row fold);
   - ``_inner3`` replaces perm.py:_inner3 (innermost descend, the (S,128)
-    mid stage and the innermost ascend of one group).
-All three are bound by bytes: each moves its input, its int8 index
-tables and its output once.  On the card a plan needs the fused middle
-(D >= 3, K == 128, S <= 24); other plans need ``_mid_pass`` or
-``_lane_gather``, which are not ported yet, and raise.
+    mid stage and the innermost ascend of one group), for D >= 3,
+    K == 128, S <= 24;
+  - ``_mid_pass`` replaces perm.py:_mid_pass (the bottom level on its
+    own: A gather, sublane select and C gather in (S,128) tiles, any S
+    from 1 to 128), for every other plan.
+All five are bound by bytes: each moves its input, its int8 index
+tables and its output once.
 """
 
 import numpy as np
@@ -536,21 +541,54 @@ def _on_card(x, name):
 
 
 def _lane_gather(x2d, idx8):
-    """out[r, l] = x2d[r, idx[r, l]] (levels with r_l < 128)."""
-    if not _on_card(x2d, "_lane_gather"):
+    """out[r, l] = x2d[r, idx[r, l]] over (rows, 128)."""
+    name = "lane_gather"
+    if not _on_card(x2d, name):
         return _lane_gather_plain(x2d, idx8)
-    raise NotImplementedError(
-        "the _lane_gather kernel (core/perm.py) is not ported yet: "
-        "ROADMAP Queue B")
+    if x2d.dim() != 2 or x2d.shape[1] != 128 or idx8.shape != x2d.shape:
+        raise ValueError(f"{name}: bad shapes {tuple(x2d.shape)} "
+                         f"{tuple(idx8.shape)}")
+    if idx8.dtype != torch.int8:
+        raise ValueError(f"{name}: idx must be int8")
+    code = _kernels.dtype_code(x2d, name)
+    x2d = x2d.contiguous()
+    _kernels.cuda_args(name, x2d, idx8)
+    out = torch.empty_like(x2d)
+    rc = _kernels.lib().pgb_lane_gather(
+        x2d.data_ptr(), idx8.data_ptr(), out.data_ptr(), x2d.shape[0],
+        code, _kernels.stream())
+    _kernels.check(rc, name)
+    _kernels.count(name)
+    return out
 
 
 def _mid_pass(x3d, a8, ssel8, c8):
-    """A gather + sublane select + C gather within (S,128) tiles."""
-    if not _on_card(x3d, "_mid_pass"):
+    """A gather + sublane select + C gather within (S,128) tiles:
+    x3d (nsub, S, 128); a8, c8 hold nsub*S*128 int8 lane indices,
+    ssel8 (nsub, S, 128) int8 row indices, None when S == 1."""
+    name = "mid_pass"
+    if not _on_card(x3d, name):
         return _mid_pass_plain(x3d, a8, ssel8, c8)
-    raise NotImplementedError(
-        "the _mid_pass kernel (core/perm.py; plans with D < 3, K < 128 or "
-        "S > 24) is not ported yet: ROADMAP Queue B")
+    if x3d.dim() != 3 or x3d.shape[2] != 128:
+        raise ValueError(f"{name}: bad shape {tuple(x3d.shape)}")
+    nsub, S = x3d.shape[0], x3d.shape[1]
+    if not 1 <= S <= 128 or a8.numel() != x3d.numel() or \
+            c8.numel() != x3d.numel():
+        raise ValueError(f"{name}: bad shapes S={S}")
+    if (S > 1) != (ssel8 is not None) or (
+            ssel8 is not None and ssel8.numel() != x3d.numel()):
+        raise ValueError(f"{name}: ssel does not match S={S}")
+    code = _kernels.dtype_code(x3d, name)
+    x3d = x3d.contiguous()
+    _kernels.cuda_args(name, x3d, a8, ssel8, c8)
+    out = torch.empty_like(x3d)
+    rc = _kernels.lib().pgb_mid_pass(
+        x3d.data_ptr(), a8.data_ptr(),
+        ssel8.data_ptr() if ssel8 is not None else None, c8.data_ptr(),
+        out.data_ptr(), nsub, S, code, _kernels.stream())
+    _kernels.check(rc, name)
+    _kernels.count(name)
+    return out
 
 
 def _lane_gather_tdesc(x2d, idx8, g, r_l):

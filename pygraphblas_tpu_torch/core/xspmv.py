@@ -15,8 +15,9 @@ permutation (core/perm.py) or a dense lanewise fold:
 The plan is built on the host with numpy (the same code as the JAX
 package, so the same arrays for the same matrix) and then moved to the
 device with ``XSpmvPlan.to``.  The fold levels and the placement run as
-a chain of ``mono_gather`` launches (the JAX package's chain,
-xspmv.py:344-348); its one-launch ``mono_cascade`` is not ported yet.
+one ``mono_cascade`` launch where the JAX package's dispatch allows it
+(xspmv.py:341-343), else as the per-level chain of ``mono_gather``
+launches (xspmv.py:344-348).
 """
 
 import hashlib
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor
-from .mono import MonoPlan, mono_gather
+from .mono import MonoPlan, mono_cascade, mono_gather
 from .perm import PermPlan, _choose_shape
 from ..semiring import FLIPPED
 from ..types import torch_dtype
@@ -315,6 +316,11 @@ def xspmv(plan, x, semiring, out_dtype, flip_mul=False):
     # 8-ary fold is fused into its final ascend pass
     acc1, _ = plan.perm.apply_fold8(prod.reshape(-1), fill, addop)
     cur = acc1.reshape(-1)[:plan.m1]
+    # all fold levels + the final placement in one launch; None -> the
+    # per-level chain (a streamed or per-row plan, or no levels)
+    y2d = mono_cascade(plan.levels, plan.places[0], cur, fill, addop)
+    if y2d is not None:
+        return y2d.reshape(-1)[:plan.nrows], plan.row_present
     for lp in plan.levels:
         cur = mono_gather(lp, cur.reshape(-1), fill,
                           fold=addop).reshape(-1)

@@ -1,16 +1,18 @@
 // Benes permutation passes: the CUDA counterparts of
-// pygraphblas_tpu/core/perm.py:_lane_gather_tdesc, _lane_gather_tasc
-// and _inner3.
+// pygraphblas_tpu/core/perm.py:_lane_gather, _lane_gather_tdesc,
+// _lane_gather_tasc, _inner3 and _mid_pass.
 //
-// All three are pure data moves (plus the optional 8-row fold of the
+// All five are pure data moves (plus the optional 8-row fold of the
 // ascend pass).  The TPU transposes a 128x128 tile with an identity
 // matmul (perm.py:_tp); here the transpose is a copy through shared
 // memory, so every value moves bit-exactly.  Lane indices are int8
 // (0..127), widened to int in the kernel.
 //
-// Bound: bytes.  tdesc and tasc read x and idx once and write the output
-// once; inner3 reads x and five int8 index slabs once and writes once
-// (its scratch slab adds two round trips, partly served from L2).
+// Bound: bytes.  lane_gather, tdesc and tasc read x and idx once and
+// write the output once; mid_pass reads x and three int8 index slabs
+// once and writes once; inner3 reads x and five int8 index slabs once
+// and writes once (its scratch slab adds two round trips, partly served
+// from L2).
 
 #include <cstring>
 
@@ -187,6 +189,90 @@ inner3_kernel(const T* __restrict__ x, const int8_t* __restrict__ ai,
   }
 }
 
+// per-row lane gather (perm.py:_lane_gather): out[r, l] = x[r, idx[r, l]]
+// over (rows, 128).  One thread a cell; a warp reads 32 idx bytes and
+// one 512 B source row, so every access coalesces.
+template <typename T>
+__global__ void lane_gather_kernel(const T* __restrict__ x,
+                                   const int8_t* __restrict__ idx,
+                                   T* __restrict__ out, int64_t n) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  out[t] = x[(t & ~(int64_t)127) + (idx[t] & 127)];
+}
+
+// bottom Benes level (perm.py:_mid_pass) over (nsub, S, 128) tiles:
+//   y[s, l] = x[s, a[s, l]]            A lane gather
+//   z[s, l] = y[ss[s, l], l]           sublane select (z = y when S == 1)
+//   out[s, l] = z[s, c[s, l]]          C lane gather
+// composed per output cell: with c = c[s, l] and t = ss[s, c],
+// out[s, l] = x[t, a[t, c]].  A block stages `tpb` whole tiles of x, a
+// and ss in shared memory (one tile of 15,872 cells at S = 124; 21
+// tiles at S = 3), so the two dependent index reads and the value read
+// of a cell stay on the SM; c and out stream through once.  A select
+// index outside [0, S) gives 0, as the TPU kernel's zero-initialised
+// select does.
+template <typename T>
+__global__ void mid_pass_kernel(const T* __restrict__ x,
+                                const int8_t* __restrict__ a,
+                                const int8_t* __restrict__ ss,
+                                const int8_t* __restrict__ c,
+                                T* __restrict__ out, int64_t nsub, int S,
+                                int tpb) {
+  extern __shared__ unsigned char smem[];
+  const int cells = S * 128;
+  T* xs = (T*)smem;
+  int8_t* as = (int8_t*)(xs + (int64_t)tpb * cells);
+  int8_t* sss = as + tpb * cells;
+  const int64_t tile0 = (int64_t)blockIdx.x * tpb;
+  const int ntile = (int)(nsub - tile0 < tpb ? nsub - tile0 : tpb);
+  const int total = ntile * cells;
+  const int64_t base = tile0 * cells;
+  for (int k = threadIdx.x; k < total; k += blockDim.x) {
+    xs[k] = x[base + k];
+    as[k] = a[base + k];
+    if (ss != nullptr) sss[k] = ss[base + k];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < total; k += blockDim.x) {
+    const int tb = (k / cells) * cells;
+    const int s = (k - tb) >> 7;
+    const int cl = c[base + k] & 127;
+    const int t = ss != nullptr ? sss[tb + s * 128 + cl] : s;
+    T v = (T)0;
+    if (t >= 0 && t < S) v = xs[tb + t * 128 + (as[tb + t * 128 + cl] & 127)];
+    out[base + k] = v;
+  }
+}
+
+template <typename T>
+static int launch_lane_gather(const void* x, const int8_t* idx, void* out,
+                              int64_t rows, cudaStream_t st) {
+  const int64_t n = rows * 128;
+  if (n > 0)
+    lane_gather_kernel<T><<<(unsigned)((n + THREADS - 1) / THREADS), THREADS,
+                            0, st>>>((const T*)x, idx, (T*)out, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_mid_pass(const void* x, const int8_t* a, const int8_t* ss,
+                           const int8_t* c, void* out, int64_t nsub, int S,
+                           cudaStream_t st) {
+  if (S < 1 || S > 128) return -1;
+  const int cells = S * 128;
+  int tpb = 8192 / cells;
+  if (tpb < 1) tpb = 1;
+  const int smem = tpb * cells * ((int)sizeof(T) + 2);
+  cudaFuncSetAttribute(mid_pass_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int64_t blocks = (nsub + tpb - 1) / tpb;
+  if (blocks > 0)
+    mid_pass_kernel<T><<<(unsigned)blocks, THREADS * 2, smem, st>>>(
+        (const T*)x, a, ss, c, (T*)out, nsub, S, tpb);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_tdesc(const void* x, const int8_t* idx, void* out,
                         int64_t g, int64_t rb, cudaStream_t st) {
@@ -248,6 +334,30 @@ extern "C" int pgb_lane_gather_tasc(const void* x, const void* idx, void* out,
   if (dtype == DT_I32)
     return launch_tasc<int32_t>(x, (const int8_t*)idx, out, g, rb, fold_op,
                                 st);
+  return -1;
+}
+
+extern "C" int pgb_lane_gather(const void* x, const void* idx, void* out,
+                               int64_t rows, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DT_F32)
+    return launch_lane_gather<float>(x, (const int8_t*)idx, out, rows, st);
+  if (dtype == DT_I32)
+    return launch_lane_gather<int32_t>(x, (const int8_t*)idx, out, rows, st);
+  return -1;
+}
+
+// ss may be null (S == 1)
+extern "C" int pgb_mid_pass(const void* x, const void* a, const void* ss,
+                            const void* c, void* out, int64_t nsub, int S,
+                            int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int8_t *ai = (const int8_t*)a, *si = (const int8_t*)ss,
+               *ci = (const int8_t*)c;
+  if (dtype == DT_F32)
+    return launch_mid_pass<float>(x, ai, si, ci, out, nsub, S, st);
+  if (dtype == DT_I32)
+    return launch_mid_pass<int32_t>(x, ai, si, ci, out, nsub, S, st);
   return -1;
 }
 

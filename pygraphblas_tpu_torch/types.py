@@ -1,6 +1,9 @@
-"""GraphBLAS types at the size the port needs so far: FP32 and INT32,
-each with its numpy and torch dtype and its semirings as attributes
-(``FP32.PLUS_SECOND``), built from the ``ADDS`` x ``MULS`` table."""
+"""GraphBLAS types at the size the port needs so far: BOOL, INT32,
+INT64 and FP32, each with its numpy and torch dtype and its semirings as
+attributes (``FP32.PLUS_SECOND``), built from the ``ADDS`` x ``MULS``
+table.  The CUDA kernels take 4-byte values only (float32, int32): a
+BOOL matrix runs through a float32 plan (its values cast), and INT64
+holds results such as BFS levels."""
 
 import numpy as np
 import torch
@@ -21,10 +24,12 @@ class Type:
         return self.name
 
 
-FP32 = Type("FP32", np.float32, torch.float32)
+BOOL = Type("BOOL", np.bool_, torch.bool)
 INT32 = Type("INT32", np.int32, torch.int32)
+INT64 = Type("INT64", np.int64, torch.int64)
+FP32 = Type("FP32", np.float32, torch.float32)
 
-_BY_NUMPY = {FP32.numpy_dtype: FP32, INT32.numpy_dtype: INT32}
+_BY_NUMPY = {t.numpy_dtype: t for t in (BOOL, INT32, INT64, FP32)}
 
 
 def torch_dtype(dtype):

@@ -1,7 +1,9 @@
 """Dense vector: values and a presence mask, both tensors on one
 device.  The slice of ``pygraphblas_tpu/vector.py`` that the fused
-algorithms return."""
+algorithms return: a value is present where the JAX result's mask says
+so (BFS levels > 0, finite SSSP distances; PageRank and BC are dense)."""
 
+import numpy as np
 import torch
 
 
@@ -18,8 +20,13 @@ class Vector:
     def size(self):
         return self._vals.shape[0]
 
+    def _host_pair(self):
+        """Host (values, presence mask) as numpy arrays."""
+        return (self._vals.cpu().numpy().astype(self.type.numpy_dtype,
+                                                copy=False),
+                self._mask.cpu().numpy())
+
     def to_numpy(self):
         """Host values (absent entries read 0)."""
-        v = torch.where(self._mask, self._vals,
-                        torch.zeros_like(self._vals))
-        return v.cpu().numpy().astype(self.type.numpy_dtype, copy=False)
+        v, m = self._host_pair()
+        return np.where(m, v, np.zeros((), v.dtype))

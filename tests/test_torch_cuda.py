@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from pygraphblas_tpu_torch import _kernels, fused, generators, types
-from pygraphblas_tpu_torch.core import mono, perm
+from pygraphblas_tpu_torch.core import mono, perm, xspmv
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +86,160 @@ def test_pagerank_goes_through_the_kernels(card):
     _kernels.reset_launches()
     got = fused.pagerank(A, itermax=10, tol=-1.0)
     torch.cuda.synchronize()
-    assert all(c > 0 for c in _kernels.launches.values())
+    # the kron-19 path: span gathers, descend, fused middle, fold8
+    # ascend and the cascade (no per-row plan, no _mid_pass)
+    path = ("mono_span", "mono_cascade", "lane_gather_tdesc", "inner3",
+            "lane_gather_tasc")
+    assert all(_kernels.launches[k] > 0 for k in path)
+    assert all(c == 0 for k, c in _kernels.launches.items()
+               if k not in path)
     err = (got._vals.cpu() - ref._vals).abs().max()
     assert err <= 1e-5 * ref._vals.abs().max()
+
+
+@pytest.mark.parametrize("kw", [{}, {"fold": "PLUS"}, {"fold": "MAX"},
+                                {"mul": "TIMES"}])
+@pytest.mark.parametrize("route", ["resident16", "resident32", "streamed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_mono_rows_kernel(card, kw, route, dtype, monkeypatch):
+    monkeypatch.setattr(mono, "_SPAN_MAX_WVA", 0)
+    rng = np.random.RandomState(11)
+    if route == "streamed":
+        src_n = 3_000_000
+        idx = np.sort(rng.randint(0, 1_500_000, 3 * 64 * 128))
+    else:
+        src_n = 9000 if route == "resident16" else 2_500_000
+        idx = np.sort(rng.randint(0, src_n, 64 * 128))
+    idx[::7] = -1
+    idx = np.concatenate([np.sort(idx[idx >= 0]),
+                          np.full((idx < 0).sum(), -1)])
+    plan = mono.MonoPlan.build(idx, src_n).to(card)
+    assert plan.wva == 0 and plan.ok
+    assert plan.stream == (route == "streamed")
+    assert plan.dm.dtype == (torch.int32 if route == "resident32"
+                             else torch.int16)
+    src = torch.from_numpy(rng.randint(-99, 99, src_n)).to(card, dtype)
+    kw = dict(kw)
+    if "mul" in kw:
+        kw["vals"] = torch.from_numpy(
+            rng.randint(1, 9, plan.S * 128)).to(card, dtype)
+    fill = -99 if kw.get("fold") == "MAX" else 0
+    _kernels.reset_launches()
+    got = mono.mono_gather(plan, src, fill, **kw)
+    assert _kernels.launches["mono_rows"] == 1
+    want = mono.mono_gather_plain(plan, src, fill, **kw)
+    assert torch.equal(got, want)
+
+
+def _cascade_plan(card, seed=3):
+    rng = np.random.RandomState(seed)
+    n, nnz = 3000, 30000
+    rows = np.concatenate([rng.randint(0, 50, nnz // 2),
+                           rng.randint(0, n, nnz - nnz // 2)])
+    key = np.unique(rows * n + rng.randint(0, n, nnz))
+    rows, cols = key // n, key % n
+    plan = xspmv.XSpmvPlan._build(rows, cols, np.ones(len(rows)), n, n,
+                                  np.dtype(np.float32)).to(card)
+    assert len(plan.levels) >= 2
+    return plan, rng
+
+
+@pytest.mark.parametrize("fold", ["PLUS", "MIN", "MAX"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_mono_cascade_kernel(card, fold, dtype):
+    plan, rng = _cascade_plan(card)
+    cur = torch.from_numpy(rng.randint(-999, 999, plan.m1)).to(card, dtype)
+    fill = 0 if fold == "PLUS" else (
+        np.iinfo(np.int32).max if fold == "MIN" else np.iinfo(np.int32).min)
+    if dtype == torch.float32 and fold != "PLUS":
+        fill = np.inf if fold == "MIN" else -np.inf
+    _kernels.reset_launches()
+    got = mono.mono_cascade(plan.levels, plan.places[0], cur, fill, fold)
+    assert _kernels.launches["mono_cascade"] == 1
+    assert _kernels.launches["mono_span"] == 0
+    want = cur
+    for lp in plan.levels:
+        want = mono.mono_gather_plain(lp, want.reshape(-1), fill,
+                                      fold=fold).reshape(-1)
+    want = mono.mono_gather_plain(plan.places[0], want, fill)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 3, 124])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_mid_pass_and_lane_gather_kernels(card, S, dtype):
+    rng = np.random.RandomState(S)
+    nsub = 3 if S == 124 else 50
+    x = torch.from_numpy(rng.randint(-999, 999, (nsub, S, 128))).to(
+        card, dtype)
+    a, c = (torch.from_numpy(rng.randint(0, 128, (nsub * S, 128))
+                             .astype(np.int8)).to(card) for _ in range(2))
+    ssel = (torch.from_numpy(rng.randint(0, S, (nsub, S, 128))
+                             .astype(np.int8)).to(card) if S > 1 else None)
+    _kernels.reset_launches()
+    got = perm._mid_pass(x, a, ssel, c)
+    assert _kernels.launches["mid_pass"] == 1
+    assert torch.equal(got, perm._mid_pass_plain(x, a, ssel, c))
+    x2 = x.reshape(-1, 128)
+    got = perm._lane_gather(x2, a)
+    assert _kernels.launches["lane_gather"] == 1
+    assert torch.equal(got, perm._lane_gather_plain(x2, a))
+
+
+def _kron12(sym):
+    rows, cols, n = generators.rmat_edges(12, 16)
+    if sym:
+        r = np.concatenate([rows, cols])
+        c = np.concatenate([cols, rows])
+        keep = r != c
+        key = np.unique(r[keep] * n + c[keep])
+        rows, cols = key // n, key % n
+    return rows, cols, n
+
+
+@pytest.mark.parametrize("sym", [False, True])
+def test_xspmv_launches_on_kron12(card, sym):
+    """One xspmv on kron-12 A^T (D=2, S=5, K=106) and kron-12
+    symmetrised (D=2, S=7, K=128): 2 span gathers, 1 descend, the
+    mid pass, 1 ascend, 1 cascade, and the JAX package's values."""
+    rows, cols, n = _kron12(sym)
+    A = generators.to_matrix(rows, cols, n, types.FP32)
+    plan = A._xspmv_plan(True, np.float32, device=card)
+    assert (plan.perm.D, plan.perm.S) == ((2, 7) if sym else (2, 5))
+    x = torch.from_numpy(np.random.RandomState(1).rand(n)
+                         .astype(np.float32)).to(card)
+    sem = types.FP32.PLUS_TIMES
+    _kernels.reset_launches()
+    y, _ = xspmv.xspmv(plan, x, sem, np.float32)
+    torch.cuda.synchronize()
+    assert _kernels.launches == dict(
+        _kernels.launches, mono_span=2, mono_cascade=1, lane_gather_tdesc=1,
+        mid_pass=1, lane_gather_tasc=1, mono_rows=0, inner3=0,
+        lane_gather=0)
+    cplan = A._xspmv_plan(True, np.float32, device="cpu")
+    want, _ = xspmv.xspmv(cplan, x.cpu(), sem, np.float32)
+    assert torch.allclose(y.cpu(), want, rtol=1e-6)
+
+
+def test_bfs_sssp_bc_on_card(card):
+    rows, cols, n = _kron12(False)
+    A = generators.to_matrix(rows, cols, n, types.BOOL)
+    _kernels.reset_launches()
+    lv = fused.bfs_level(A, 0)
+    assert _kernels.launches["mid_pass"] > 0
+    assert _kernels.launches["mono_cascade"] > 0
+    assert np.array_equal(lv.to_numpy(),
+                          fused.bfs_level(A, 0, device="cpu").to_numpy())
+    batch = fused.bfs_batch(A, [0, 5])
+    assert torch.equal(batch[0].cpu(), lv._vals.cpu().to(torch.int32))
+    w = np.random.RandomState(1).randint(1, 256, len(rows)).astype(
+        np.float32)
+    Aw = generators.to_matrix(rows, cols, n, types.FP32, vals=w)
+    d = fused.sssp(Aw, 0)
+    assert np.array_equal(d.to_numpy(),
+                          fused.sssp(Aw, 0, device="cpu").to_numpy())
+    rs, cs, _ = _kron12(True)
+    As = generators.to_matrix(rs, cs, n, types.FP32)
+    got = fused.bc(As, [0, 1, 2, 3]).to_numpy()
+    want = fused.bc(As, [0, 1, 2, 3], device="cpu").to_numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

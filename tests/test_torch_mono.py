@@ -6,6 +6,8 @@ span kernel run in interpret mode: gathers and products exactly, PLUS
 folds within rtol 1e-6 (the same s = 0..7 order, so in practice equal).
 """
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -141,3 +143,109 @@ def test_mono_span_wrapper_rejects_other_devices():
     _, plan_t, src, _ = _span_inputs()
     with pytest.raises(ValueError):
         tmono.mono_span(plan_t, torch.from_numpy(src).to("meta"), 0.0)
+
+
+def _stream_case():
+    """A streamed plan with ok == True: a source past _RESIDENT_BYTES
+    (3M float32) and S = 192 rows in blocks of 64 whose windows fit two
+    source blocks of xb rows."""
+    rng = np.random.RandomState(21)
+    idx = rng.randint(0, 1_500_000, 3 * 64 * 128)
+    return _sorted_with_invalid(np.sort(idx), 13), 3_000_000
+
+
+@pytest.mark.parametrize("route", ["resident", "streamed"])
+@pytest.mark.parametrize("mode", ["plain", "mul:TIMES", "fold:PLUS",
+                                  "fold:MAX"])
+def test_rows_plain_matches_pallas_interpret(route, mode, monkeypatch):
+    """Kernel 3 (_mono_pallas, per-row windows) in interpret mode against
+    the port's mono_rows on CPU tensors (its plain version): resident
+    per-row plans (span encoding off) and a streamed plan."""
+    monkeypatch.setattr(jmono, "_SPAN_MAX_WVA", 0)
+    monkeypatch.setattr(tmono, "_SPAN_MAX_WVA", 0)
+    if route == "resident":
+        _, idx, src_n = _idx_cases()[4]
+    else:
+        idx, src_n = _stream_case()
+    plan_j = jmono.MonoPlan.build(idx, src_n)
+    plan_t = tmono.MonoPlan.build(idx, src_n).to("cpu")
+    assert plan_j.wva == 0 and plan_j.ok
+    assert plan_j.stream == (route == "streamed") == plan_t.stream
+    rng = np.random.RandomState(5)
+    src = rng.rand(src_n).astype(np.float32)
+    vals = rng.rand(plan_j.S * 128).astype(np.float32)
+    kind, _, op = mode.partition(":")
+    fill = np.float32(-np.inf if op == "MAX" else 0.0)
+    jkw, tkw = {}, {}
+    if kind == "mul":
+        jkw = dict(vals=jnp.asarray(vals), mul=_J_MUL[op])
+        tkw = dict(vals=torch.from_numpy(vals), mul=op)
+    elif kind == "fold":
+        jkw = dict(fold=_J_FOLD[op])
+        tkw = dict(fold=op)
+    monkeypatch.setattr(jmono, "_FORCE_INTERPRET", True)
+    want = np.asarray(jmono.mono_gather(plan_j, jnp.asarray(src), fill,
+                                        **jkw))
+    got = tmono.mono_rows(plan_t, torch.from_numpy(src), fill, **tkw)
+    if mode == "fold:PLUS":
+        assert np.allclose(got.numpy(), want, rtol=1e-6)
+    else:
+        assert np.array_equal(got.numpy(), want)
+
+
+@functools.lru_cache(maxsize=None)
+def _cascade_plans(seed):
+    """The same multi-level fold cascade (skewed degrees, as
+    tests/test_mono.py:_cascade_case) built by both packages."""
+    from pygraphblas_tpu.core.xspmv import XSpmvPlan as JPlan
+    from pygraphblas_tpu_torch.core.xspmv import XSpmvPlan as TPlan
+
+    rng = np.random.RandomState(seed)
+    n, nnz = 3000, 30000
+    rows = np.concatenate([rng.randint(0, 50, nnz // 2),
+                           rng.randint(0, n, nnz - nnz // 2)])
+    key = np.unique(rows * n + rng.randint(0, n, nnz))
+    rows, cols = key // n, key % n
+    vals = rng.rand(len(rows)).astype(np.float32)
+    jp = JPlan._build(rows, cols, vals, n, n, np.dtype(np.float32))
+    tp = TPlan._build(rows, cols, vals, n, n, np.dtype(np.float32))
+    assert len(jp.levels) >= 2 and len(tp.levels) == len(jp.levels)
+    return jp, tp.to("cpu")
+
+
+@pytest.mark.parametrize("fold", ["PLUS", "MIN"])
+def test_cascade_plain_matches_pallas_interpret(fold, monkeypatch):
+    """Kernel 2 (mono_cascade) in interpret mode against the port's
+    mono_cascade on CPU tensors (the chain of plain gathers)."""
+    jp, tp = _cascade_plans(3 if fold == "PLUS" else 11)
+    cur0 = np.random.RandomState(7).rand(jp.m1).astype(np.float32)
+    fill = np.float32(0.0 if fold == "PLUS" else np.inf)
+    monkeypatch.setattr(jmono, "_FORCE_INTERPRET", True)
+    want = jmono.mono_cascade(jp.levels, jp.places[0], jnp.asarray(cur0),
+                              fill, _J_FOLD[fold])
+    got = tmono.mono_cascade(tp.levels, tp.places[0],
+                             torch.from_numpy(cur0), fill, fold)
+    assert want is not None and got is not None
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    if fold == "PLUS":
+        assert np.allclose(got.numpy(), want, rtol=1e-6)
+    else:
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_cascade_dispatch_rules():
+    """mono_cascade returns None exactly where the JAX package's does:
+    no levels, 8-byte dtypes, per-row or streamed plans."""
+    _, tp = _cascade_plans(3)
+    x = torch.zeros(tp.m1)
+    assert tmono.mono_cascade([], tp.places[0], x, 0.0, "PLUS") is None
+    assert tmono.mono_cascade(tp.levels, tp.places[0], x.double(), 0.0,
+                              "PLUS") is None
+    _, idx, src_n = _idx_cases()[5]
+    streamed = tmono.MonoPlan.build(idx, src_n).to("cpu")
+    assert streamed.stream
+    assert tmono.mono_cascade(tp.levels + [streamed], tp.places[0], x, 0.0,
+                              "PLUS") is None
+    assert tmono.mono_cascade(tp.levels, tp.places[0], x, 0.0,
+                              "PLUS") is not None

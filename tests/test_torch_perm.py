@@ -173,3 +173,57 @@ def test_wrappers_reject_other_devices():
         tperm._lane_gather_tasc(x, idx, 1, 128)
     with pytest.raises(ValueError):
         tperm._inner3(x, idx, idx, None, idx, idx, 1, 1)
+
+
+@pytest.mark.parametrize("nsub,S,dtype", [(64, 1, np.float32),
+                                          (40, 3, np.int32),
+                                          (4, 124, np.float32)])
+def test_mid_pass_plain_matches_jax(nsub, S, dtype):
+    """Kernel 8 (_mid_pass) at S = 1 (no select), 3 (kron-18's bottom
+    level) and 124 (kron-16's), against the JAX function, whose CPU path
+    is XLA's take_along_axis."""
+    rng = np.random.RandomState(nsub + S)
+    x = _rand(rng, (nsub, S, 128), dtype)
+    a = rng.randint(0, 128, (nsub * S, 128)).astype(np.int8)
+    c = rng.randint(0, 128, (nsub * S, 128)).astype(np.int8)
+    ssel = (rng.randint(0, S, (nsub, S, 128)).astype(np.int8)
+            if S > 1 else None)
+    want = np.asarray(jperm._mid_pass(
+        jnp.asarray(x), jnp.asarray(a),
+        None if ssel is None else jnp.asarray(ssel), jnp.asarray(c), S))
+    T = lambda v: None if v is None else torch.from_numpy(v)
+    got = tperm._mid_pass(T(x), T(a), T(ssel), T(c))
+    assert got.shape == want.shape
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_lane_gather_plain_matches_jax(dtype):
+    """Kernel 4 (_lane_gather) against the JAX function (XLA on the
+    CPU): out[r, l] = x[r, idx[r, l]]."""
+    rng = np.random.RandomState(4)
+    x = _rand(rng, (384, 128), dtype)
+    idx = rng.randint(0, 128, (384, 128)).astype(np.int8)
+    want = np.asarray(jperm._lane_gather(jnp.asarray(x), jnp.asarray(idx)))
+    got = tperm._lane_gather(torch.from_numpy(x), torch.from_numpy(idx))
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,K", [(3 * 128 ** 2, 128), (40000, 105)])
+def test_native_route_mid_pass_plans(n, K):
+    """The port's native plans that take _mid_pass (D == 2, S == 3):
+    K == 128, with the fold8 fused into the ascend after it, and K < 128,
+    with the fold run after the permutation."""
+    assert _native.available()
+    rng = np.random.RandomState(n)
+    src = rng.permutation(n)
+    p = tperm.PermPlan.build(src)
+    assert (p.D, p.S, p.R0, p.K) == (2, 3, 384, K)
+    pt = p.to("cpu")
+    x = rng.rand(n).astype(np.float32)
+    assert np.array_equal(pt.apply(torch.from_numpy(x)).numpy(), x[src])
+    folded, _ = pt.apply_fold8(torch.from_numpy(x), np.float32(0), "MAX")
+    f = x[src]
+    f = np.concatenate([f, np.zeros(-len(f) % 1024, np.float32)])
+    want = f.reshape(-1, 8, 128).max(axis=1).reshape(-1)
+    assert np.array_equal(folded.numpy()[:want.size], want)

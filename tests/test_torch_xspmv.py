@@ -151,3 +151,38 @@ def test_min_nnz_gate():
     assert not TX.supported(ttypes.FP32.PLUS_SECOND, np.float32,
                             TX.MIN_NNZ - 1)
     assert TX.supported(ttypes.FP32.PLUS_SECOND, np.float32, TX.MIN_NNZ)
+
+
+@pytest.mark.parametrize("route", ["per_row", "streamed"])
+def test_convert_carries_perrow_and_streamed_monoplans(route, monkeypatch):
+    """Per-row (wva == 0) and streamed MonoPlans carry across from the
+    JAX arrays: q0, dm (int16 or int32), xblk, xb, xblk_max, and gather
+    as the JAX plain path does."""
+    import pygraphblas_tpu.core.mono as jmono
+    from pygraphblas_tpu_torch.core import mono as tmono
+
+    rng = np.random.RandomState(9)
+    if route == "per_row":
+        monkeypatch.setattr(jmono, "_SPAN_MAX_WVA", 0)
+        src_n = 2_500_000          # resident; rows span > 32767: int32 dm
+        idx = np.sort(rng.randint(0, src_n, 64 * 128))
+    else:
+        src_n = 3_000_000
+        idx = np.sort(rng.randint(0, 1_500_000, 3 * 64 * 128))
+    jp = jmono.MonoPlan.build(idx, src_n)
+    d = _mono_dict(jp)
+    tp = convert.mono_plan_from_arrays(d, "cpu")
+    assert tp.wva == 0 and tp.ok and tp.stream == (route == "streamed")
+    if route == "per_row":
+        assert tp.dm.dtype == torch.int32
+    else:
+        assert tp.xblk_max > 0 and tp.xb > 0
+    for k in MONO_STATIC:
+        assert getattr(tp, k) == d[k], k
+    for k in ("q0", "dm", "xblk", "qg"):
+        assert np.array_equal(getattr(tp, k).numpy(), d[k]), k
+    src = rng.rand(src_n).astype(np.float32)
+    want = np.asarray(jmono.mono_gather(jp, jnp.asarray(src), 0.0,
+                                        fold=lambda a, b: a + b))
+    got = tmono.mono_gather(tp, torch.from_numpy(src), 0.0, fold="PLUS")
+    assert np.allclose(got.numpy(), want, rtol=1e-6)
