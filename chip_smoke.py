@@ -39,7 +39,13 @@ behind the sleep).  Both are summed over the kernel's launches in one
 xspmv of its timed path.  "in_path_ms" is the
 kernel's device time per xspmv inside that path (torch.profiler).
 "bound_ms" is the larger of the bytes moved once over the HBM rate and
-the fold/mul operations over the float32 rate.
+the fold/mul operations over the float32 rate; for mono_cascade the
+bytes are every plan's dm and qg, the first source and the placed
+output (its intermediates stay in L2).  Each path through the cascade
+also times it against the chain of mono_span launches it replaces, as
+kernels ("cascade_vs_chain") and end to end through the entry point
+("cascade_ab", the cascade call made to return None); pr20 does so for
+every count of fold levels too.
 
 Run:  python3 chip_smoke.py [--iters 200] [--reps 20]
 Logs too long for the terminal (nvcc -Xptxas -v, profiler tables, every
@@ -162,6 +168,7 @@ class Checks:
         self.torch = torch
         self.reps = reps
         self.rows = []
+        self.cascade_vs_chain = {}      # path -> cascade and chain ms
 
     def run(self, kernel, path, case, kfn, pfn, nbytes, ops=0,
             timed=False):
@@ -216,6 +223,45 @@ def mono_bytes(plan, src_len, fold, mul):
         (S // 8 * 4 if plan.wva else S * 4)
     return (idx + min(src_len, plan.src_n) * 4 + out
             + (S * 128 * 4 if mul else 0))
+
+
+def cascade_vs_chain(torch, reps, cascade, chain):
+    """Event ms of the cascade and of the chain of mono_span launches it
+    replaces, on the same inputs, timed in the order cascade, chain,
+    chain, cascade (best of each)."""
+    if not torch.equal(cascade(), chain()):
+        raise AssertionError("mono_cascade differs from the mono_span chain")
+    ms = {"cascade_ms": [], "chain_ms": []}
+    for k in ("cascade_ms", "chain_ms", "chain_ms", "cascade_ms"):
+        ms[k].append(event_ms(torch, cascade if k == "cascade_ms" else chain,
+                              reps))
+    return {k: min(v) for k, v in ms.items()}
+
+
+def cascade_by_levels(torch, reps, plan):
+    """The cascade of the first k fold levels, with plan k as its
+    unfolded last pass, beside the chain of the same k + 1 mono_span
+    launches, for k = 1 .. levels: the slope in k is the cost of one
+    level in each."""
+    from pygraphblas_tpu_torch.core import mono as M
+
+    L = plan.levels + plan.places
+    cur = torch.rand(plan.m1, device="cuda")
+    rows = []
+    for k in range(1, len(L)):
+        def chain(k=k):
+            c = cur
+            for lp in L[:k]:
+                c = M.mono_span(lp, c.reshape(-1), 0.0,
+                                fold="PLUS").reshape(-1)
+            return M.mono_span(L[k], c, 0.0)
+        rows.append(dict(levels=k, **cascade_vs_chain(
+            torch, reps,
+            lambda k=k: M.mono_cascade(L[:k], L[k], cur, 0.0, "PLUS"),
+            chain)))
+        log(f"  cascade vs chain, {k} fold levels: "
+            f"{rows[-1]['cascade_ms']:.4f} vs {rows[-1]['chain_ms']:.4f} ms")
+    return rows
 
 
 def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
@@ -312,19 +358,28 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
     cur = acc1.reshape(-1)[:plan.m1]
     levels, place = plan.levels, plan.places[0]
     if M._cascade_applies(levels, place, cur.dtype):
-        def chain():
-            c2 = cur
-            for lp in levels:
-                c2 = M.mono_gather_plain(lp, c2.reshape(-1), fill,
-                                         fold=add).reshape(-1)
-            return M.mono_gather_plain(place, c2, fill)
-        nbytes = sum(mono_bytes(lp, lp.src_n, True, False) for lp in levels)
-        nbytes += mono_bytes(place, place.src_n, False, False)
+        def chain(gather1):
+            def run():
+                c2 = cur
+                for lp in levels:
+                    c2 = gather1(lp, c2.reshape(-1), fill,
+                                 fold=add).reshape(-1)
+                return gather1(place, c2, fill)
+            return run
+        # every plan's dm and qg, the first source and the placed output:
+        # the intermediates never leave L2
+        isz = cur.element_size()
+        nbytes = sum(p.dm.numel() * p.dm.element_size() + p.qg.numel() * 4
+                     for p in levels + [place])
+        nbytes += (min(cur.numel(), levels[0].src_n) + place.S * 128) * isz
         ops = sum(lp.S // 8 * 128 * 7 for lp in levels)
-        return ck.run("mono_cascade", path, f"{len(levels)} levels + place",
-                      lambda: M.mono_cascade(levels, place, cur, fill, add),
-                      chain, nbytes, ops=ops,
-                      timed="mono_cascade" in timed)
+        cascade = lambda: M.mono_cascade(levels, place, cur, fill, add)
+        out = ck.run("mono_cascade", path, f"{len(levels)} levels + place",
+                     cascade, chain(M.mono_gather_plain), nbytes, ops=ops,
+                     timed="mono_cascade" in timed)
+        ck.cascade_vs_chain[path] = cascade_vs_chain(
+            torch, ck.reps, cascade, chain(M.mono_span))
+        return out
     for i, lp in enumerate(levels):
         cur = gather(f"level{i + 1} fold", lp, cur.reshape(-1),
                      fold=add).reshape(-1)
@@ -372,6 +427,29 @@ class PathRunner:
                 raise AssertionError(f"{path}: kernel {k} never ran")
         self.counts[path] = dict(counts=counts, xspmv_calls=calls)
         return out
+
+
+def cascade_ab(torch, run):
+    """Wall seconds of run() through xspmv's cascade and through the
+    per-level chain (the cascade call made to return None, as it does
+    for a plan it cannot take), in the order cascade, chain, chain,
+    cascade; best of each and every run."""
+    from pygraphblas_tpu_torch.core import xspmv as xs
+
+    orig = xs.mono_cascade
+    runs = {"cascade_s": [], "chain_s": []}
+    try:
+        for k in ("cascade_s", "chain_s", "chain_s", "cascade_s"):
+            xs.mono_cascade = orig if k == "cascade_s" else \
+                (lambda *a, **kw: None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            runs[k].append(time.perf_counter() - t0)
+    finally:
+        xs.mono_cascade = orig
+    return dict({k: min(v) for k, v in runs.items()}, runs=runs)
 
 
 def graph(scale, sym=False):
@@ -631,6 +709,13 @@ def main():
     e2e = {}
     in_path = {}
 
+    def ab(path, run):
+        e2e[path]["cascade_ab"] = r = cascade_ab(torch, run)
+        k = ck.cascade_vs_chain[path]
+        log(f"  {path} cascade vs chain: wall {r['cascade_s']:.6f} vs "
+            f"{r['chain_s']:.6f} s (runs {r['runs']}); kernels "
+            f"{k['cascade_ms']:.4f} vs {k['chain_ms']:.4f} ms; card {card}")
+
     def pagerank_path(path, scale, iters, best_of):
         t0 = time.perf_counter()
         rows, cols, n = graph(scale)
@@ -644,6 +729,8 @@ def main():
                              .astype(np.float32)).cuda()
         check_xspmv_kernels(torch, ck, plan, w, sem_pr, path,
                             timed=[k for k, p in TIMED.items() if p == path])
+        if path == "pr20":
+            by_levels = cascade_by_levels(torch, ck.reps, plan)
         # correctness: 5 iterations against the planless COO oracle
         r5 = fused.pagerank(A, itermax=5, tol=0.0)
         rows_d, cols_d, _ = A._device_coo("cuda")
@@ -674,6 +761,10 @@ def main():
             f"{el / iters * 1e3:.4f} ms/iteration; card {card}")
         in_path[path] = profile_path(
             torch, drv, lambda: fused.pagerank(A, itermax=5, tol=-1.0), path)
+        if path == "pr20":
+            e2e[path]["cascade_by_levels"] = by_levels
+        if per.get("mono_cascade"):
+            ab(path, lambda: fused.pagerank(A, itermax=iters, tol=-1.0))
         return A, rows, cols, n
 
     # 3a. PageRank at kron-20: the first slice's path, now through the
@@ -757,6 +848,7 @@ def main():
         f"scipy's exactly; card {card}")
     in_path["bfs18"] = profile_path(torch, drv,
                                     lambda: fused.bfs_batch(A, srcs), "bfs18")
+    ab("bfs18", lambda: fused.bfs_batch(A, srcs))
 
     # 3d. SSSP at kron-18 ef16, GAP's integer weights 1..255, from the
     # vertex of most out-edges (a third of kron's vertices have none)
@@ -790,6 +882,7 @@ def main():
         f"{t_sssp / s_calls * 1e3:.4f} ms per step, "
         f"{nnz * s_calls / t_sssp:.6e} nnz/s; distances equal scipy's "
         f"exactly; card {card}")
+    ab("sssp18", lambda: fused.sssp(Aw, s0))
     del A, Aw, G, Gw, plan, planw
     phase_s["bfs18+sssp18"] = time.perf_counter() - t0
 
@@ -820,6 +913,7 @@ def main():
         raise AssertionError("bc16: centrality differs from the CPU run")
     e2e["bc16"] = dict(seconds=t_bc, max_abs_err_vs_cpu=err,
                        xspmv_calls=drv.counts["bc16"]["xspmv_calls"])
+    ab("bc16", lambda: fused.bc(As, srcs))
     del As, plan_t, plan_f
     phase_s["bc16"] = time.perf_counter() - t0
 
@@ -852,9 +946,12 @@ def main():
             bound_by=("bytes" if all(c["bound_by"] == "bytes"
                                      for c in timed) else "operations"),
             library_ms=lane_lib_ms if name == "lane_gather" else None,
+            **({"chain_ms": ck.cascade_vs_chain[tp]["chain_ms"]}
+               if name == "mono_cascade" else {}),
             checks=f"{sum(c['ok'] for c in allc)}/{len(allc)} exact"))
     with open(os.path.join(OUT_DIR, "chip_smoke_checks.json"), "w") as f:
         json.dump(dict(checks=ck.rows, launches=drv.counts, e2e=e2e,
+                       cascade_vs_chain=ck.cascade_vs_chain,
                        phase_s=phase_s), f, indent=1)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))

@@ -121,8 +121,10 @@ def lib():
                                  p]
         L.pgb_mono_rows.argtypes = [p, p, i32, p, i64, i64, p, i64, p, p,
                                     i64, i32, i32, i32, ctypes.c_uint32, p]
-        L.pgb_mono_cascade.argtypes = [i32, p, p, p, p, p, i32, i32,
-                                       ctypes.c_uint32, p]
+        L.pgb_mono_cascade.argtypes = [i32, p, p, p, p, p, p, i32, i32,
+                                       ctypes.c_uint32, p, i64, i32, p]
+        L.pgb_mono_cascade_tiles.argtypes = [i32, p]
+        L.pgb_mono_cascade_tiles.restype = i64
         L.pgb_lane_gather.argtypes = [p, p, p, i64, i32, p]
         L.pgb_mid_pass.argtypes = [p, p, p, p, p, i64, i32, i32, p]
         for fn in (L.pgb_mono_span, L.pgb_lane_gather_tdesc,

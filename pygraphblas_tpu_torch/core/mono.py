@@ -299,6 +299,23 @@ def mono_rows(plan, src, fill, vals=None, mul=None, fold=None):
 # as the dispatch rule, so that both packages take the same path
 _CASCADE_BUDGET = 90 << 20
 
+# device -> [int32 tile flags, epoch of the last call]: the cascade's
+# tiles publish the epoch of their call there, so the buffer is never
+# cleared (calls are ordered on the current stream)
+_FLAGS = {}
+
+
+def _cascade_flags(device, tiles):
+    """The flag buffer (at least `tiles` long) and a new epoch for one
+    cascade launch on `device`."""
+    ent = _FLAGS.get(device)
+    if ent is None or ent[0].numel() < tiles or ent[1] >= (1 << 31) - 1:
+        ent = _FLAGS[device] = [torch.zeros(max(tiles, 1 << 12),
+                                            dtype=torch.int32,
+                                            device=device), 0]
+    ent[1] += 1
+    return ent[0], ent[1]
+
 
 def _cascade_applies(levels, place, dtype):
     """The JAX package's dispatch rules (mono.py:361-385)."""
@@ -328,7 +345,8 @@ def mono_cascade(levels, place, src, fill, fold):
 
     CPU tensors take the plain version, the chain of
     ``mono_gather_plain`` calls; CUDA tensors launch the cooperative
-    ``mono_cascade`` kernel (``csrc/cascade.cu``)."""
+    ``mono_cascade`` kernel (``csrc/cascade.cu``), whose tiles wait on
+    per-tile flags for the window of the level before."""
     if not _cascade_applies(levels, place, src.dtype):
         return None
     if src.device.type == "cpu":
@@ -356,14 +374,18 @@ def mono_cascade(levels, place, src, fill, fold):
     qg = ptrs(*[p.qg.data_ptr() for p in plans])
     dm = ptrs(*[p.dm.data_ptr() for p in plans])
     groups = (ctypes.c_int64 * n)(*[p.S // 8 for p in plans])
+    wva = (ctypes.c_int64 * n)(*[p.wva for p in plans])
     bufp = (ctypes.c_void_p * (n + 1))(*[b.data_ptr() for b in bufs])
     lens = (ctypes.c_int64 * (n + 1))(*[b.numel() for b in bufs])
-    rc = _kernels.lib().pgb_mono_cascade(
+    L = _kernels.lib()
+    tiles = L.pgb_mono_cascade_tiles(n, ctypes.cast(groups, ctypes.c_void_p))
+    flags, epoch = _cascade_flags(src.device, tiles)
+    rc = L.pgb_mono_cascade(
         n, ctypes.cast(qg, ctypes.c_void_p), ctypes.cast(dm, ctypes.c_void_p),
-        ctypes.cast(groups, ctypes.c_void_p),
+        ctypes.cast(groups, ctypes.c_void_p), ctypes.cast(wva, ctypes.c_void_p),
         ctypes.cast(bufp, ctypes.c_void_p), ctypes.cast(lens, ctypes.c_void_p),
         code, ADDS[fold][1], _kernels.fill_bits(fill, src.dtype),
-        _kernels.stream())
+        flags.data_ptr(), flags.numel(), epoch, _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
     return out

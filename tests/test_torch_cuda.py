@@ -165,6 +165,31 @@ def test_mono_cascade_kernel(card, fold, dtype):
     assert torch.equal(got, want)
 
 
+def test_mono_cascade_kernel_repeated(card, monkeypatch):
+    """Calls after calls on two plans: every call's tiles wait on flags
+    of its own epoch, and the flag buffer grows from one flag."""
+    small, rng = _cascade_plan(card)
+    rows, cols, n = generators.rmat_edges(14, 16)
+    big = generators.to_matrix(rows, cols, n, types.FP32)._xspmv_plan(
+        True, np.float32, device=card)
+    dev = torch.empty(0, device=card).device          # cuda:<index>
+    monkeypatch.setattr(mono, "_FLAGS", {dev: [torch.zeros(
+        1, dtype=torch.int32, device=dev), 0]})
+    for _ in range(3):
+        for plan in (small, big):
+            cur = torch.from_numpy(rng.rand(plan.m1).astype(np.float32)).to(
+                card)
+            got = mono.mono_cascade(plan.levels, plan.places[0], cur, 0.0,
+                                    "PLUS")
+            want = cur
+            for lp in plan.levels:
+                want = mono.mono_gather_plain(lp, want.reshape(-1), 0.0,
+                                              fold="PLUS").reshape(-1)
+            want = mono.mono_gather_plain(plan.places[0], want, 0.0)
+            assert torch.equal(got, want)
+    assert mono._FLAGS[dev][0].numel() > 1 and mono._FLAGS[dev][1] == 6
+
+
 @pytest.mark.parametrize("S", [1, 3, 124])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 def test_mid_pass_and_lane_gather_kernels(card, S, dtype):

@@ -249,3 +249,20 @@ def test_cascade_dispatch_rules():
                               "PLUS") is None
     assert tmono.mono_cascade(tp.levels, tp.places[0], x, 0.0,
                               "PLUS") is not None
+
+
+def test_cascade_flags_epochs(monkeypatch):
+    """The cascade kernel's flag buffer: one new epoch a call, never 0,
+    and a fresh zeroed buffer (epochs from 1 again) when a call needs
+    more tiles or the epoch would overflow int32."""
+    monkeypatch.setattr(tmono, "_FLAGS", {})
+    dev = torch.device("cpu")
+    f1, e1 = tmono._cascade_flags(dev, 10)
+    f2, e2 = tmono._cascade_flags(dev, 4096)
+    assert (e1, e2) == (1, 2) and f2 is f1 and f1.dtype == torch.int32
+    assert f1.numel() >= 4096 and not f1.any()
+    f3, e3 = tmono._cascade_flags(dev, 5000)
+    assert e3 == 1 and f3.numel() == 5000 and f3 is not f1
+    tmono._FLAGS[dev][1] = (1 << 31) - 1
+    f4, e4 = tmono._cascade_flags(dev, 10)
+    assert e4 == 1 and f4 is not f3 and not f4.any()
