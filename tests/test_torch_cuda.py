@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from pygraphblas_tpu_torch import _kernels, fused, generators, types
-from pygraphblas_tpu_torch.core import mono, perm, xspmv
+from pygraphblas_tpu_torch import (_kernels, algorithms, fused, generators,
+                                   types)
+from pygraphblas_tpu_torch.core import mono, perm, spgemm, xspmv
 
 pytestmark = pytest.mark.cuda
 
@@ -268,3 +269,94 @@ def test_bfs_sssp_bc_on_card(card):
     got = fused.bc(As, [0, 1, 2, 3]).to_numpy()
     want = fused.bc(As, [0, 1, 2, 3], device="cpu").to_numpy()
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def _intersect_inputs(card, W, seed, vdt=None):
+    """512 mask edges over two sorted lists of unique ids; B windows near
+    A's so that they meet.  Edge 0 has wa = 0, edge 1 wb = 0, edge 2
+    fills the width from both lists, edge 3 from A alone."""
+    rng = np.random.RandomState(seed)
+    nnz, E = 1 << 16, 512
+    a, b = (np.sort(rng.choice(3 * nnz, nnz, replace=False)).astype(np.int32)
+            for _ in range(2))
+    ast = rng.randint(0, nnz - W, E)
+    bst = np.clip(ast + rng.randint(-200, 200, E), 0, nnz - W)
+    wa = rng.randint(0, W // 2 + 1, E)
+    wb = np.minimum(rng.randint(0, W, E), W - wa)
+    wa[0], wb[1] = 0, 0
+    wa[2], wb[2] = W // 2, W - W // 2
+    wa[3], wb[3] = W, 0
+    arrs = [a, b] + [x.astype(np.int32) for x in (ast, wa, bst, wb)]
+    if vdt is not None:
+        # float values in [0.5, 4.5): no zero divisor for RDIV
+        arrs += [(rng.rand(nnz) * 4 + 0.5).astype(vdt) if vdt == np.float32
+                 else rng.randint(-9, 10, nnz).astype(vdt)
+                 for _ in range(2)]
+    return [torch.from_numpy(x).to(card) for x in arrs]
+
+
+@pytest.mark.parametrize("W", [128, 4096])
+def test_pair_count_and_fill_keys_kernels(card, W):
+    a, b, ast, wa, bst, wb = _intersect_inputs(card, W, W)
+    _kernels.reset_launches()
+    got = spgemm.pair_count(a, b, ast, wa, bst, wb, W)
+    keys = spgemm.fill_keys(a, b, ast, wa, bst, wb, W)
+    torch.cuda.synchronize()
+    assert _kernels.launches["pair_count"] == 1
+    assert _kernels.launches["fill_keys"] == 1
+    want = spgemm._pair_count_plain(a, b, ast, wa, bst, wb, W)
+    assert torch.equal(got, want) and int(want.max()) > 0
+    assert torch.equal(keys,
+                       spgemm._fill_keys_plain(a, b, ast, wa, bst, wb, W))
+
+
+@pytest.mark.parametrize("add,mul,vdt", [("PLUS", "TIMES", np.float32),
+                                         ("MIN", "PLUS", np.int32),
+                                         ("PLUS", "MINUS", np.int32),
+                                         ("MAX", "RDIV", np.float32)])
+@pytest.mark.parametrize("W", [128, 4096])
+def test_pair_fold_kernel(card, W, add, mul, vdt):
+    a, b, ast, wa, bst, wb, av, bv = _intersect_inputs(card, W, W + 1, vdt)
+    _kernels.reset_launches()
+    cnt, vals = spgemm.pair_fold(a, av, b, bv, ast, wa, bst, wb, W, mul, add)
+    torch.cuda.synchronize()
+    assert _kernels.launches["pair_fold"] == 1
+    wcnt, wvals = spgemm._pair_fold_plain(a, av, b, bv, ast, wa, bst, wb, W,
+                                          mul, add)
+    assert torch.equal(cnt, wcnt)
+    if vdt == np.float32 and add == "PLUS":
+        assert torch.allclose(vals, wvals, rtol=1e-5)
+    else:
+        assert torch.equal(vals, wvals)
+
+
+def test_spgemm_wrappers_raise(card):
+    a, b, ast, wa, bst, wb, av, bv = _intersect_inputs(card, 128, 1,
+                                                       np.float32)
+    with pytest.raises(TypeError):
+        spgemm.pair_count(a.long(), b, ast, wa, bst, wb, 128)
+    with pytest.raises(ValueError):
+        spgemm.fill_keys(a, b.cpu(), ast, wa, bst, wb, 128)
+    with pytest.raises(TypeError):
+        spgemm.pair_fold(a, av.double(), b, bv.double(), ast, wa, bst, wb,
+                         128, "TIMES", "PLUS")
+
+
+def test_triangle_count_and_k_truss_on_card(card, monkeypatch):
+    import scipy.sparse as sp
+
+    rows, cols, n = _kron12(True)
+    A = generators.to_matrix(rows, cols, n, types.FP32)
+    L = sp.tril(sp.csr_matrix((np.ones(len(rows)), (rows, cols)), (n, n)),
+                -1).tocsr()
+    _kernels.reset_launches()
+    assert algorithms.triangle_count(A) == int((L @ L).multiply(L).sum())
+    assert _kernels.launches["pair_count"] > 0
+    want = algorithms.k_truss(A, 4, device="cpu")._coo()
+    for fused_env in ("1", "0"):
+        monkeypatch.setenv("PYGB_PAIR_FUSED", fused_env)
+        _kernels.reset_launches()
+        got = algorithms.k_truss(A, 4)._coo()
+        assert _kernels.launches["fill_keys" if fused_env == "0"
+                                 else "pair_count"] > 0
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))

@@ -121,7 +121,9 @@ def test_port_never_imports_jax():
                 (path, mod)
     # and at run time, in a fresh interpreter
     code = ("import sys, pygraphblas_tpu_torch.fused, "
-            "pygraphblas_tpu_torch.convert, pygraphblas_tpu_torch._kernels;"
+            "pygraphblas_tpu_torch.convert, pygraphblas_tpu_torch._kernels, "
+            "pygraphblas_tpu_torch.algorithms, "
+            "pygraphblas_tpu_torch.core.spgemm;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pygraphblas_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

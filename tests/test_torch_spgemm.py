@@ -1,0 +1,164 @@
+"""Port parity: pygraphblas_tpu_torch.core.spgemm against the JAX package.
+
+The plain versions of kernels 9, 10 and 11 (what the port runs on CPU
+tensors) must equal the JAX Pallas kernels run in interpret mode on the
+same inputs: keys and counts exactly, float32 PLUS_TIMES values within
+rtol 1e-5 (the fold order differs), INT32 MIN_PLUS values exactly.  The
+host helpers must give the JAX package's arrays in both branches.
+"""
+
+import functools
+
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pygraphblas_tpu import types as jtypes
+from pygraphblas_tpu.core import coosparse as jcoo, sparse as jsparse
+from pygraphblas_tpu.core import spgemm as jsg
+from pygraphblas_tpu_torch import types
+from pygraphblas_tpu_torch.core import coosparse, sparse, spgemm
+
+E = 64
+NNZ = 1 << 12
+
+
+def _interpret(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+
+
+def _slab(rng, dt=np.int32):
+    """A sorted list of unique column ids as the JAX kernels' (rows, 128)
+    slab with 1280 entries of tail padding, and its values."""
+    cols = np.sort(rng.choice(3 * NNZ, NNZ, replace=False)).astype(np.int32)
+    pad = np.zeros(NNZ + 1280, np.int32)
+    pad[:NNZ] = cols
+    vals = (rng.rand(NNZ + 1280) * 4).astype(dt) if dt == np.float32 else \
+        rng.randint(-9, 10, NNZ + 1280).astype(dt)
+    return pad, vals
+
+
+def _edges(rng, W):
+    """E mask edges over two slabs, B windows near A's so that the lists
+    meet; edge 0 has wa = 0, edge 1 wb = 0, edge 2 fills the width."""
+    ast = rng.randint(0, NNZ - W - 256, E).astype(np.int32)
+    bst = np.clip(ast + rng.randint(-60, 60, E), 0,
+                  NNZ - W - 256).astype(np.int32)
+    wa = rng.randint(0, min(W // 2, 200), E).astype(np.int32)
+    wb = np.minimum(rng.randint(0, min(W - 1, 300), E), W - wa)
+    wa[0], wb[1] = 0, 0
+    wa[2], wb[2] = W // 2, W - W // 2
+    return ast, wa, bst, wb.astype(np.int32)
+
+
+def _inputs(W, seed, dt=np.int32):
+    rng = np.random.RandomState(seed)
+    (a, av), (b, bv) = _slab(rng, dt), _slab(rng, dt)
+    return a, av, b, bv, _edges(rng, W)
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+
+
+@pytest.mark.parametrize("W", [128, 1024])
+def test_fill_keys_plain_matches_pallas(W, monkeypatch):
+    """Kernel 9 (_pallas_fill_keys) in interpret mode == fill_keys on CPU
+    tensors, key for key."""
+    a, _, b, _, edges = _inputs(W, W)
+    _interpret(monkeypatch)
+    want = np.asarray(jsg._pallas_fill_keys(
+        jnp.asarray(a.reshape(-1, 128)), jnp.asarray(b.reshape(-1, 128)),
+        *[jnp.asarray(x) for x in edges], W))
+    got = spgemm.fill_keys(*_t(a, b, *edges), W)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("W", [128, 1024])
+def test_pair_count_plain_matches_pallas(W, monkeypatch):
+    """Kernel 10 (_pallas_fill_merge_count) in interpret mode ==
+    pair_count on CPU tensors, and both equal a numpy intersection."""
+    a, _, b, _, edges = _inputs(W, W + 1)
+    _interpret(monkeypatch)
+    want = np.asarray(jsg._pallas_fill_merge_count(
+        jnp.asarray(a.reshape(-1, 128)), jnp.asarray(b.reshape(-1, 128)),
+        *[jnp.asarray(x) for x in edges], W))
+    got = spgemm.pair_count(*_t(a, b, *edges), W)
+    assert np.array_equal(got.numpy(), want)
+    ast, wa, bst, wb = edges
+    inter = [len(np.intersect1d(a[s:s + n], b[t:t + m]))
+             for s, n, t, m in zip(ast, wa, bst, wb)]
+    assert np.array_equal(want, inter) and max(inter) > 0
+
+
+@pytest.mark.parametrize("sem,dt", [("PLUS_TIMES", np.float32),
+                                    ("MIN_PLUS", np.int32)])
+def test_pair_fold_plain_matches_pallas(sem, dt, monkeypatch):
+    """Kernel 11 (_pallas_fill_merge_fold) in interpret mode == pair_fold
+    on CPU tensors at W = 128: counts exact, values exact for INT32
+    MIN_PLUS and within rtol 1e-5 for FP32 PLUS_TIMES."""
+    W = 128
+    a, av, b, bv, edges = _inputs(W, 5, dt)
+    jsem = getattr(jtypes.FP32 if dt == np.float32 else jtypes.INT32,
+                   sem.lower())
+    tsem = getattr(types.FP32 if dt == np.float32 else types.INT32, sem)
+    _interpret(monkeypatch)
+    jc, jv = jsg._pallas_fill_merge_fold(
+        jnp.asarray(a.reshape(-1, 128)), jnp.asarray(av.reshape(-1, 128)),
+        jnp.asarray(b.reshape(-1, 128)), jnp.asarray(bv.reshape(-1, 128)),
+        *[jnp.asarray(x) for x in edges], W, jsem.mul_op.apply,
+        jsem.add_monoid.binaryop.apply, jsem.add_monoid.identity(dt), dt)
+    cnt, vals = spgemm.pair_fold(*_t(a, av, b, bv, *edges), W, tsem.mul,
+                                 tsem.add)
+    assert np.array_equal(cnt.numpy(), np.asarray(jc))
+    assert vals.dtype == torch.from_numpy(np.zeros(0, dt)).dtype
+    if dt == np.float32:
+        np.testing.assert_allclose(vals.numpy(), np.asarray(jv), rtol=1e-5)
+    else:
+        assert np.array_equal(vals.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("hi", [5000, 10 ** 9])
+def test_csr_and_row_lookup_equal_jax(hi):
+    """Both branches of _row_lookup: dense tables (small id space) and
+    the sorted search (ids up to 1e9)."""
+    rng = np.random.RandomState(hi % 97)
+    rows = np.sort(rng.randint(0, hi, 3000)).astype(np.int64)
+    cols = rng.randint(0, 50, 3000).astype(np.int64)
+    got = spgemm._csr_of(rows, cols, cols)
+    want = jsg._csr_of(rows, cols, cols)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    query = np.concatenate([rows[::7], rng.randint(0, hi + 10, 500)])
+    for g, w in zip(spgemm._row_lookup(*got, query),
+                    jsg._row_lookup(*want, query)):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_coo_build_equals_jax(canonical):
+    rng = np.random.RandomState(4)
+    r = rng.randint(0, 300, 5000)
+    c = rng.randint(0, 300, 5000)
+    v = rng.randint(0, 99, 5000)
+    if canonical:
+        r, c, v = jcoo.build(r, c, v, np.int64)
+    got = coosparse.build(r, c, v, np.int64)
+    want = jcoo.build(r, c, v, np.int64)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_segment_fold_generic_equals_jax():
+    rng = np.random.RandomState(8)
+    ids = np.sort(rng.randint(0, 200, 3000))
+    vals = rng.randint(-50, 50, 3000).astype(np.int64)
+    got = sparse.segment_fold_generic(ids, vals, np.minimum)
+    want = jsparse.segment_fold_generic(ids, vals,
+                                        jtypes.INT64.MIN_MONOID)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, np.asarray(w))
