@@ -59,8 +59,9 @@ xspmv (one masked_spgemm call) of its timed path.  "in_path_ms" is the
 kernel's device time per xspmv (per call) inside that path
 (torch.profiler).  "bound_ms" is the larger of the bytes moved once over
 the HBM rate and the fold/mul operations over the float32 rate (for the
-intersect kernels: sum(wa + wb), the element compares of a linear merge,
-over the int32 rate); for mono_cascade the
+intersect kernels: per edge the compares of a linear merge, wa + wb, or
+of a search of the longer list for each id of the shorter, whichever
+are fewer, over the int32 rate); for mono_cascade the
 bytes are every plan's dm and qg, the first source and the placed
 output (its intermediates stay in L2).  Each path through the cascade
 also times it against the chain of mono_span launches it replaces, as
@@ -521,12 +522,14 @@ class PathRunner:
         """Run `run()` with the counters at 0; check that the path's
         kernel (EXPECTED_SPGEMM) ran exactly as often as the arguments of
         its masked_spgemm calls ask for, and no other kernel ran."""
+        from pygraphblas_tpu_torch import algorithms as ALG
         from pygraphblas_tpu_torch.core import spgemm as SG
 
         torch, K = self.torch, self.K
         torch.cuda.synchronize()
         K.reset_launches()
         SG.reset_stats()
+        ALG.seconds.clear()
         self.unit = EXPECTED_SPGEMM[path]
         self.design = {}
         try:
@@ -547,7 +550,8 @@ class PathRunner:
             raise AssertionError(f"{path}: kernel {kernel} never ran")
         self.counts[path] = dict(counts=counts,
                                  spgemm_calls=SG.stats["calls"],
-                                 host_s=dict(SG.stats["seconds"]))
+                                 host_s={**ALG.seconds,
+                                         **SG.stats["seconds"]})
         return out
 
 
@@ -879,7 +883,10 @@ class Buckets:
     = L (a CSR matrix; with `vals`, its values as float32 and int32): M's
     columns (A), M^T's (B^T), and per width bucket (the port's own plan,
     spgemm._lookup and _buckets) its edges' (a_st, wa, b_st, wb), with
-    sum(wa + wb): the merge compares that bound kernels 10 and 11."""
+    sum(wa + wb) (the ids read) and the compares that bound kernels 10
+    and 11: per edge the fewer of a linear merge's, wa + wb, and a
+    search of the longer list for each id of the shorter,
+    min(wa, wb) * ceil(log2(max(wa, wb) + 1))."""
 
     def __init__(self, torch, L, vals=False):
         from pygraphblas_tpu_torch.core import spgemm as SG
@@ -889,6 +896,9 @@ class Buckets:
         a_st, wa, b_st, wb = SG._lookup(lr, lc, tr, tc, lr, lc)
         total = wa + wb
         self.heavy = int((total > SG.WIDTH_CAP).sum())
+        lo, hi = np.minimum(wa, wb), np.maximum(wa, wb)
+        compares = np.minimum(total, lo * np.ceil(np.log2(hi + 1)).astype(
+            np.int64))
 
         def cuda(x, dt=np.int32):
             return torch.from_numpy(np.ascontiguousarray(x, dt)).cuda()
@@ -898,11 +908,12 @@ class Buckets:
                      for dt in (np.float32, np.int32)} if vals else None
         self.buckets = [
             dict(w=w, n=len(sel), sum=int(total[sel].sum()),
-                 meta=[cuda(x[sel]) for x in (a_st, wa, b_st, wb)])
+                 compares=int(compares[sel].sum()), meta=[cuda(x[sel]) for x in (a_st, wa, b_st, wb)])
             for w, sel in SG._buckets(total, 128)]
         self.summary = (f"{len(self.buckets)} width buckets "
                         f"{[b['w'] for b in self.buckets]}, sum(wa+wb) "
-                        f"{int(total.sum())}, padded cells "
+                        f"{int(total.sum())}, compares "
+                        f"{int(compares.sum())}, padded cells "
                         f"{sum(b['w'] * b['n'] for b in self.buckets)}, "
                         f"heavy {self.heavy}")
 
@@ -920,7 +931,7 @@ def check_pair_count(ck, bk, path, timed):
         ck.run("pair_count", path, f"W={w} E={b['n']}",
                lambda: SG.pair_count(bk.a, bk.b, *m, w),
                lambda: SG._pair_count_plain(bk.a, bk.b, *m, w),
-               bk.id_bytes(b) + 20 * b["n"], ops=b["sum"], timed=timed,
+               bk.id_bytes(b) + 20 * b["n"], ops=b["compares"], timed=timed,
                ops_per_s=INT32_OPS_PER_S)
 
 
@@ -940,7 +951,7 @@ def check_fill_keys(torch, ck, bk, path):
         ok, err = True, 0.0
         for lo, hi in chunks:
             got = launch(SG.fill_keys, lo, hi)
-            want = launch(SG._fill_keys_plain, lo, hi)
+            want = launch(SG._fill_plain, lo, hi)
             ok &= bool(torch.equal(got, want))
             err = max(err, max_abs_diff(torch, got, want))
             del got, want
@@ -955,7 +966,7 @@ def check_fill_keys(torch, ck, bk, path):
         ck.record("fill_keys", path, f"W={w} E={b['n']} {len(chunks)} chunks",
                   ok, err, shape, 4 * b["n"] * (w + 4) + bk.id_bytes(b), 0,
                   True, None, INT32_OPS_PER_S,
-                  (loop(SG.fill_keys), loop(SG._fill_keys_plain)))
+                  (loop(SG.fill_keys), loop(SG._fill_plain)))
 
 
 def check_pair_fold(ck, bk, path):
@@ -974,7 +985,7 @@ def check_pair_fold(ck, bk, path):
                    lambda: SG.pair_fold(bk.a, av, bk.b, bv, *m, w, mul, add),
                    lambda: SG._pair_fold_plain(bk.a, av, bk.b, bv, *m, w,
                                                mul, add),
-                   2 * bk.id_bytes(b) + 24 * b["n"], ops=b["sum"],
+                   2 * bk.id_bytes(b) + 24 * b["n"], ops=b["compares"],
                    timed=rtol is not None, rtol=rtol,
                    ops_per_s=INT32_OPS_PER_S)
 
@@ -993,8 +1004,8 @@ def with_env(name, value, run):
 
 
 def host_split(drv, path, calls):
-    """Host seconds per call by phase (spgemm.stats): relabel+build,
-    csr+lookup and plan (bucket planning), dispatch, pull (which waits
+    """Host seconds per call by phase (algorithms.seconds: relabel+build;
+    spgemm.stats: csr+lookup and plan (bucket planning), dispatch, pull (which waits
     for the device), assemble."""
     return {k: v / calls for k, v in drv.counts[path]["host_s"].items()}
 

@@ -17,6 +17,10 @@ from .core import spgemm as gk
 from .core.coosparse import build as _cbuild
 from .matrix import Matrix
 
+# host seconds by phase ("relabel+build") summed over calls since
+# seconds.clear(); core/spgemm.stats holds masked_spgemm's own phases
+seconds = {}
+
 
 def triangle_count(A, method="sandia", order_by_degree=True, device=None):
     """Count triangles in the undirected graph A (boolean-symmetric):
@@ -47,7 +51,7 @@ def triangle_count(A, method="sandia", order_by_degree=True, device=None):
     ones = np.ones(len(lr), np.int64)
     lr, lc, ones = _cbuild(lr, lc, ones, np.int64)
     btr, btc, _ = _cbuild(lc, lr, ones, np.int64)
-    gk.add_seconds("relabel+build", t0)
+    gk.add_seconds(seconds, "relabel+build", t0)
     _, _, vv = gk.masked_spgemm(lr, lc, ones, btr, btc, ones, lr, lc,
                                 types.INT64.PLUS_PAIR, np.int64, device=dev)
     return int(vv.sum())
@@ -70,7 +74,7 @@ def k_truss(A, k, device=None):
         t0 = time.perf_counter()
         ones = np.ones(len(r), np.int64)
         btr, btc, _ = _cbuild(c, r, ones, np.int64)
-        gk.add_seconds("relabel+build", t0)
+        gk.add_seconds(seconds, "relabel+build", t0)
         cnt_r, cnt_c, support = gk.masked_spgemm(
             r, c, ones, btr, btc, ones, r, c, types.INT64.PLUS_PAIR,
             np.int64, device=dev)

@@ -9,7 +9,7 @@ always takes."""
 import numpy as np
 
 
-def build(rows, cols, vals, dtype, dedup="last"):
+def build(rows, cols, vals, dtype):
     """Sort by (row, col) and deduplicate (later duplicates win);
     returns canonical COO triples."""
     rows = np.asarray(rows, np.int64)

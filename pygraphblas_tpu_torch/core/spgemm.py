@@ -68,26 +68,24 @@ _NP_MUL = {
 _NP_ADD = {"PLUS": np.add, "MIN": np.minimum, "MAX": np.maximum,
            "TIMES": np.multiply}
 
-# summed over masked_spgemm calls since reset_stats(): calls, host
-# seconds by phase, and the kernel launches the bucket plans asked for
+# summed over masked_spgemm calls since reset_stats(): calls, heavy
+# edges and host seconds by phase
 stats = {}
 
 
 def reset_stats():
     stats.clear()
-    stats.update(calls=0, heavy_edges=0, seconds={},
-                 planned=dict(pair_count=0, fill_keys=0, pair_fold=0))
+    stats.update(calls=0, heavy_edges=0, seconds={})
 
 
 reset_stats()
 
 
-def add_seconds(phase, t0):
-    """Add the host seconds since perf_counter() value t0 to `phase`;
-    returns the time now."""
+def add_seconds(seconds, phase, t0):
+    """Add the host seconds since perf_counter() value t0 to
+    ``seconds[phase]``; returns the time now."""
     t1 = time.perf_counter()
-    sec = stats["seconds"]
-    sec[phase] = sec.get(phase, 0.0) + (t1 - t0)
+    seconds[phase] = seconds.get(phase, 0.0) + (t1 - t0)
     return t1
 
 
@@ -177,11 +175,6 @@ def _fill_plain(a_cols, b_cols, a_st, wa, b_st, wb, width, a_vals=None,
     f = _scalar(ident, a_vals.dtype)
     return keys, torch.where(in_a, a_vals[ia],
                              torch.where(in_b, b_vals[ib], f))
-
-
-def _fill_keys_plain(a_cols, b_cols, a_st, wa, b_st, wb, width):
-    """Plain version of kernel 9 (``fill_keys``)."""
-    return _fill_plain(a_cols, b_cols, a_st, wa, b_st, wb, width)
 
 
 def _match(ks):
@@ -288,7 +281,7 @@ def fill_keys(a_cols, b_cols, a_st, wa, b_st, wb, width):
     """Kernel 9: the (E, width) int32 key rows of the TPU layout (see
     ``_fill_plain``); width a multiple of 128."""
     if a_cols.device.type == "cpu":
-        return _fill_keys_plain(a_cols, b_cols, a_st, wa, b_st, wb, width)
+        return _fill_plain(a_cols, b_cols, a_st, wa, b_st, wb, width)
     name = "fill_keys"
     _check_intersect(name, a_cols, b_cols, a_st, wa, b_st, wb)
     if width % 128 or width > WIDTH_CAP:
@@ -458,8 +451,7 @@ def _heavy(a_cols, a_vals, bt_cols, bt_vals, a_st, wa, b_st, wb, heavy,
 
 
 def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
-                  m_rows, m_cols, semiring, out_dtype, transpose_note="",
-                  device=None):
+                  m_rows, m_cols, semiring, out_dtype, device=None):
     """C<M> = A (+.x) B with B supplied TRANSPOSED (bt = rows of B^T).
 
     All index arrays are canonical (row-sorted) host numpy COO.  Runs on
@@ -470,6 +462,7 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
     dev = resolve_device(device)
     t0 = time.perf_counter()
     stats["calls"] += 1
+    sec = stats["seconds"]
     out_dtype = np.dtype(out_dtype)
     nmask = len(m_rows)
     if nmask == 0:
@@ -481,14 +474,14 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
     total = wa + wb
     out_vals = np.zeros(nmask, out_dtype)
     out_cnt = np.zeros(nmask, np.int64)
-    t0 = add_seconds("csr+lookup", t0)
+    t0 = add_seconds(sec, "csr+lookup", t0)
 
     heavy = total > WIDTH_CAP
     if heavy.any():
         stats["heavy_edges"] += int(heavy.sum())
         _heavy(a_cols, a_vals, bt_cols, bt_vals, a_st, wa, b_st, wb, heavy,
                semiring, out_dtype, out_vals, out_cnt)
-    t0 = add_seconds("heavy", t0)
+    t0 = add_seconds(sec, "heavy", t0)
 
     maxcol = max(int(a_cols.max()) if len(a_cols) else 0,
                  int(bt_cols.max()) if len(bt_cols) else 0)
@@ -526,20 +519,17 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
             a_v, b_v = (as_tensor(np.asarray(v if len(v) else [0], out_dtype),
                                   dev) for v in (a_vals, bt_vals))
         fused = os.environ.get("PYGB_PAIR_FUSED", "1") != "0"
-        t0 = add_seconds("plan", t0)
+        t0 = add_seconds(sec, "plan", t0)
         off = 0
         for w, sel in buckets:
             m = [meta[k, off:off + len(sel)] for k in range(4)]
             off += len(sel)
             if val_fast:
-                stats["planned"]["pair_fold"] += 1
                 cnt, v = pair_fold(a_c, a_v, b_c, b_v, *m, w, mul, add)
                 parts.append((sel, cnt, v))
             elif fused:
-                stats["planned"]["pair_count"] += 1
                 parts.append((sel, pair_count(a_c, b_c, *m, w), None))
             else:
-                stats["planned"]["fill_keys"] += len(_chunks(len(sel), w))
                 parts.append((sel, _pair_count_chain(a_c, b_c, *m, w), None))
     else:
         # generic operands as int64 columns and out_dtype values
@@ -553,7 +543,7 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
         b_c, b_v = ops(bt_cols, bt_vals)
         meta = [as_tensor(x.astype(np.int32), dev)
                 for x in (a_st, wa, b_st, wb)]
-        t0 = add_seconds("plan", t0)
+        t0 = add_seconds(sec, "plan", t0)
         for w, sel in buckets:
             sel_t = as_tensor(sel, dev)
             for lo, hi in _chunks(len(sel), w):
@@ -561,14 +551,14 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
                 c, cnt = _generic_intersect(a_c, a_v, b_c, b_v, *m, semiring,
                                             torch_dt, w, narrow)
                 parts.append((sel[lo:hi], cnt, c))
-    t0 = add_seconds("dispatch", t0)
+    t0 = add_seconds(sec, "dispatch", t0)
 
     if parts:
         vparts = [p[2] for p in parts if p[2] is not None]
         pulled = _pull(([torch.cat(vparts)] if vparts else [])
                        + [torch.cat([p[1] for p in parts])])
         cnt_all = pulled[-1]
-        t0 = add_seconds("pull", t0)
+        t0 = add_seconds(sec, "pull", t0)
         off = voff = 0
         for sel, _, v in parts:
             cnt_h = cnt_all[off:off + len(sel)]
@@ -583,5 +573,5 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
             out_cnt[sel] = cnt_h
     present = out_cnt > 0
     result = (m_rows[present], m_cols[present], out_vals[present])
-    add_seconds("assemble", t0)
+    add_seconds(sec, "assemble", t0)
     return result

@@ -16,9 +16,10 @@
 // warps get similar work.
 //
 // Bounds.  pair_count and pair_fold: the ids read once and four int32 per
-// edge (plus the values), over the HBM rate, against the sum(wa + wb)
-// element compares of a linear merge over the int32 rate; whichever is
-// larger.  fill_keys: the E x W int32 keys it writes.
+// edge (plus the values), over the HBM rate, against the compares over
+// the int32 rate, whichever is larger; an edge needs the fewer of a
+// linear merge's wa + wb and a search's min(wa, wb) log2(max(wa, wb)).
+// fill_keys: the E x W int32 keys it writes.
 //
 // The ops of pair_fold are those of ops.cuh (no FMA contraction).  Its
 // fold order (per lane in list order, then a shuffle tree across the

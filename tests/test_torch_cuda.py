@@ -307,7 +307,7 @@ def test_pair_count_and_fill_keys_kernels(card, W):
     want = spgemm._pair_count_plain(a, b, ast, wa, bst, wb, W)
     assert torch.equal(got, want) and int(want.max()) > 0
     assert torch.equal(keys,
-                       spgemm._fill_keys_plain(a, b, ast, wa, bst, wb, W))
+                       spgemm._fill_plain(a, b, ast, wa, bst, wb, W))
 
 
 @pytest.mark.parametrize("add,mul,vdt", [("PLUS", "TIMES", np.float32),
