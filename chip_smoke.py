@@ -37,10 +37,20 @@ Phases, in order; any failure exits non-zero:
        val16  masked_spgemm on tc16's L with weights 1..4: FP32
               PLUS_TIMES equal to scipy's exactly, INT32 MIN_PLUS equal
               to the generic intersect (torch ops) on the card;
+       then the unmasked-SpGEMM paths (core/gustavson.spgemm under
+       spgemm_engine="auto", which takes the ESC engine on the card: four
+       segfold launches and one esc_gather a call, no dense matmul):
+       esc14  C = A @ A, kron-14 ef16 directed, FP32 weights 1..4 (seed
+              7), PLUS_TIMES, warm, best of 3; equal to scipy's exactly;
+       esc13  kron-13 symmetrised, INT32: PLUS_PAIR (common neighbours)
+              equal to scipy's S @ S; MIN_PLUS with weights 1..255 equal
+              to the same product through spgemm_engine="scipy" (scipy's
+              pattern, then masked_spgemm's pair_fold on the card);
      before each path, every kernel it runs is held against its plain
      PyTorch version on the card at the path's own shapes (bit-exact,
      but pair_fold's float32 PLUS within rtol 1e-5: another fold order),
-     at every width bucket of its call, and timed at the shapes of the
+     at every width bucket of its call (segfold on each of a call's four
+     scans, esc_gather at every slot), and timed at the shapes of the
      path named for it in TIMED (and mid_pass at bc16's S = 124, and
      pair_count at tc16, too);
   4. small MIN/MAX-fold, mul and int32 cases of every kernel, and
@@ -55,13 +65,15 @@ path is not timed; the plain versions' ("plain_ms") from back-to-back
 calls alone (their tens of launches a call would fill the launch queue
 behind the sleep; a slow plain version is called fewer times, at most
 about 2 s in all).  Both are summed over the kernel's launches in one
-xspmv (one masked_spgemm call) of its timed path.  "in_path_ms" is the
+xspmv (one masked_spgemm or unmasked spgemm call) of its timed path.  "in_path_ms" is the
 kernel's device time per xspmv (per call) inside that path
 (torch.profiler).  "bound_ms" is the larger of the bytes moved once over
 the HBM rate and the fold/mul operations over the float32 rate (for the
 intersect kernels: per edge the compares of a linear merge, wa + wb, or
 of a search of the longer list for each id of the shorter, whichever
-are fewer, over the int32 rate); for mono_cascade the
+are fewer, over the int32 rate; for segfold the values and flags read
+and the values written, for esc_gather dm read and both outputs written,
+B staying in L2); for mono_cascade the
 bytes are every plan's dm and qg, the first source and the placed
 output (its intermediates stay in L2).  Each path through the cascade
 also times it against the chain of mono_span launches it replaces, as
@@ -117,6 +129,10 @@ KERNELS = {
                    "pygraphblas_tpu/core/spgemm.py:179"),
     "pair_fold": ("pygraphblas_tpu_torch/csrc/spgemm.cu",
                   "pygraphblas_tpu/core/spgemm.py:388"),
+    "segfold": ("pygraphblas_tpu_torch/csrc/scan.cu",
+                "pygraphblas_tpu/core/scan.py:53"),
+    "esc_gather": ("pygraphblas_tpu_torch/csrc/esc.cu",
+                   "pygraphblas_tpu/core/esc.py:85"),
 }
 
 # kernel -> the path whose shapes its "ms" is timed at (lane_gather: no
@@ -125,7 +141,7 @@ TIMED = {"mono_span": "pr20", "mono_cascade": "pr20", "mono_rows": "pr21",
          "lane_gather": "isolated", "lane_gather_tdesc": "pr20",
          "lane_gather_tasc": "pr20", "inner3": "pr20", "mid_pass": "bfs18",
          "fill_keys": "tc16_chain", "pair_count": "tc18",
-         "pair_fold": "val16"}
+         "pair_fold": "val16", "segfold": "esc14", "esc_gather": "esc14"}
 
 # launches per xspmv of each path (zero for every kernel not named)
 EXPECTED = {
@@ -151,6 +167,11 @@ EXPECTED_SPGEMM = {
     "val16": ("pair_fold", "bucket"),
 }
 
+# unmasked-SpGEMM paths: launches per ESC call (segfold: one launch a
+# scan, four scans a call)
+EXPECTED_ESC = {"esc14": {"segfold": 4, "esc_gather": 1},
+                "esc13": {"segfold": 4, "esc_gather": 1}}
+
 # kernel symbol prefix in a profile -> kernel name
 _SYMBOLS = {"mono_span_kernel": "mono_span",
             "mono_cascade_kernel": "mono_cascade",
@@ -160,7 +181,8 @@ _SYMBOLS = {"mono_span_kernel": "mono_span",
             "tasc_kernel": "lane_gather_tasc", "inner3_kernel": "inner3",
             "mid_pass_kernel": "mid_pass", "fill_keys_kernel": "fill_keys",
             "pair_count_kernel": "pair_count",
-            "pair_fold_kernel": "pair_fold"}
+            "pair_fold_kernel": "pair_fold", "segfold_kernel": "segfold",
+            "esc_gather_kernel": "esc_gather"}
 
 
 def log(msg):
@@ -552,6 +574,46 @@ class PathRunner:
                                  spgemm_calls=SG.stats["calls"],
                                  host_s={**ALG.seconds,
                                          **SG.stats["seconds"]})
+        return out
+
+
+    def drive_esc(self, path, run):
+        """Run `run()` with the counters at 0; check that every ESC call
+        (esc.stats["calls"]: the calls that reached the device) launched
+        segfold 4 times and esc_gather once, that no other kernel ran,
+        and that the dense tier's matmul was not used."""
+        from pygraphblas_tpu_torch.core import dense as DN, esc as E
+
+        torch, K = self.torch, self.K
+        torch.cuda.synchronize()
+        K.reset_launches()
+        E.reset_stats()
+        orig, mxm_calls = DN.mxm, []
+
+        def counted(*a, **kw):
+            mxm_calls.append(1)
+            return orig(*a, **kw)
+
+        DN.mxm = counted
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            DN.mxm = orig
+        counts, calls = dict(K.launches), E.stats["calls"]
+        log(f"  {path}: {calls} ESC calls, {len(mxm_calls)} dense matmuls; "
+            "launches " + ", ".join(f"{k} {c}" for k, c in counts.items()
+                                    if c))
+        want = {k: v * calls for k, v in EXPECTED_ESC[path].items()}
+        if calls == 0 or mxm_calls:
+            raise AssertionError(f"{path}: the call did not take ESC")
+        for k in KERNELS:
+            if counts[k] != want.get(k, 0):
+                raise AssertionError(
+                    f"{path}: kernel {k} launched {counts[k]} times in "
+                    f"{calls} ESC calls, expected {want.get(k, 0)}")
+        self.counts[path] = dict(counts=counts, esc_calls=calls,
+                                 host_s=dict(E.stats["seconds"]))
         return out
 
 
@@ -1215,6 +1277,233 @@ def val_path(torch, ck, drv, card, L):
     return res
 
 
+def record_esc(run):
+    """run() with the ESC engine's kernel calls recorded: the inputs of
+    each segfold (values, flags, add monoid) and of esc_gather, at the
+    path's own shapes.  Returns (run's result, scans, gathers)."""
+    from pygraphblas_tpu_torch.core import esc as E
+
+    scans, gathers = [], []
+    orig_s, orig_g = E.segfold, E.esc_gather
+
+    def seg(v, f, add):
+        scans.append((v, f, add))
+        return orig_s(v, f, add)
+
+    def gat(*a):
+        gathers.append(a)
+        return orig_g(*a)
+
+    E.segfold, E.esc_gather = seg, gat
+    try:
+        out = run()
+    finally:
+        E.segfold, E.esc_gather = orig_s, orig_g
+    if len(scans) != 4 or len(gathers) != 1:
+        raise AssertionError(f"the call made {len(scans)} scans and "
+                             f"{len(gathers)} gathers, not one ESC call's")
+    return out, scans, gathers
+
+
+# the four scans of one ESC call, in order (esc.py:168-227)
+SCAN_NAMES = ("bpos", "ri", "av", "totals")
+
+
+def check_esc_kernels(torch, ck, path, tag, scans, gathers, live, timed):
+    """segfold on each recorded scan, esc_gather at every slot, against
+    their plain versions: exact, but a float PLUS scan within rtol 1e-5
+    over all slots and exact over the `live` ones (the expansion's; the
+    path's values are integers, so there any fold order gives the same
+    bits, while the dead slots past them form one long segment whose
+    float sum rounds by fold order).  With `timed`, their times, and the
+    yardsticks: torch.cumsum at each scan's length (unsegmented: a lower
+    yardstick, not the same function), summed; one index_select of B's
+    columns and values stacked as int32 pairs at a premade int64 index
+    (the same gather).  Returns (cumsum ms, index_select ms)."""
+    from pygraphblas_tpu_torch.core import esc as E, scan as SC
+
+    cumsum_ms, lib_ms = 0.0, None
+    for name, (v, f, add) in zip(SCAN_NAMES, scans):
+        dt = str(v.dtype).replace("torch.", "")
+        case = f"{tag}{name} {add} {dt} M={v.numel()}"
+        rtol = 1e-5 if v.is_floating_point() and add == "PLUS" else None
+        out = ck.run("segfold", path, case, lambda: SC.segfold(v, f, add),
+                     lambda: SC._segfold_plain(v, f, add),
+                     v.numel() * (2 * v.element_size() + 1), timed=timed,
+                     rtol=rtol)
+        if rtol is not None and not torch.equal(
+                out[:live], SC._segfold_plain(v, f, add)[:live]):
+            raise AssertionError(f"segfold/{path} {case}: the live slots "
+                                 "differ from the plain version")
+        if timed:
+            cumsum_ms += event_ms(
+                torch, lambda: torch.cumsum(v, 0, dtype=v.dtype), ck.reps)
+    for cols2d, vals2d, qg, dm in gathers:
+        S = dm.shape[0]
+        ck.run("esc_gather", path,
+               f"{tag}S={S} rows_b={cols2d.shape[0]} "
+               + str(vals2d.dtype).replace("torch.", ""),
+               lambda: E.esc_gather(cols2d, vals2d, qg, dm),
+               lambda: E._esc_gather_plain(cols2d, vals2d, qg, dm),
+               dm.numel() * 4 + qg.numel() * 4
+               + S * 128 * (4 + vals2d.element_size()), timed=timed)
+        if timed:
+            src = torch.stack([cols2d.reshape(-1),
+                               vals2d.reshape(-1).view(torch.int32)], 1)
+            flat = (qg.long().repeat_interleave(1024) * 128
+                    + dm.reshape(-1).long())
+            lib_ms = event_ms(torch, lambda: src.index_select(0, flat),
+                              ck.reps)
+    if timed:
+        log(f"  yardsticks: torch.cumsum over the four scans' lengths "
+            f"{cumsum_ms:.4f} ms (unsegmented); index_select of B's "
+            f"(col, value) pairs {lib_ms:.4f} ms")
+    return cumsum_ms, lib_ms
+
+
+def esc_same(got, want):
+    return all(np.array_equal(x, y) for x, y in zip(got, want))
+
+
+def esc14_path(torch, ck, drv, card):
+    """C = A @ A, kron-14 ef16 directed, FP32 weights 1..4 (seed 7),
+    PLUS_TIMES through gustavson.spgemm ("auto": ESC on the card), warm,
+    best of 3; C equal to scipy's exactly (every sum is an integer below
+    2^24).  Before it, segfold and esc_gather against their plain
+    versions at the call's shapes, timed, and segfold on random float32
+    values (PLUS, within rtol 1e-5: another fold order)."""
+    import scipy.sparse as sp
+    from pygraphblas_tpu_torch import types
+    from pygraphblas_tpu_torch.core import gustavson as G, scan as SC
+
+    t0 = time.perf_counter()
+    rows, cols, n = graph(14)
+    w = np.random.RandomState(7).randint(1, 5, len(rows)).astype(np.float32)
+    sem = types.FP32.PLUS_TIMES
+    F = int(np.bincount(rows, minlength=n)[cols].sum())
+
+    def call():
+        return G.spgemm(rows, cols, w, rows, cols, w, sem, np.float32)
+
+    t1 = time.perf_counter()
+    first, scans, gathers = record_esc(call)
+    t_first = time.perf_counter() - t1
+    F_pad = scans[0][0].numel()
+    log(f"esc14: kron-14 ef16 n={n} nnz={len(rows)}; F={F} (F_pad {F_pad}),"
+        f" nnz(C)={len(first[0])}; first call {t_first:.4f} s "
+        f"({time.perf_counter() - t0:.1f} s with the graph)")
+    cumsum_ms, lib_ms = check_esc_kernels(torch, ck, "esc14", "", scans,
+                                          gathers, F, timed=True)
+    del scans, gathers
+    rng = np.random.RandomState(5)
+    v = torch.from_numpy(rng.rand(1 << 22).astype(np.float32)).cuda()
+    f = torch.from_numpy(rng.rand(1 << 22) < 0.01).cuda()
+    ck.run("segfold", "esc14", "random fp32 PLUS M=4194304",
+           lambda: SC.segfold(v, f, "PLUS"),
+           lambda: SC._segfold_plain(v, f, "PLUS"), v.numel() * 9,
+           rtol=1e-5)
+    del v, f
+    runs = []
+
+    def best_of_3():
+        for _ in range(3):
+            t = time.perf_counter()
+            out = call()
+            runs.append(time.perf_counter() - t)
+        return out
+
+    got = drv.drive_esc("esc14", best_of_3)
+    t = time.perf_counter()
+    A = sp.csr_matrix((w.astype(np.float64), (rows, cols)), (n, n))
+    want = csr_coo(A @ A)
+    t_scipy = time.perf_counter() - t
+    if not (esc_same(got[:2], want[:2])
+            and np.array_equal(got[2], want[2].astype(np.float32))
+            and esc_same(got, first)):
+        raise AssertionError("esc14: C differs from scipy's A @ A")
+    el = min(runs)
+    nnz = len(got[0])
+    res = dict(seconds=el, runs_s=runs, first_s=t_first, F=F, F_pad=F_pad,
+               nnz_out=nnz, products_per_s=F / el, out_per_s=nnz / el,
+               host_s_per_call=host_split(drv, "esc14", 3), scipy_s=t_scipy,
+               cumsum_ms=cumsum_ms, index_select_ms=lib_ms)
+    log(f"  esc14: C = A @ A equal to scipy's exactly ({nnz} entries); warm "
+        f"best of 3 {el:.4f} s ({runs}), first {t_first:.4f} s; "
+        f"{F / el:.6e} products/s, {nnz / el:.6e} outputs/s; host per "
+        f"call {json.dumps(res['host_s_per_call'])}; scipy {t_scipy:.4f} "
+        f"s; card {card}")
+    res["profile"] = profile_spgemm(torch, call, "esc14")
+    return res
+
+
+def esc13_path(torch, ck, drv, card):
+    """kron-13 symmetrised S, INT32, through gustavson.spgemm ("auto"):
+    PLUS_PAIR (common-neighbour counts) equal to scipy's S @ S; MIN_PLUS
+    with weights 1..255 (seed 7) equal to the same product through
+    spgemm_engine="scipy" (scipy's pattern, then the generic tier's
+    masked_spgemm with pair_fold on the card).  Before it, segfold (PLUS,
+    and MIN over MIN_PLUS's products) and esc_gather against their plain
+    versions at both calls' shapes."""
+    import scipy.sparse as sp
+    from pygraphblas_tpu_torch import options_set, types
+    from pygraphblas_tpu_torch.core import gustavson as G
+
+    rows, cols, n = graph(13, sym=True)
+    ones = np.ones(len(rows), np.int32)
+    wts = np.random.RandomState(7).randint(1, 256, len(rows)).astype(
+        np.int32)
+
+    def pair():
+        return G.spgemm(rows, cols, ones, rows, cols, ones,
+                        types.INT32.PLUS_PAIR, np.int32)
+
+    def min_plus():
+        return G.spgemm(rows, cols, wts, rows, cols, wts,
+                        types.INT32.MIN_PLUS, np.int32)
+
+    F = int(np.bincount(rows, minlength=n)[cols].sum())
+    log(f"esc13: kron-13 symmetrised n={n} nnz={len(rows)}; F={F}")
+    for tag, run in (("PLUS_PAIR ", pair), ("MIN_PLUS ", min_plus)):
+        _, scans, gathers = record_esc(run)
+        check_esc_kernels(torch, ck, "esc13", tag, scans, gathers, F,
+                          timed=False)
+        del scans, gathers
+    secs = {}
+
+    def both():
+        out = []
+        for name, run in (("PLUS_PAIR", pair), ("MIN_PLUS", min_plus)):
+            t = time.perf_counter()
+            out.append(run())
+            secs[name] = time.perf_counter() - t
+        return out
+
+    got_p, got_m = drv.drive_esc("esc13", both)
+    S = sp.csr_matrix((np.ones(len(rows), np.int64), (rows, cols)), (n, n))
+    want = csr_coo(S @ S)
+    if not (esc_same(got_p[:2], want[:2])
+            and np.array_equal(got_p[2], want[2].astype(np.int32))):
+        raise AssertionError("esc13: PLUS_PAIR differs from scipy's S @ S")
+    options_set(spgemm_engine="scipy")
+    try:
+        t = time.perf_counter()
+        ref = min_plus()
+        t_gen = time.perf_counter() - t
+    finally:
+        options_set(spgemm_engine="auto")
+    if not esc_same(got_m, ref):
+        raise AssertionError("esc13: MIN_PLUS differs from the generic "
+                             "tier on the card")
+    res = dict(seconds=secs, generic_min_plus_s=t_gen, F=F,
+               nnz_out=len(got_p[0]),
+               host_s_per_call=host_split(drv, "esc13", 2))
+    log(f"  esc13: PLUS_PAIR equal to scipy's S @ S ({len(got_p[0])} "
+        f"entries), MIN_PLUS equal to the generic tier on the card "
+        f"({t_gen:.4f} s); seconds {secs}; card {card}")
+    res["profile"] = profile_spgemm(torch, pair, "esc13")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200,
@@ -1490,7 +1779,9 @@ def main():
             ("kt16", lambda: kt_path(torch, drv, card, "kt16", *kron16s,
                                      chain=True, scipy_ref=False)),
             ("val16", lambda: val_path(torch, ck, drv, card,
-                                       degree_lower(*kron16s)))):
+                                       degree_lower(*kron16s))),
+            ("esc14", lambda: esc14_path(torch, ck, drv, card)),
+            ("esc13", lambda: esc13_path(torch, ck, drv, card))):
         t0 = time.perf_counter()
         e2e[path] = run()
         for tag in ("profile", "profile_chain"):
@@ -1514,6 +1805,19 @@ def main():
                        library_note="none: no single PyTorch call computes a "
                        "masked intersection count (torch.sparse.sampled_addmm "
                        "takes dense operands)")
+        elif name == "segfold":
+            c = drv.counts[tp]
+            per = dict(launches_per_call=c["counts"][name] / c["esc_calls"],
+                       yardstick_cumsum_ms=e2e[tp]["cumsum_ms"],
+                       library_note="none: torch has no segmented scan; "
+                       "yardstick_cumsum_ms is torch.cumsum at the four "
+                       "scans' lengths, unsegmented: a lower yardstick, not "
+                       "the same function")
+        elif name == "esc_gather":
+            c = drv.counts[tp]
+            per = dict(launches_per_call=c["counts"][name] / c["esc_calls"],
+                       library_note="one index_select of B's (column, value) "
+                       "pairs stacked as int32, at a premade int64 index")
         else:
             per = dict(launches_per_xspmv=EXPECTED.get(tp, {}).get(name, 0))
         timed = [c for c in ck.rows if c["kernel"] == name and c["timed"]
@@ -1533,7 +1837,9 @@ def main():
             bound_ms=sum(c["bound_ms"] for c in timed),
             bound_by=("bytes" if all(c["bound_by"] == "bytes"
                                      for c in timed) else "operations"),
-            library_ms=lane_lib_ms if name == "lane_gather" else None,
+            library_ms={"lane_gather": lane_lib_ms,
+                        "esc_gather": e2e["esc14"]["index_select_ms"]}.get(
+                            name),
             **({"chain_ms": ck.cascade_vs_chain[tp]["chain_ms"]}
                if name == "mono_cascade" else {}),
             checks=f"{sum(c['ok'] for c in allc)}/{len(allc)} "

@@ -31,7 +31,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 launches = {"mono_span": 0, "mono_cascade": 0, "mono_rows": 0,
             "lane_gather": 0, "lane_gather_tdesc": 0, "lane_gather_tasc": 0,
             "inner3": 0, "mid_pass": 0, "pair_count": 0, "fill_keys": 0,
-            "pair_fold": 0}
+            "pair_fold": 0, "segfold": 0, "esc_gather": 0}
 
 _lib = None
 build_log = ""
@@ -133,10 +133,16 @@ def lib():
                                     p]
         L.pgb_pair_fold.argtypes = [p, p, i64, p, p, i64, p, p, p, p, p, p,
                                     i64, i32, i32, i32, ctypes.c_uint32, p]
+        L.pgb_segfold.argtypes = [p, p, p, i64, i32, i32, p,
+                                  ctypes.c_uint32, p, p]
+        L.pgb_segfold_tiles.argtypes = [i64]
+        L.pgb_segfold_tiles.restype = i64
+        L.pgb_esc_gather.argtypes = [p, p, i64, p, p, p, p, i64, p]
         for fn in (L.pgb_mono_span, L.pgb_lane_gather_tdesc,
                    L.pgb_lane_gather_tasc, L.pgb_inner3, L.pgb_mono_rows,
                    L.pgb_mono_cascade, L.pgb_lane_gather, L.pgb_mid_pass,
-                   L.pgb_pair_count, L.pgb_fill_keys, L.pgb_pair_fold):
+                   L.pgb_pair_count, L.pgb_fill_keys, L.pgb_pair_fold,
+                   L.pgb_segfold, L.pgb_esc_gather):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

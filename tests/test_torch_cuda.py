@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from pygraphblas_tpu_torch import (_kernels, algorithms, fused, generators,
-                                   types)
-from pygraphblas_tpu_torch.core import mono, perm, spgemm, xspmv
+                                   options_set, types)
+from pygraphblas_tpu_torch.core import (esc, gustavson, mono, perm, scan,
+                                        spgemm, xspmv)
 
 pytestmark = pytest.mark.cuda
 
@@ -360,3 +361,114 @@ def test_triangle_count_and_k_truss_on_card(card, monkeypatch):
         assert _kernels.launches["fill_keys" if fused_env == "0"
                                  else "pair_count"] > 0
         assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def _scan_inputs(card, m, dtype, flags, seed):
+    rng = np.random.RandomState(seed)
+    # float values k / 8, |k| <= 32: every partial sum is exact in
+    # float32, so any fold order gives the same bits
+    v = (rng.randint(-1000, 1000, m) if dtype == torch.int32
+         else rng.randint(-32, 33, m) / 8)
+    f = {"none": np.zeros(m, bool), "all": np.ones(m, bool),
+         "sparse": rng.rand(m) < 0.02}[flags]
+    return (torch.from_numpy(v).to(card, dtype),
+            torch.from_numpy(f).to(card))
+
+
+@pytest.mark.parametrize("flags", ["none", "all", "sparse"])
+@pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("m", [1024, 3 * 2048 + 1024, 1 << 20])
+def test_segfold_kernel(card, m, dtype, add, flags):
+    """Partial last tiles, one segment over every tile (the longest
+    look-back), a start at every value, and sparse starts: exact."""
+    v, f = _scan_inputs(card, m, dtype, flags, m % 97)
+    _kernels.reset_launches()
+    got = scan.segfold(v, f, add)
+    torch.cuda.synchronize()
+    assert _kernels.launches["segfold"] == 1
+    assert torch.equal(got, scan._segfold_plain(v, f, add))
+
+
+def test_segfold_kernel_float_plus(card):
+    """Random float32 values, PLUS: within rtol 1e-5 of the plain
+    version (another fold order)."""
+    rng = np.random.RandomState(3)
+    m = 1 << 16
+    v = torch.from_numpy(rng.rand(m).astype(np.float32)).to(card)
+    f = torch.from_numpy(rng.rand(m) < 0.01).to(card)
+    f[0] = True
+    assert torch.allclose(scan.segfold(v, f, "PLUS"),
+                          scan._segfold_plain(v, f, "PLUS"), rtol=1e-5)
+
+
+def test_segfold_kernel_repeated(card):
+    """Calls on one status buffer (the epoch) and growing lengths."""
+    for i, m in enumerate([1 << 16, 1 << 12, 1 << 22, 1 << 16] * 3):
+        v, f = _scan_inputs(card, m, torch.int32, "sparse", i)
+        assert torch.equal(scan.segfold(v, f, "PLUS"),
+                           scan._segfold_plain(v, f, "PLUS"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_esc_gather_kernel(card, dtype):
+    """In-range slots equal the plain version; a row past the source is
+    clamped to its last row, lane kept, as the TPU kernel clamps it."""
+    rng = np.random.RandomState(5)
+    S, rows = 64, 300
+    qg = torch.from_numpy(rng.randint(0, rows - 20, S // 8)
+                          .astype(np.int32)).to(card)
+    dm = torch.from_numpy(rng.randint(0, 20 * 128, (S, 128))
+                          .astype(np.int32)).to(card)
+    cols = torch.from_numpy(rng.randint(0, 1 << 30, (rows, 128))
+                            .astype(np.int32)).to(card)
+    vals = torch.from_numpy(rng.randint(-99, 99, (rows, 128))).to(card,
+                                                                   dtype)
+    _kernels.reset_launches()
+    got = esc.esc_gather(cols, vals, qg, dm)
+    torch.cuda.synchronize()
+    assert _kernels.launches["esc_gather"] == 1
+    for g, w in zip(got, esc._esc_gather_plain(cols, vals, qg, dm)):
+        assert torch.equal(g, w)
+    qg[0] = rows - 1
+    dm[:8] = 3 * 128 + 5
+    gc, gv = esc.esc_gather(cols, vals, qg, dm)
+    assert bool((gc[:8] == cols[rows - 1, 5]).all())
+    assert bool((gv[:8] == vals[rows - 1, 5]).all())
+
+
+@pytest.mark.parametrize("sem,typ", [("PLUS_TIMES", "FP32"),
+                                     ("PLUS_PAIR", "INT32"),
+                                     ("MIN_PLUS", "INT32")])
+def test_esc_spgemm_on_card(card, sem, typ):
+    """A @ A at kron-12 (integer values 1..4): through ESC under "auto"
+    (the dense tier's budget lowered below kron-12's 2^24 cells),
+    four segfold launches and one esc_gather, equal to the same call on
+    the CPU exactly (every sum is an integer below 2^24)."""
+    rows, cols, _ = _kron12(False)
+    dt = getattr(types, typ).numpy_dtype
+    v = np.random.RandomState(7).randint(1, 5, len(rows)).astype(dt)
+    semiring = getattr(getattr(types, typ), sem)
+    options_set(spgemm_dense_cells=1 << 20)     # kron-12 fits 2^24 cells
+    try:
+        _kernels.reset_launches()
+        got = gustavson.spgemm(rows, cols, v, rows, cols, v, semiring, dt)
+    finally:
+        options_set(spgemm_dense_cells=1 << 24)
+    assert _kernels.launches["segfold"] == 4
+    assert _kernels.launches["esc_gather"] == 1
+    want = esc.esc_spgemm(rows, cols, v, rows, cols, v, semiring, dt,
+                          device="cpu")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_scan_and_gather_wrappers_raise(card):
+    v = torch.zeros(1024, dtype=torch.int64, device=card)
+    f = torch.zeros(1024, dtype=torch.bool, device=card)
+    with pytest.raises(TypeError):
+        scan.segfold(v, f, "PLUS")
+    with pytest.raises(TypeError):
+        scan.segfold(v.int(), f.int(), "PLUS")
+    c = torch.zeros((4, 128), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        esc.esc_gather(c, c.double(), c[0, :1], c[:8].contiguous())

@@ -123,7 +123,11 @@ def test_port_never_imports_jax():
     code = ("import sys, pygraphblas_tpu_torch.fused, "
             "pygraphblas_tpu_torch.convert, pygraphblas_tpu_torch._kernels, "
             "pygraphblas_tpu_torch.algorithms, "
-            "pygraphblas_tpu_torch.core.spgemm;"
+            "pygraphblas_tpu_torch.core.spgemm, "
+            "pygraphblas_tpu_torch.core.gustavson, "
+            "pygraphblas_tpu_torch.core.esc, pygraphblas_tpu_torch.core.scan, "
+            "pygraphblas_tpu_torch.core.dense, "
+            "pygraphblas_tpu_torch.core.coosem;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pygraphblas_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
