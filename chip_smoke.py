@@ -49,13 +49,19 @@ Phases, in order; any failure exits non-zero:
      before each path, every kernel it runs is held against its plain
      PyTorch version on the card at the path's own shapes (bit-exact,
      but pair_fold's float32 PLUS within rtol 1e-5: another fold order),
-     at every width bucket of its call (segfold on each of a call's four
+     at every width bucket of its call (pair_count at every launch of
+     kt14's and kt16's first run too, segfold on each of a call's four
      scans, esc_gather at every slot), and timed at the shapes of the
-     path named for it in TIMED (and mid_pass at bc16's S = 124, and
-     pair_count at tc16, too);
-  4. small MIN/MAX-fold, mul and int32 cases of every kernel, and
-     _lane_gather (which no path reaches) at kron-18's level-0 shape
-     beside torch.gather;
+     path named for it in TIMED (and inner3 at pr21, mid_pass at bc16's
+     S = 124, and pair_count at tc16, too); the two redesigned kernels
+     (inner3 at pr20 and pr21, pair_count at tc18) log their time
+     beside their earlier design's (EARLIER_MS: constants copied from
+     PERF.md, kept with this run's times in chip_smoke_checks.json, not
+     in the kernels line);
+  4. small MIN/MAX-fold, mul and int32 cases of every kernel, inner3 at
+     S = 1, 3, 9, 18 and 24 in both dtypes, pair_count on hand-made edge
+     lists (pygraphblas_tpu_torch.testing), and _lane_gather (which no
+     path reaches) at kron-18's level-0 shape beside torch.gather;
   5. one JSON line of kernel results, the card line, and the final
      {"ok": true, "device": ...} line.
 
@@ -65,18 +71,21 @@ path is not timed; the plain versions' ("plain_ms") from back-to-back
 calls alone (their tens of launches a call would fill the launch queue
 behind the sleep; a slow plain version is called fewer times, at most
 about 2 s in all).  Both are summed over the kernel's launches in one
-xspmv (one masked_spgemm or unmasked spgemm call) of its timed path.  "in_path_ms" is the
-kernel's device time per xspmv (per call) inside that path
-(torch.profiler).  "bound_ms" is the larger of the bytes moved once over
-the HBM rate and the fold/mul operations over the float32 rate (for the
-intersect kernels: per edge the compares of a linear merge, wa + wb, or
-of a search of the longer list for each id of the shorter, whichever
-are fewer, over the int32 rate; for segfold the values and flags read
-and the values written, for esc_gather dm read and both outputs written,
-B staying in L2); for mono_cascade the
-bytes are every plan's dm and qg, the first source and the placed
-output (its intermediates stay in L2).  Each path through the cascade
-also times it against the chain of mono_span launches it replaces, as
+xspmv (one masked_spgemm or unmasked spgemm call) of its timed path.
+"in_path_ms" is the kernel's device time per xspmv (per call) inside
+that path (torch.profiler), or "incomplete" where the trace, taken twice,
+held fewer of the kernel's events than the run launched.  "bound_ms" is
+the larger of the bytes moved once over the HBM rate and the fold/mul
+operations over the float32 rate (for pair_fold: per edge the compares
+of a linear merge, wa + wb, or of a search of the longer list for each
+id of the shorter, whichever are fewer, over the int32 rate; for
+pair_count one probe per id of each edge's shorter list, over the
+int32 rate; for segfold the values and flags read and the values
+written, for esc_gather dm read and both outputs written, B staying in
+L2); for mono_cascade the bytes are every plan's dm and qg, the first
+source and the placed output (its intermediates stay in L2).  Each path
+through the cascade also times it against the chain of mono_span
+launches it replaces, as
 kernels ("cascade_vs_chain") and end to end through the entry point
 ("cascade_ab", the cascade call made to return None); pr20 does so for
 every count of fold levels too.
@@ -143,6 +152,18 @@ TIMED = {"mono_span": "pr20", "mono_cascade": "pr20", "mono_rows": "pr21",
          "fill_keys": "tc16_chain", "pair_count": "tc18",
          "pair_fold": "val16", "segfold": "esc14", "esc_gather": "esc14"}
 
+# the redesigned kernels' earlier designs, as PERF.md records them (this
+# script on an NVIDIA H100 80GB HBM3 at 700 W): inner3 one 1024-thread
+# block a group through a device-memory slab, pair_count one warp an edge
+# binary-searching the longer list; (ms, how it was taken) at a path's
+# shapes: "events" as "ms" here, "in path" from the path's profile
+EARLIER_MS = {("inner3", "pr20"): (0.2760, "events"),
+              ("inner3", "pr21"): (0.5390, "in path"),
+              ("pair_count", "tc18"): (2.2221, "events")}
+# (kernel, path) -> this run's ms beside the earlier design's
+redesigned = {}
+
+
 # launches per xspmv of each path (zero for every kernel not named)
 EXPECTED = {
     "pr20": {"mono_span": 2, "mono_cascade": 1, "lane_gather_tdesc": 1,
@@ -181,12 +202,22 @@ _SYMBOLS = {"mono_span_kernel": "mono_span",
             "tasc_kernel": "lane_gather_tasc", "inner3_kernel": "inner3",
             "mid_pass_kernel": "mid_pass", "fill_keys_kernel": "fill_keys",
             "pair_count_kernel": "pair_count",
+            "pair_count_short_kernel": "pair_count",
             "pair_fold_kernel": "pair_fold", "segfold_kernel": "segfold",
             "esc_gather_kernel": "esc_gather"}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def earlier(path, kernel, ms):
+    """Log (and keep) a redesigned kernel's time beside its earlier
+    design's."""
+    old, how = EARLIER_MS[(kernel, path)]
+    redesigned[(kernel, path)] = dict(ms=ms, earlier_ms=old, earlier_how=how)
+    log(f"  {kernel} at {path}: {ms:.4f} ms; earlier design {old:.4f} ms "
+        f"({how}, PERF.md constant), {old / ms:.2f}x this one")
 
 
 def card_line():
@@ -420,6 +451,8 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
                      lambda: P._inner3(x_in, *args),
                      lambda: P._inner3_plain(x_in, *args),
                      x_in.numel() * (4 + 5 + 4), timed="inner3" in timed)
+        if ("inner3", path) in EARLIER_MS:
+            earlier(path, "inner3", ck.rows[-1]["ms"])
         start = D - 3
     else:
         nsub = cur.shape[0] // S
@@ -693,75 +726,120 @@ def plan_for(A, transpose, tag):
 
 def profile_run(torch, run, tag, attempts=3):
     """One run() under torch.profiler: device ms by kernel over the run,
-    the device ms of everything else (torch ops), and the wall ms.  A
-    trace with no device event at all (seen now and then on the card:
-    CUPTI delivered nothing) is taken again, up to `attempts` runs."""
+    the device ms of everything else (torch ops), the wall ms, and each
+    kernel's (events in the trace, launches counted in the run).  A trace
+    with no device event at all (seen now and then on the card: CUPTI
+    delivered nothing) is taken again, up to `attempts` runs; a trace
+    that holds fewer events of a kernel than the run launched is taken
+    once more, and where it still does, that kernel's time is incomplete
+    (see path_ms)."""
     from torch.profiler import profile, ProfilerActivity
 
+    from pygraphblas_tpu_torch import _kernels as K
+
     cuda = torch.autograd.DeviceType.CUDA
+    retaken = False
     for attempt in range(attempts):
         torch.cuda.synchronize()
+        K.reset_launches()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launched = dict(K.launches)
         events = prof.key_averages()
-        if any(e.device_type == cuda for e in events):
+        per_kernel = dict.fromkeys(KERNELS, 0.0)
+        counts = dict.fromkeys(KERNELS, 0)
+        other, any_device = 0.0, False
+        for e in events:
+            if e.device_type != cuda:
+                continue
+            any_device = True
+            us = getattr(e, "self_device_time_total", None) or \
+                getattr(e, "self_cuda_time_total", 0.0)
+            name = next((v for k, v in _SYMBOLS.items() if k in e.key), None)
+            if name:
+                per_kernel[name] += us / 1e3
+                counts[name] += e.count
+            else:
+                other += us / 1e3
+        seen = {k: (counts[k], launched[k]) for k in KERNELS
+                if counts[k] or launched[k]}
+        if not any_device:
+            log(f"  profile {tag}: no device event in the trace "
+                f"(attempt {attempt + 1} of {attempts})")
+            continue
+        short = sorted(k for k, (ev, n) in seen.items() if ev != n)
+        if not short or retaken:
             break
-        log(f"  profile {tag}: no device event in the trace "
-            f"(attempt {attempt + 1} of {attempts})")
+        log(f"  profile {tag}: events of {short} short of their launches "
+            f"{ {k: seen[k] for k in short} }: taken again")
+        retaken = True
     table = events.table(sort_by="cuda_time_total", row_limit=25)
     with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{tag}.txt"),
               "w") as f:
         f.write(table)
-    per_kernel = dict.fromkeys(KERNELS, 0.0)
-    other = 0.0
-    for e in events:
-        if e.device_type != cuda:
-            continue
-        us = getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0.0)
-        name = next((v for k, v in _SYMBOLS.items() if k in e.key), None)
-        if name:
-            per_kernel[name] += us / 1e3
-        else:
-            other += us / 1e3
-    return per_kernel, other, wall * 1e3
+    return per_kernel, other, wall * 1e3, seen
+
+
+def path_ms(ms, seen, k, per=1):
+    """A kernel's in-path ms (per `per` calls), or "incomplete" where the
+    trace held fewer of its events than the run launched."""
+    ev, n = seen.get(k, (0, 0))
+    if ev != n:
+        return f"incomplete: {ev} of {n} events"
+    return ms / per
 
 
 def profile_path(torch, drv, run, tag):
-    """Device time by kernel per xspmv over one run of a path."""
-    drv.calls = 0
-    per_kernel, other, wall = profile_run(torch, run, tag)
+    """Device time by kernel per xspmv over one run of a path (the
+    xspmv calls of the trace kept, where one is taken again)."""
+    def counted():
+        drv.calls = 0
+        run()
+
+    per_kernel, other, wall, seen = profile_run(torch, counted, tag)
     n_xspmv = max(drv.calls, 1)
     dev_ms = sum(per_kernel.values()) + other
     log(f"  profile {tag} ({n_xspmv} xspmv): device {dev_ms:.3f} ms of "
-        f"{wall:.3f} ms wall under the profiler; per xspmv:")
+        f"{wall:.3f} ms wall under the profiler; per xspmv (events / "
+        "launches):")
+    out = {}
     for k, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
-        if ms:
-            log(f"    {k:18s} {ms / n_xspmv:.4f} ms")
+        if k in seen:
+            out[k] = path_ms(ms, seen, k, n_xspmv)
+            log(f"    {k:18s} {ms / n_xspmv:.4f} ms ({seen[k][0]} / "
+                f"{seen[k][1]})" + ("" if isinstance(out[k], float)
+                                    else " incomplete"))
     log(f"    {'other (torch ops)':18s} {other / n_xspmv:.4f} ms")
-    return {k: ms / n_xspmv for k, ms in per_kernel.items()}
+    return out
 
 
 def profile_spgemm(torch, run, tag, runs=1):
     """Device time by kernel per run of a masked-SpGEMM path (`runs`
     back-to-back runs traced), and the device busy share (device time
-    over wall time)."""
-    per_kernel, other, wall = profile_run(
+    over wall time; a lower bound where a kernel's trace is
+    incomplete)."""
+    per_kernel, other, wall, seen = profile_run(
         torch, lambda: [run() for _ in range(runs)], tag)
-    per_kernel = {k: v / runs for k, v in per_kernel.items()}
     other, wall = other / runs, wall / runs
-    dev_ms = sum(per_kernel.values()) + other
+    dev_ms = sum(per_kernel.values()) / runs + other
     busy = dev_ms / wall if dev_ms else None     # None: not measured
+    times = {k: path_ms(per_kernel[k], seen, k, runs) for k in seen}
+    complete = all(isinstance(v, float) for v in times.values())
     log(f"  profile {tag}: device {dev_ms:.3f} ms of {wall:.3f} ms wall "
-        f"under the profiler (busy share {busy}): "
-        + ", ".join(f"{k} {ms:.4f} ms" for k, ms in per_kernel.items() if ms)
-        + f", other (torch ops) {other:.4f} ms")
-    return dict(per_kernel={k: v for k, v in per_kernel.items() if v},
-                other_ms=other, device_ms=dev_ms, wall_ms=wall, busy=busy)
+        f"under the profiler (busy share {busy}"
+        + ("" if complete else ", a lower bound: a trace is incomplete")
+        + "): " + ", ".join(
+            f"{k} {per_kernel[k] / runs:.4f} ms ({seen[k][0]} / "
+            f"{seen[k][1]} events)" + ("" if isinstance(times[k], float)
+                                       else " incomplete")
+            for k in seen) + f", other (torch ops) {other:.4f} ms")
+    return dict(per_kernel=times, events=seen, other_ms=other,
+                device_ms=dev_ms, wall_ms=wall, busy=busy,
+                complete=complete)
 
 
 def check_small_cases(torch, ck):
@@ -860,10 +938,24 @@ def check_small_cases(torch, ck):
         ck.run("lane_gather_tasc", "small", f"{xx.dtype} fold={fold}",
                lambda: P._lane_gather_tasc(xx, ix[1], g, r_l, fold),
                lambda: P._tasc_plain(xx, ix[1], g, r_l, fold), 0)
-    ck.run("inner3", "small", "int32 g=2 S=3",
-           lambda: P._inner3(x, ix[0], ix[1], ssel, ix[2], ix[3], g, S),
-           lambda: P._inner3_plain(x, ix[0], ix[1], ssel, ix[2], ix[3], g,
-                                   S), 0)
+    # inner3 at S = 1 and 24 (g = 128, pr20's and pr21's group count)
+    # beside S = 3, 9 and 18, in both dtypes, random index slabs
+    for S3 in (1, 3, 9, 18, 24):
+        g3 = 128 if S3 in (1, 24) else 8
+        n3 = g3 * S3 * 128
+        lanes = [torch.from_numpy(rng.randint(0, 128, (n3, 128))
+                                  .astype(np.int8)).cuda() for _ in range(4)]
+        sel = (torch.from_numpy(rng.randint(0, S3, (g3 * 128, S3, 128))
+                                .astype(np.int8)).cuda() if S3 > 1 else None)
+        args = (lanes[0], lanes[1], sel, lanes[2], lanes[3], g3, S3)
+        for xx in (torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1,
+                                                (n3, 128), dtype=np.int64)
+                                    .astype(np.int32)).cuda(),
+                   torch.rand((n3, 128), device="cuda")):
+            ck.run("inner3", "small", f"{xx.dtype} g={g3} S={S3}",
+                   lambda: P._inner3(xx, *args),
+                   lambda: P._inner3_plain(xx, *args), 0)
+        del lanes, sel, args, xx
     for xx in (x, xf):
         ck.run("lane_gather", "small", f"{xx.dtype} (768, 128)",
                lambda: P._lane_gather(xx, ix[2]),
@@ -940,15 +1032,23 @@ def masked_square(W, blocks=8):
     return tuple(np.concatenate(x) for x in zip(*parts))
 
 
+def pair_count_probes(wa, wb):
+    """The operations that bound pair_count: one probe per id of each
+    edge's shorter list (the bitmap marks and binary-search steps the
+    kernel adds are its own cost, not the function's)."""
+    return int(np.minimum(np.asarray(wa, np.int64), wb).sum())
+
+
 class Buckets:
     """The intersect kernels' inputs for C<M> = M (+.x) M on the card, M
     = L (a CSR matrix; with `vals`, its values as float32 and int32): M's
     columns (A), M^T's (B^T), and per width bucket (the port's own plan,
     spgemm._lookup and _buckets) its edges' (a_st, wa, b_st, wb), with
-    sum(wa + wb) (the ids read) and the compares that bound kernels 10
-    and 11: per edge the fewer of a linear merge's, wa + wb, and a
-    search of the longer list for each id of the shorter,
-    min(wa, wb) * ceil(log2(max(wa, wb) + 1))."""
+    sum(wa + wb) (the ids read), the compares that bound kernel 11 (per
+    edge the fewer of a linear merge's, wa + wb, and a search of the
+    longer list for each id of the shorter, min(wa, wb) *
+    ceil(log2(max(wa, wb) + 1))) and the probes that bound kernel 10
+    (pair_count_probes)."""
 
     def __init__(self, torch, L, vals=False):
         from pygraphblas_tpu_torch.core import spgemm as SG
@@ -970,14 +1070,17 @@ class Buckets:
                      for dt in (np.float32, np.int32)} if vals else None
         self.buckets = [
             dict(w=w, n=len(sel), sum=int(total[sel].sum()),
-                 compares=int(compares[sel].sum()), meta=[cuda(x[sel]) for x in (a_st, wa, b_st, wb)])
+                 compares=int(compares[sel].sum()),
+                 probes=pair_count_probes(wa[sel], wb[sel]),
+                 meta=[cuda(x[sel]) for x in (a_st, wa, b_st, wb)])
             for w, sel in SG._buckets(total, 128)]
         self.summary = (f"{len(self.buckets)} width buckets "
                         f"{[b['w'] for b in self.buckets]}, sum(wa+wb) "
                         f"{int(total.sum())}, compares "
-                        f"{int(compares.sum())}, padded cells "
-                        f"{sum(b['w'] * b['n'] for b in self.buckets)}, "
-                        f"heavy {self.heavy}")
+                        f"{int(compares.sum())}, probes "
+                        f"{sum(b['probes'] for b in self.buckets)}, padded "
+                        f"cells {sum(b['w'] * b['n'] for b in self.buckets)}"
+                        f", heavy {self.heavy}")
 
     def id_bytes(self, b):
         """The ids a bucket's edges read, at most both arrays once."""
@@ -993,8 +1096,62 @@ def check_pair_count(ck, bk, path, timed):
         ck.run("pair_count", path, f"W={w} E={b['n']}",
                lambda: SG.pair_count(bk.a, bk.b, *m, w),
                lambda: SG._pair_count_plain(bk.a, bk.b, *m, w),
-               bk.id_bytes(b) + 20 * b["n"], ops=b["compares"], timed=timed,
+               bk.id_bytes(b) + 20 * b["n"], ops=b["probes"], timed=timed,
                ops_per_s=INT32_OPS_PER_S)
+    if ("pair_count", path) in EARLIER_MS:
+        earlier(path, "pair_count", sum(
+            c["ms"] for c in ck.rows if c["kernel"] == "pair_count"
+            and c["path"] == path and c["timed"]))
+
+
+def record_pair_count(run):
+    """run() with the arguments of each pair_count launch recorded (the
+    tensors a masked_spgemm call gives the kernel).  Returns (run's
+    result, the calls)."""
+    from pygraphblas_tpu_torch.core import spgemm as SG
+
+    calls, orig = [], SG.pair_count
+
+    def rec(*a):
+        calls.append(a)
+        return orig(*a)
+
+    SG.pair_count = rec
+    try:
+        return run(), calls
+    finally:
+        SG.pair_count = orig
+
+
+def check_recorded_pair_count(ck, path, calls):
+    """pair_count against its plain version on every recorded launch
+    (every width bucket of every masked_spgemm call of a path)."""
+    from pygraphblas_tpu_torch.core import spgemm as SG
+
+    for i, (a, b, ast, wa, bst, wb, w) in enumerate(calls):
+        host = [x.cpu().numpy() for x in (ast, wa, bst, wb)]
+        ids = int((host[1].astype(np.int64) + host[3]).sum())
+        ck.run("pair_count", path, f"launch {i} W={w} E={ast.numel()}",
+               lambda: SG.pair_count(a, b, ast, wa, bst, wb, w),
+               lambda: SG._pair_count_plain(a, b, ast, wa, bst, wb, w),
+               4 * min(ids, a.numel() + b.numel()) + 20 * ast.numel(),
+               ops=pair_count_probes(host[1], host[3]),
+               ops_per_s=INT32_OPS_PER_S)
+
+
+def check_pair_count_cases(torch, ck):
+    """pair_count against its plain version on the hand-made edge lists
+    of PAIR_COUNT_CASES."""
+    from pygraphblas_tpu_torch.core import spgemm as SG
+    from pygraphblas_tpu_torch.testing import (PAIR_COUNT_CASES,
+                                               pair_count_case)
+
+    for kind in PAIR_COUNT_CASES:
+        *arrs, w = pair_count_case(kind)
+        a, b, ast, wa, bst, wb = (torch.from_numpy(x).cuda() for x in arrs)
+        ck.run("pair_count", "cases", f"{kind} W={w} E={ast.numel()}",
+               lambda: SG.pair_count(a, b, ast, wa, bst, wb, w),
+               lambda: SG._pair_count_plain(a, b, ast, wa, bst, wb, w), 0)
 
 
 def check_fill_keys(torch, ck, bk, path):
@@ -1166,17 +1323,23 @@ def scipy_k_truss(rows, cols, n, k):
         S.data[:] = 1.0
 
 
-def kt_path(torch, drv, card, path, rows, cols, n, chain, scipy_ref):
+def kt_path(torch, ck, drv, card, path, rows, cols, n, chain, scipy_ref):
     """k_truss(A, 4), warm; scipy_ref: the edge set and supports equal
     scipy's fixed point; chain: once more through the unfused chain, with
-    equal edges and supports.  Every support is >= 2."""
+    equal edges and supports.  Every support is >= 2.  pair_count is held
+    against its plain version on every launch of the first (cold) run:
+    every width bucket of every pass."""
     from pygraphblas_tpu_torch import algorithms, types
     from pygraphblas_tpu_torch.generators import to_matrix
 
     A = to_matrix(rows, cols, n, types.INT64)
     t = time.perf_counter()
-    first = algorithms.k_truss(A, 4)._coo()
+    first, calls = record_pair_count(lambda: algorithms.k_truss(A, 4)._coo())
     t_first = time.perf_counter() - t
+    log(f"{path}: n={n} symmetric edges {len(rows)}; {len(calls)} "
+        "pair_count launches in the first run")
+    check_recorded_pair_count(ck, path, calls)
+    del calls
     t = time.perf_counter()
     got = drv.drive_spgemm(path, lambda: algorithms.k_truss(A, 4))._coo()
     el = time.perf_counter() - t
@@ -1573,7 +1736,8 @@ def main():
         w = torch.from_numpy((np.random.RandomState(1).rand(n) * 1e-6)
                              .astype(np.float32)).cuda()
         check_xspmv_kernels(torch, ck, plan, w, sem_pr, path,
-                            timed=[k for k, p in TIMED.items() if p == path])
+                            timed=[k for k, p in TIMED.items() if p == path]
+                            + ["inner3"])
         if path == "pr20":
             by_levels = cascade_by_levels(torch, ck.reps, plan)
         # correctness: 5 iterations against the planless COO oracle
@@ -1773,10 +1937,10 @@ def main():
             ("tc18", lambda: tc_path(torch, ck, drv, card, "tc18",
                                      *symmetrise(*kron18), chain=False,
                                      per_edge=True)),
-            ("kt14", lambda: kt_path(torch, drv, card, "kt14",
+            ("kt14", lambda: kt_path(torch, ck, drv, card, "kt14",
                                      *graph(14, sym=True), chain=False,
                                      scipy_ref=True)),
-            ("kt16", lambda: kt_path(torch, drv, card, "kt16", *kron16s,
+            ("kt16", lambda: kt_path(torch, ck, drv, card, "kt16", *kron16s,
                                      chain=True, scipy_ref=False)),
             ("val16", lambda: val_path(torch, ck, drv, card,
                                        degree_lower(*kron16s))),
@@ -1793,6 +1957,7 @@ def main():
     t0 = time.perf_counter()
     log("small cases:")
     check_small_cases(torch, ck)
+    check_pair_count_cases(torch, ck)
     phase_s["small"] = time.perf_counter() - t0
 
     # 5. results
@@ -1848,6 +2013,8 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke_checks.json"), "w") as f:
         json.dump(dict(checks=ck.rows, launches=drv.counts, e2e=e2e,
                        cascade_vs_chain=ck.cascade_vs_chain,
+                       redesigned_vs_perf_md={
+                           f"{k} {p}": v for (k, p), v in redesigned.items()},
                        phase_s=phase_s), f, indent=1)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))

@@ -118,8 +118,7 @@ def lib():
                                     ctypes.c_uint32, p]
         L.pgb_lane_gather_tdesc.argtypes = [p, p, p, i64, i64, i32, p]
         L.pgb_lane_gather_tasc.argtypes = [p, p, p, i64, i64, i32, i32, p]
-        L.pgb_inner3.argtypes = [p, p, p, p, p, p, p, p, i64, i32, i32,
-                                 p]
+        L.pgb_inner3.argtypes = [p, p, p, p, p, p, p, i64, i32, p]
         L.pgb_mono_rows.argtypes = [p, p, i32, p, i64, i64, p, i64, p, p,
                                     i64, i32, i32, i32, ctypes.c_uint32, p]
         L.pgb_mono_cascade.argtypes = [i32, p, p, p, p, p, p, i32, i32,
@@ -128,7 +127,8 @@ def lib():
         L.pgb_mono_cascade_tiles.restype = i64
         L.pgb_lane_gather.argtypes = [p, p, p, i64, i32, p]
         L.pgb_mid_pass.argtypes = [p, p, p, p, p, i64, i32, i32, p]
-        L.pgb_pair_count.argtypes = [p, i64, p, i64, p, p, p, p, p, i64, p]
+        L.pgb_pair_count.argtypes = [p, i64, p, i64, p, p, p, p, p, i64, i32,
+                                     p]
         L.pgb_fill_keys.argtypes = [p, i64, p, i64, p, p, p, p, p, i64, i32,
                                     p]
         L.pgb_pair_fold.argtypes = [p, p, i64, p, p, i64, p, p, p, p, p, p,

@@ -650,15 +650,20 @@ def _inner3(x2d, a_in, a_mid, ssel, c_mid, c_in, g, S):
         raise ValueError(f"{name}: ssel does not match S={S}")
     if S > 24:
         raise ValueError(f"{name}: S={S} > 24 needs _mid_pass")
-    code = _kernels.dtype_code(x2d, name)
+    _kernels.dtype_code(x2d, name)        # float32 or int32: 4-byte words
     _kernels.cuda_args(name, x2d, a_in, a_mid, ssel, c_mid, c_in)
-    scratch = torch.empty_like(x2d)       # the kernel's staging slab
     out = torch.empty_like(x2d)
+    if any(t.data_ptr() % 16 for t in (x2d, a_in, a_mid, ssel, c_mid, c_in,
+                                       out) if t is not None):
+        raise ValueError(f"{name}: the kernel's 16-byte loads need "
+                         "16-byte aligned tensors")
     rc = _kernels.lib().pgb_inner3(
         x2d.data_ptr(), a_in.data_ptr(), a_mid.data_ptr(),
         ssel.data_ptr() if ssel is not None else None, c_mid.data_ptr(),
-        c_in.data_ptr(), scratch.data_ptr(), out.data_ptr(), g, S, code,
-        _kernels.stream())
+        c_in.data_ptr(), out.data_ptr(), g, S, _kernels.stream())
+    if rc == -2:
+        raise RuntimeError(f"{name}: the card cannot place a cluster of 8 "
+                           f"blocks with the S={S} slab in shared memory")
     _kernels.check(rc, name)
     _kernels.count(name)
     return out

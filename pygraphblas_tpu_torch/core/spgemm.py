@@ -261,8 +261,8 @@ def pair_count(a_cols, b_cols, a_st, wa, b_st, wb, width):
     """Kernel 10: per mask edge e, the number of column ids common to
     ``a_cols[a_st[e] : a_st[e] + wa[e]]`` and
     ``b_cols[b_st[e] : b_st[e] + wb[e]]`` (each sorted, unique), as int32
-    (E,).  `width` (the bucket's, >= wa + wb) shapes the plain version
-    only."""
+    (E,).  `width` (the bucket's, >= wa + wb) shapes the plain version's
+    key rows and picks the kernel's path and lanes per edge."""
     if a_cols.device.type == "cpu":
         return _pair_count_plain(a_cols, b_cols, a_st, wa, b_st, wb, width)
     name = "pair_count"
@@ -271,7 +271,7 @@ def pair_count(a_cols, b_cols, a_st, wa, b_st, wb, width):
     rc = _kernels.lib().pgb_pair_count(
         a_cols.data_ptr(), a_cols.numel(), b_cols.data_ptr(), b_cols.numel(),
         a_st.data_ptr(), wa.data_ptr(), b_st.data_ptr(), wb.data_ptr(),
-        out.data_ptr(), a_st.numel(), _kernels.stream())
+        out.data_ptr(), a_st.numel(), int(width), _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
     return out

@@ -11,8 +11,9 @@
 // Bound: bytes.  lane_gather, tdesc and tasc read x and idx once and
 // write the output once; mid_pass reads x and three int8 index slabs
 // once and writes once; inner3 reads x and five int8 index slabs once
-// and writes once (its scratch slab adds two round trips, partly served
-// from L2).
+// and writes once.
+
+#include <cooperative_groups.h>
 
 #include <cstring>
 
@@ -89,104 +90,221 @@ __global__ void tasc_kernel(const T* __restrict__ x,
   }
 }
 
-// fused middle (layouts as perm.py:761-766):
+// fused middle (layouts as perm.py:761-766), replacing
+// pygraphblas_tpu/core/perm.py:_inner3:
 //   x, ai, ci, out: (g, S, 128, 128)   am, ss, cm: (g, 128, S, 128)
-// One block per group runs the three stages of the TPU kernel in turn,
-// through a scratch slab in device memory (the (S*128, 128) slab is up
-// to 1.5 MB, past a block's shared memory), with __syncthreads between
-// stages (global writes of a block are visible to the block after it):
-//   1. descend, per tile s: Z[c, s, r] = x[s, r, ai[s, r, c]]
-//      (x and ai tiles staged in shared memory, Z written transposed);
-//   2. mid, per column c (CC columns at a time, staged in shared
-//      memory with their index rows): Y2[s, l] = Z[c, s, am[c, s, l]],
-//      Y3[b, l] = Y2[ss[c, b, l], l] (b when S == 1),
-//      M[c, b, r] = Y3[b, cm[c, b, r]], written in place over Z[c];
-//   3. ascend, per tile b: out[b, r, l] = M[ci[b, r, l], b, r].
-// A select index outside [0, S) gives 0, as the TPU kernel's zero-
-// initialised select does.
-constexpr int INNER_THREADS = 1024;
-constexpr int CC = 8;
+//   1. descend: Z[c, s, r] = x[s, r, ai[s, r, c]]
+//   2. mid, per column c: Y2[s, l] = Z[c, s, am[c, s, l]],
+//      Y3[b, l] = Y2[ss[c, b, l], l] (b when S == 1), M[c, b, r] =
+//      Y3[b, cm[c, b, r]]; a select index outside [0, S) gives 0, as the
+//      TPU kernel's zero-initialised select does
+//   3. ascend: out[b, r, l] = M[ci[b, r, l], b, r]
+// Every stage gathers through the index slabs as given (any int8
+// values, lanes taken & 127), so any slab gives the plain version's bits.
+//
+// Bound: bytes, 13 a cell (x and out 4 each, five int8 slabs).  The
+// group's (128, S, 128) slab Z/M is S x 64 KB (1.5 MB at S = 24), past
+// one block's 227 KB.  The first port (one 1024-thread block a group,
+// the slab in a device-memory scratch, 0.2760 ms at pr20 on an H100
+// 80GB HBM3 at 700 W, 3.8x the bound) paid four extra slab trips
+// through L2/HBM and ran one block an SM.  Here one cluster of 8 CTAs
+// runs a group and keeps the slab in distributed shared memory: CTA k
+// owns columns [16k, 16k + 16), S x 8 KB.  Stage 1: CTA k descends rows
+// [16k, 16k + 16) of every tile and stores each Z[c, s, r0..r0+3] as
+// one 16-byte word into the owner of c; stage 2 is local to the owner
+// (a column's mid stage reads only that column); stage 3: CTA k
+// gathers M[:, b, 16k..16k+15] from all owners and ascends those rows.
+// A CTA walks its units in order, so what bounds it is the bytes it
+// keeps in flight: every global load goes through a cp.async ring as
+// deep as the SM's shared memory allows beside the slab, up to 4 slots
+// of 10 KB (sized by the launcher: 2 CTAs an SM at S = 9, 1 at S = 18
+// and 24; deeper rings measured no faster), a stage-2 unit takes as
+// many columns' index rows as a slot
+// holds, stage 3 keeps up to 8 units' lanes in flight, and every global
+// access is a 16-byte word.  cluster.sync() separates the stages (and
+// keeps a CTA's shared memory alive until the others stop reading it).
+namespace i3 {
+constexpr int N = 8;                // CTAs a cluster (one cluster a group)
+constexpr int T = 512;              // threads a CTA
+constexpr int COLS = 128 / N;       // slab columns a CTA owns
+constexpr int RB = 16;              // rows of a stage-1 / stage-3 unit
+constexpr int UNIT = RB * 128;      // cells of a unit
+constexpr int SLOT = UNIT * 4 + UNIT;   // a stage-1 unit: words + lanes
+constexpr int MAX_S = 24;
+constexpr int MAX_SLOTS = 4;
+constexpr int PER = (SLOT / 3 + T - 1) / T;   // stage-2 cells a thread
 
-template <typename T>
-__global__ void __launch_bounds__(INNER_THREADS)
-inner3_kernel(const T* __restrict__ x, const int8_t* __restrict__ ai,
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most n of this thread's cp.async groups are pending
+__device__ __forceinline__ void wait_pending(int n) {
+  switch (n) {
+#define I3_WAIT(k) \
+  case k:          \
+    asm volatile("cp.async.wait_group " #k ";\n" ::); break;
+    I3_WAIT(1) I3_WAIT(2) I3_WAIT(3) I3_WAIT(4) I3_WAIT(5) I3_WAIT(6)
+#undef I3_WAIT
+    default:
+      asm volatile("cp.async.wait_group 0;\n" ::);
+  }
+}
+
+// Runs compute(u, slot) for u in [0, n), slot holding what load(u, slot)
+// copied, with the loads of the next nslot - 1 units in flight.  The
+// prologue (the first nslot - 1 loads) is issued by the caller after a
+// barrier that frees the ring.
+template <typename Load, typename Compute>
+__device__ __forceinline__ void ring(int n, unsigned char* slots, int bytes,
+                                     int nslot, Load load, Compute compute) {
+  for (int u = 0; u < n; ++u) {
+    wait_pending(nslot - 2);
+    __syncthreads();   // unit u landed for all; slot (u - 1) % nslot free
+    const int v = u + nslot - 1;
+    if (v < n) load(v, slots + (v % nslot) * bytes);
+    commit();
+    compute(u, slots + (u % nslot) * bytes);
+  }
+  wait_pending(0);
+}
+
+template <typename Load>
+__device__ __forceinline__ void prologue(int n, unsigned char* slots,
+                                         int bytes, int nslot, Load load) {
+  for (int v = 0; v < nslot - 1; ++v) {
+    if (v < n) load(v, slots + v * bytes);
+    commit();
+  }
+}
+}  // namespace i3
+
+__global__ void __launch_bounds__(i3::T, 2)
+inner3_kernel(const uint32_t* __restrict__ x, const int8_t* __restrict__ ai,
               const int8_t* __restrict__ am, const int8_t* __restrict__ ss,
               const int8_t* __restrict__ cm, const int8_t* __restrict__ ci,
-              T* __restrict__ z, T* __restrict__ out, int S) {
-  extern __shared__ unsigned char smem[];
-  T* tile = (T*)smem;
-  int8_t* sidx = (int8_t*)(smem + 128 * XPAD * sizeof(T));
-  const int64_t gbase = (int64_t)blockIdx.x * S * TILE;
-  const int tx = threadIdx.x;
-
-  // 1. descend
-  for (int s = 0; s < S; ++s) {
-    const int64_t tb = gbase + (int64_t)s * TILE;
-#pragma unroll 4
-    for (int k = tx; k < TILE; k += INNER_THREADS) {
-      int r = k >> 7, c = k & 127;
-      tile[r * XPAD + c] = x[tb + k];
-      sidx[r * IPAD + c] = ai[tb + k];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = tx; k < TILE; k += INNER_THREADS) {
-      int c = k >> 7, r = k & 127;
-      z[gbase + ((int64_t)c * S + s) * 128 + r] =
-          tile[r * XPAD + (sidx[r * IPAD + c] & 127)];
-    }
-    __syncthreads();
-  }
-
-  // 2. mid, CC columns at a time: the chunk of Z and its am / ss / cm
-  // rows (the same offsets) are staged in shared memory, so the three
-  // dependent index reads of a cell never leave the SM
+              uint32_t* __restrict__ out, int S, int nslot) {
+  using namespace i3;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char i3smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.block_rank();
+  const int64_t gbase = (int64_t)(blockIdx.x / N) * S * TILE;
+  const int t = threadIdx.x;
   const int per_c = S * 128;
-  const int chunk = CC * per_c;
-  int8_t* am_s = (int8_t*)(tile + chunk);
-  int8_t* ss_s = am_s + chunk;
-  int8_t* cm_s = ss_s + chunk;
-  for (int c0 = 0; c0 < 128; c0 += CC) {
-    const int64_t cb = gbase + (int64_t)c0 * per_c;
-#pragma unroll 4
-    for (int k = tx; k < chunk; k += INNER_THREADS) {
-      tile[k] = z[cb + k];
-      am_s[k] = am[cb + k];
-      cm_s[k] = cm[cb + k];
-      if (S > 1) ss_s[k] = ss[cb + k];
-    }
-    __syncthreads();
-    for (int k = tx; k < chunk; k += INNER_THREADS) {
-      const int cl = k / per_c, rem = k - cl * per_c;
-      const int b = rem >> 7;
-      const int crow = cl * per_c;                 // row (c, 0) in the chunk
-      const int l2 = cm_s[k] & 127;
-      int s = b;
-      if (S > 1) s = ss_s[crow + b * 128 + l2];
-      T v = (T)0;
-      if (s >= 0 && s < S)
-        v = tile[crow + s * 128 + (am_s[crow + s * 128 + l2] & 127)];
-      z[cb + k] = v;
-    }
-    __syncthreads();
-  }
+  uint32_t* slab = (uint32_t*)i3smem;                // [COLS][S][128]
+  unsigned char* slots = i3smem + (size_t)COLS * per_c * 4;
+  const int r0 = k * RB;
+  // stages 1 and 3: thread t handles column c = t & 127 and rows
+  // r0 + 4 (t >> 7) .. + 3; its column lives in CTA c / COLS
+  const int c = t & 127, r4 = t >> 7;
+  uint32_t* remote = cluster.map_shared_rank(slab, c / COLS) +
+                     (c % COLS) * per_c + r0 + 4 * r4;
 
-  // 3. ascend
-  for (int b = 0; b < S; ++b) {
-#pragma unroll 4
-    for (int k = tx; k < TILE; k += INNER_THREADS) {
-      int c = k >> 7, r = k & 127;
-      tile[c * XPAD + r] = z[gbase + ((int64_t)c * S + b) * 128 + r];
+  // 1. descend: unit s = rows [r0, r0 + RB) of tile s
+  auto load1 = [&](int s, unsigned char* slot) {
+    const int64_t off = gbase + (int64_t)s * TILE + r0 * 128;
+    cp16(slot + t * 16, x + off + t * 4);
+    if (t < UNIT / 16) cp16(slot + UNIT * 4 + t * 16, ai + off + t * 16);
+  };
+  prologue(S, slots, SLOT, nslot, load1);
+  cluster.sync();           // every CTA of the cluster runs: DSMEM is live
+  ring(S, slots, SLOT, nslot, load1, [&](int s, unsigned char* slot) {
+    const uint32_t* xs = (const uint32_t*)slot;
+    const int8_t* is = (const int8_t*)(slot + UNIT * 4);
+    uint4 v;
+    v.x = xs[(4 * r4 + 0) * 128 + (is[(4 * r4 + 0) * 128 + c] & 127)];
+    v.y = xs[(4 * r4 + 1) * 128 + (is[(4 * r4 + 1) * 128 + c] & 127)];
+    v.z = xs[(4 * r4 + 2) * 128 + (is[(4 * r4 + 2) * 128 + c] & 127)];
+    v.w = xs[(4 * r4 + 3) * 128 + (is[(4 * r4 + 3) * 128 + c] & 127)];
+    *(uint4*)(remote + s * 128) = v;
+  });
+
+  // 2. mid: unit j = owned columns [j cpu, j cpu + cpu); their cm, am
+  // and ss rows (cpu x S x 128 bytes each, contiguous) staged in a slot
+  const int cpu = min(COLS, SLOT / (3 * per_c));
+  // ceil(2^32 / per_c): __umulhi(cell, inv_c) == cell / per_c for every
+  // cell < SLOT / 3, since cell * (inv_c * per_c - 2^32) < 2^32
+  const unsigned inv_c = (unsigned)((0x100000000ull + per_c - 1) / per_c);
+  const int units2 = (COLS + cpu - 1) / cpu;
+  const int narr = S > 1 ? 3 : 2;
+  auto load2 = [&](int j, unsigned char* slot) {
+    const int nc = min(cpu, COLS - j * cpu), len = nc * per_c;
+    const int64_t off = gbase + (int64_t)(k * COLS + j * cpu) * per_c;
+    const int chunks = len / 16;
+    for (int q = t; q < narr * chunks; q += T) {
+      const int arr = q / chunks, w = q - arr * chunks;
+      const int8_t* src = arr == 0 ? cm : arr == 1 ? am : ss;
+      cp16(slot + arr * len + w * 16, src + off + w * 16);
     }
-    __syncthreads();
-    const int64_t tb = gbase + (int64_t)b * TILE;
-#pragma unroll 4
-    for (int k = tx; k < TILE; k += INNER_THREADS) {
-      int r = k >> 7;
-      out[tb + k] = tile[(ci[tb + k] & 127) * XPAD + r];
+  };
+  __syncthreads();          // the ring is free
+  prologue(units2, slots, SLOT, nslot, load2);
+  cluster.sync();           // every Z column has arrived
+  ring(units2, slots, SLOT, nslot, load2, [&](int j, unsigned char* slot) {
+    const int len = min(cpu, COLS - j * cpu) * per_c;
+    const int8_t* cms = (const int8_t*)slot;
+    const int8_t* ams = cms + len;
+    const int8_t* sss = cms + 2 * len;
+    uint32_t* cols = slab + j * cpu * per_c;
+    uint32_t v[PER];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int cell = t + q * T;
+      if (cell < len) {
+        // (column, 0, 0): cell / per_c by the reciprocal, exact here
+        const int row = (int)__umulhi((unsigned)cell, inv_c) * per_c;
+        const int b = (cell - row) >> 7, l2 = cms[cell] & 127;
+        const int s = S > 1 ? (int)sss[row + b * 128 + l2] : b;
+        v[q] = (s >= 0 && s < S)
+                   ? cols[row + s * 128 + (ams[row + s * 128 + l2] & 127)]
+                   : 0u;
+      }
     }
+    __syncthreads();        // the columns are read: M may overwrite Z
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int cell = t + q * T;
+      if (cell < len) cols[cell] = v[q];
+    }
+  });
+
+  // 3. ascend: unit b = rows [r0, r0 + RB) of output tile b.  ms takes
+  // M[:, b, r0 .. r0 + RB) gathered from the owners; the units' lanes
+  // (2 KB each) come through a ring of their own behind ms
+  uint32_t* ms = (uint32_t*)slots;                   // [RB][128]
+  unsigned char* lslots = slots + UNIT * 4;
+  const int nslot3 = min(MAX_SLOTS, (nslot * SLOT - UNIT * 4) / UNIT);
+  auto load3 = [&](int b, unsigned char* slot) {
+    const int64_t off = gbase + (int64_t)b * TILE + r0 * 128;
+    if (t < UNIT / 16) cp16(slot + t * 16, ci + off + t * 16);
+  };
+  __syncthreads();          // the ring is free
+  prologue(S, lslots, UNIT, nslot3, load3);
+  cluster.sync();           // every M column is final
+  const int orow = t >> 5, l4 = (t & 31) * 4;
+  uint4 m = *(const uint4*)remote;                   // unit 0's M words
+  ring(S, lslots, UNIT, nslot3, load3, [&](int b, unsigned char* slot) {
+    ms[(4 * r4 + 0) * 128 + c] = m.x;
+    ms[(4 * r4 + 1) * 128 + c] = m.y;
+    ms[(4 * r4 + 2) * 128 + c] = m.z;
+    ms[(4 * r4 + 3) * 128 + c] = m.w;
+    if (b + 1 < S) m = *(const uint4*)(remote + (b + 1) * 128);
     __syncthreads();
-  }
+    const uint32_t lanes = *(const uint32_t*)(slot + orow * 128 + l4);
+    const uint32_t* row = ms + orow * 128;
+    uint4 o;
+    o.x = row[lanes & 127];
+    o.y = row[(lanes >> 8) & 127];
+    o.z = row[(lanes >> 16) & 127];
+    o.w = row[(lanes >> 24) & 127];
+    *(uint4*)(out + gbase + (int64_t)b * TILE + (r0 + orow) * 128 + l4) = o;
+  });
+  cluster.sync();           // no CTA leaves while others read its slab
 }
 
 // per-row lane gather (perm.py:_lane_gather): out[r, l] = x[r, idx[r, l]]
@@ -297,21 +415,54 @@ static int launch_tasc(const void* x, const int8_t* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_inner3(const void* x, const int8_t* ai, const int8_t* am,
-                         const int8_t* ss, const int8_t* cm, const int8_t* ci,
-                         void* scratch, void* out, int64_t g, int S,
-                         cudaStream_t st) {
-  const int tiles = 128 * XPAD * sizeof(T) + 128 * IPAD;   // stages 1, 3
-  const int mid = CC * S * 128 * ((int)sizeof(T) + 3);     // stage 2
-  const int smem = tiles > mid ? tiles : mid;
-  if (S < 1 || smem > 232448) return -1;
-  cudaFuncSetAttribute(inner3_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (g > 0)
-    inner3_kernel<T><<<(unsigned)g, INNER_THREADS, smem, st>>>(
-        (const T*)x, ai, am, ss, cm, ci, (T*)scratch, (T*)out, S);
-  return (int)cudaGetLastError();
+// A cluster of 8 CTAs, each with S x 8 KB of slab and a ring of as many
+// 10 KB slots (3 or 4) as the SM's 228 KB leave beside the slabs of the
+// CTAs it can hold; returns -2 where the card cannot place one such
+// cluster (never launched then).
+static int launch_inner3(const uint32_t* x, const int8_t* ai,
+                         const int8_t* am, const int8_t* ss,
+                         const int8_t* cm, const int8_t* ci, uint32_t* out,
+                         int64_t g, int S, cudaStream_t st) {
+  using namespace i3;
+  constexpr int kSmSmem = 233472, kBlockSmem = 232448, kReserved = 1024;
+  static int placed[MAX_S + 1];      // 0 unknown, 1 placeable, -2 not
+  if (S < 1 || S > MAX_S) return -1;
+  const int slab = COLS * S * 128 * 4;
+  int ctas = kSmSmem / (slab + 3 * SLOT + kReserved);
+  ctas = ctas < 1 ? 1 : ctas > 2 ? 2 : ctas;   // 2: the launch bounds
+  int budget = kSmSmem / ctas - kReserved;
+  budget = budget < kBlockSmem ? budget : kBlockSmem;
+  int nslot = (budget - slab) / SLOT;
+  nslot = nslot > MAX_SLOTS ? MAX_SLOTS : nslot;
+  const int smem = slab + nslot * SLOT;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(g * N));
+  cfg.blockDim = dim3(T);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!placed[S]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        inner3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBlockSmem);
+    if (e != cudaSuccess) return (int)e;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)inner3_kernel,
+                                       &cfg);
+    if (e != cudaSuccess) return (int)e;
+    placed[S] = clusters > 0 ? 1 : -2;
+  }
+  if (placed[S] < 0) return placed[S];
+  if (g <= 0) return 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, inner3_kernel, x, ai, am, ss, cm,
+                                     ci, out, S, nslot);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 extern "C" int pgb_lane_gather_tdesc(const void* x, const void* idx,
@@ -361,18 +512,13 @@ extern "C" int pgb_mid_pass(const void* x, const void* a, const void* ss,
   return -1;
 }
 
+// x and out: 4-byte words (float32 or int32: the kernel only moves
+// them); every pointer 16-byte aligned; ss null when S == 1
 extern "C" int pgb_inner3(const void* x, const void* ai, const void* am,
                           const void* ss, const void* cm, const void* ci,
-                          void* scratch, void* out, int64_t g, int S,
-                          int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int8_t *a = (const int8_t*)ai, *m = (const int8_t*)am,
-               *s = (const int8_t*)ss, *c = (const int8_t*)cm,
-               *i = (const int8_t*)ci;
-  if (dtype == DT_F32)
-    return launch_inner3<float>(x, a, m, s, c, i, scratch, out, g, S, st);
-  if (dtype == DT_I32)
-    return launch_inner3<int32_t>(x, a, m, s, c, i, scratch, out, g, S,
-                                  st);
-  return -1;
+                          void* out, int64_t g, int S, void* stream) {
+  return launch_inner3((const uint32_t*)x, (const int8_t*)ai,
+                       (const int8_t*)am, (const int8_t*)ss,
+                       (const int8_t*)cm, (const int8_t*)ci, (uint32_t*)out,
+                       g, S, (cudaStream_t)stream);
 }

@@ -1,0 +1,125 @@
+"""Hand-made kernel inputs, shared by the GPU tests
+(tests/test_torch_cuda.py) and chip_smoke.py, which hold the kernels
+against their plain versions on them.  numpy only: the callers move the
+arrays to the device they test."""
+
+import numpy as np
+
+PAIR_COUNT_CASES = ("run_across_blocks", "runs_of_one_128",
+                    "runs_of_one_256", "alternating", "longer_32768",
+                    "past_the_bitmap", "b_over_8x_a", "empty_lists",
+                    "longer_b", "disjoint")
+
+
+def pair_count_case(kind):
+    """Hand-made pair_count inputs, as numpy arrays: (a, b, ast, wa, bst,
+    wb, width), the column arrays the concatenations of sorted, unique
+    lists.  B lists take part of an A list, so that they meet.  The
+    kinds (PAIR_COUNT_CASES) probe the kernel's runs of edges that share
+    a longer list: one run across 512-edge blocks, runs of one edge
+    (widths 128 and 256: the path of 4 and 8 lanes an edge), lists
+    alternating singly then by 20s, a longer list of exactly 32768 ids
+    (in a run of 40 and a run of 3), ids spanning six bitmap windows, a
+    short A list shared by a run whose B lists hold mostly over 8x its
+    ids (A's ids searched in B's list; A's ids over six windows, then
+    over windows past the first), empty lists, the longer list on B's
+    side, and lists with no common id."""
+    rng = np.random.RandomState(len(kind))
+    a_lists, b_lists, edges = [], [], []
+
+    def lst(n, hi, base=None, share=0.5):
+        if base is not None and n:
+            k = min(len(base), int(n * share))
+            part = rng.choice(base, k, replace=False) if k else []
+            extra = rng.choice(hi, n, replace=False)
+            return np.unique(np.concatenate([part, extra]))[:n]
+        return np.sort(rng.choice(hi, n, replace=False))
+
+    def add(lists, x):
+        lists.append(np.asarray(x, np.int64))
+        return len(lists) - 1
+
+    if kind == "run_across_blocks":        # one A list for 1100 edges
+        W, la = 1024, add(a_lists, lst(600, 5000))
+        for _ in range(1100):
+            edges.append((la, add(b_lists, lst(rng.randint(0, 301), 5000,
+                                               a_lists[la]))))
+    elif kind.startswith("runs_of_one"):   # every edge its own lists
+        W = int(kind.split("_")[-1])
+        for _ in range(600):
+            la = add(a_lists, lst(rng.randint(W // 4, W // 2 + 1), 4 * W))
+            edges.append((la, add(b_lists, lst(rng.randint(0, W // 2),
+                                               4 * W, a_lists[la]))))
+    elif kind == "alternating":            # A B A singly, then by 20s
+        W, l0, l1 = 512, add(a_lists, lst(250, 3000)), add(a_lists,
+                                                          lst(250, 3000))
+        for i in range(200):
+            la = (l0, l1)[i % 2]
+            edges.append((la, add(b_lists, lst(rng.randint(0, 251), 3000,
+                                               a_lists[la]))))
+        for i in range(400):
+            la = (l0, l1)[(i // 20) % 2]
+            edges.append((la, add(b_lists, lst(rng.randint(0, 251), 3000,
+                                               a_lists[la]))))
+    elif kind == "longer_32768":           # a run of 40, a run of 3
+        W = 65536
+        for n_edges in (40, 3):
+            la = add(a_lists, lst(32768, 200_000))
+            for _ in range(n_edges):
+                edges.append((la, add(b_lists, lst(rng.randint(1, 501),
+                                                   200_000, a_lists[la]))))
+    elif kind == "past_the_bitmap":        # ids span 1.5M: six windows
+        W = 65536
+        la = add(a_lists, lst(40_000, 1_500_000))
+        for _ in range(50):
+            edges.append((la, add(b_lists, lst(rng.randint(1, 2001),
+                                               1_500_000, a_lists[la]))))
+    elif kind == "b_over_8x_a":            # 40 A ids; B mostly > 320 ids
+        W = 8192
+        for lo, n_edges in ((0, 30), (600_000, 9)):
+            la = add(a_lists, lo + lst(40, 1_500_000 - lo))
+            for i in range(n_edges):
+                nb = rng.randint(1, 321) if i % 5 == 4 else \
+                    rng.randint(321, 4001)
+                part = rng.choice(a_lists[la], rng.randint(0, 41),
+                                  replace=False)
+                extra = lo + rng.choice(1_500_000 - lo, nb, replace=False)
+                edges.append((la, add(b_lists, np.unique(
+                    np.concatenate([part, extra]))[:nb])))
+    elif kind == "empty_lists":            # wb = 0, wa = 0, both, singly
+        W = 512
+        la, lb = add(a_lists, lst(100, 1000)), add(b_lists, lst(100, 1000))
+        ea, eb = add(a_lists, []), add(b_lists, [])
+        edges += [(la, eb)] * 20 + [(ea, lb)] * 20 + [(ea, eb)] * 20
+        edges += [(la, eb), (ea, lb), (ea, eb), (la, lb)]
+    elif kind == "longer_b":               # B's list shared, then singly
+        W = 1024
+        lb = add(b_lists, lst(600, 5000))
+        for _ in range(100):
+            edges.append((add(a_lists, lst(rng.randint(0, 301), 5000,
+                                           b_lists[lb])), lb))
+        for _ in range(10):
+            lb2 = add(b_lists, lst(500, 5000))
+            edges.append((add(a_lists, lst(200, 5000, b_lists[lb2])), lb2))
+    elif kind == "disjoint":               # even ids against odd ids
+        W, la = 512, add(a_lists, 2 * lst(200, 2000))
+        for i in range(60):
+            src = la if i < 30 else add(a_lists, 2 * lst(200, 2000))
+            edges.append((src, add(b_lists, 2 * lst(rng.randint(0, 201),
+                                                    2000) + 1)))
+    else:
+        raise ValueError(kind)
+
+    def pack(lists):
+        starts = np.cumsum([0] + [len(x) for x in lists])[:-1]
+        cols = np.concatenate(lists + [np.zeros(1, np.int64)])
+        return cols.astype(np.int32), starts
+
+    a, a_starts = pack(a_lists)
+    b, b_starts = pack(b_lists)
+    ia, ib = (np.array(x) for x in zip(*edges))
+    wa = np.array([len(a_lists[i]) for i in ia])
+    wb = np.array([len(b_lists[i]) for i in ib])
+    assert (wa + wb).max() <= W
+    return [a, b] + [x.astype(np.int32) for x in
+                     (a_starts[ia], wa, b_starts[ib], wb)] + [W]

@@ -13,6 +13,7 @@ from pygraphblas_tpu_torch import (_kernels, algorithms, fused, generators,
                                    options_set, types)
 from pygraphblas_tpu_torch.core import (esc, gustavson, mono, perm, scan,
                                         spgemm, xspmv)
+from pygraphblas_tpu_torch.testing import PAIR_COUNT_CASES, pair_count_case
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +78,29 @@ def test_perm_kernels(card):
         args = (ix[0], ix[1], ssel, ix[2], ix[3], g, S)
         assert torch.equal(perm._inner3(x, *args),
                            perm._inner3_plain(x, *args))
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 9, 16, 18, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_inner3_kernel(card, S, dtype):
+    """The fused middle (one 8-block cluster a group, the slab in
+    distributed shared memory) bit-exact for random index slabs."""
+    rng = np.random.RandomState(S)
+    g, r_l = 3, S * 128
+    x = (rng.rand(g * r_l, 128).astype(np.float32) if dtype == torch.float32
+         else rng.randint(-2 ** 31, 2 ** 31 - 1, (g * r_l, 128),
+                          dtype=np.int64).astype(np.int32))
+    x = torch.from_numpy(x).to(card)
+    ix = [torch.from_numpy(rng.randint(0, 128, (g * r_l, 128))
+                           .astype(np.int8)).to(card) for _ in range(4)]
+    ssel = (torch.from_numpy(rng.randint(0, S, (g * 128, S, 128))
+                             .astype(np.int8)).to(card) if S > 1 else None)
+    args = (ix[0], ix[1], ssel, ix[2], ix[3], g, S)
+    _kernels.reset_launches()
+    got = perm._inner3(x, *args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["inner3"] == 1
+    assert torch.equal(got, perm._inner3_plain(x, *args))
 
 
 def test_pagerank_goes_through_the_kernels(card):
@@ -309,6 +333,23 @@ def test_pair_count_and_fill_keys_kernels(card, W):
     assert torch.equal(got, want) and int(want.max()) > 0
     assert torch.equal(keys,
                        spgemm._fill_plain(a, b, ast, wa, bst, wb, W))
+
+
+@pytest.mark.parametrize("kind", PAIR_COUNT_CASES)
+def test_pair_count_kernel_cases(card, kind):
+    """pair_count's runs: across blocks, of one edge, alternating, a
+    32768-id longer list, ids past one bitmap window, B lists over 8x
+    a shared A list, empty lists, the longer list on B's side, no common
+    id."""
+    *arrs, W = pair_count_case(kind)
+    a, b, ast, wa, bst, wb = (torch.from_numpy(x).to(card) for x in arrs)
+    _kernels.reset_launches()
+    got = spgemm.pair_count(a, b, ast, wa, bst, wb, W)
+    torch.cuda.synchronize()
+    assert _kernels.launches["pair_count"] == 1
+    want = spgemm._pair_count_plain(a, b, ast, wa, bst, wb, W)
+    assert torch.equal(got, want)
+    assert (int(want.max()) == 0) == (kind == "disjoint")
 
 
 @pytest.mark.parametrize("add,mul,vdt", [("PLUS", "TIMES", np.float32),

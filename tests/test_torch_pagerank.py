@@ -127,7 +127,8 @@ def test_port_never_imports_jax():
             "pygraphblas_tpu_torch.core.gustavson, "
             "pygraphblas_tpu_torch.core.esc, pygraphblas_tpu_torch.core.scan, "
             "pygraphblas_tpu_torch.core.dense, "
-            "pygraphblas_tpu_torch.core.coosem;"
+            "pygraphblas_tpu_torch.core.coosem, "
+            "pygraphblas_tpu_torch.testing;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pygraphblas_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -20,6 +20,7 @@ from pygraphblas_tpu.core import coosparse as jcoo, sparse as jsparse
 from pygraphblas_tpu.core import spgemm as jsg
 from pygraphblas_tpu_torch import types
 from pygraphblas_tpu_torch.core import coosparse, sparse, spgemm
+from pygraphblas_tpu_torch.testing import PAIR_COUNT_CASES, pair_count_case
 
 E = 64
 NNZ = 1 << 12
@@ -93,6 +94,28 @@ def test_pair_count_plain_matches_pallas(W, monkeypatch):
     inter = [len(np.intersect1d(a[s:s + n], b[t:t + m]))
              for s, n, t, m in zip(ast, wa, bst, wb)]
     assert np.array_equal(want, inter) and max(inter) > 0
+
+
+@pytest.mark.parametrize("kind", PAIR_COUNT_CASES)
+def test_pair_count_cases_plain(kind):
+    """The hand-made edge lists the GPU checks hold the kernel to: the
+    plain version on CPU tensors equals a numpy intersection, and
+    b_over_8x_a holds a run of at least 8 edges sharing an A list whose
+    ids span two or more 2^18-id windows, with B lists over 8x it."""
+    *arrs, W = pair_count_case(kind)
+    a, b, ast, wa, bst, wb = arrs
+    got = spgemm.pair_count(*(torch.from_numpy(x) for x in arrs), W)
+    inter = [len(np.intersect1d(a[s:s + n], b[t:t + m]))
+             for s, n, t, m in zip(ast, wa, bst, wb)]
+    assert np.array_equal(got.numpy(), inter)
+    assert (max(inter) == 0) == (kind == "disjoint")
+    if kind == "b_over_8x_a":
+        for s in np.unique(ast):
+            run = ast == s
+            ids = a[s:s + wa[run][0]]
+            assert run.sum() >= 8 and (wb[run] > 8 * wa[run]).sum() >= 8
+            assert ids[-1] >> 18 > ids[0] >> 18
+            assert (wb[run] <= 8 * wa[run]).any()
 
 
 @pytest.mark.parametrize("sem,dt", [("PLUS_TIMES", np.float32),
