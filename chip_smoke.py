@@ -53,15 +53,21 @@ Phases, in order; any failure exits non-zero:
      kt14's and kt16's first run too, segfold on each of a call's four
      scans, esc_gather at every slot), and timed at the shapes of the
      path named for it in TIMED (and inner3 at pr21, mid_pass at bc16's
-     S = 124, and pair_count at tc16, too); the two redesigned kernels
-     (inner3 at pr20 and pr21, pair_count at tc18) log their time
-     beside their earlier design's (EARLIER_MS: constants copied from
-     PERF.md, kept with this run's times in chip_smoke_checks.json, not
-     in the kernels line);
+     S = 124, and pair_count at tc16, too); the redesigned kernels
+     (inner3 at pr20 and pr21, pair_count at tc18, mono_cascade and
+     lane_gather_tasc at pr20) log their time beside their earlier
+     design's (EARLIER_MS: constants copied from PERF.md, kept with this
+     run's times in chip_smoke_checks.json, not in the kernels line);
   4. small MIN/MAX-fold, mul and int32 cases of every kernel, inner3 at
-     S = 1, 3, 9, 18 and 24 in both dtypes, pair_count on hand-made edge
-     lists (pygraphblas_tpu_torch.testing), and _lane_gather (which no
-     path reaches) at kron-18's level-0 shape beside torch.gather;
+     S = 1, 3, 9, 18 and 24 in both dtypes, lane_gather_tasc at one
+     tile, several groups and several tiles a group with every fold op
+     (rows of 128 indices equal mod 32 among them), the cascade on runs
+     of every length class of its kernel (pygraphblas_tpu_torch.testing),
+     pair_count on hand-made edge lists, and _lane_gather (which no path
+     reaches) at kron-18's level-0 shape beside torch.gather; then the
+     repairs: a MonoPlan with ok == False, and int64 and float64 values
+     into every gather and permutation wrapper, each giving its plain
+     version's answer on the card with no launch;
   5. one JSON line of kernel results, the card line, and the final
      {"ok": true, "device": ...} line.
 
@@ -82,13 +88,15 @@ id of the shorter, whichever are fewer, over the int32 rate; for
 pair_count one probe per id of each edge's shorter list, over the
 int32 rate; for segfold the values and flags read and the values
 written, for esc_gather dm read and both outputs written, B staying in
-L2); for mono_cascade the bytes are every plan's dm and qg, the first
-source and the placed output (its intermediates stay in L2).  Each path
-through the cascade also times it against the chain of mono_span
-launches it replaces, as
+L2); for mono_cascade the bytes are the function's: the level-0 source
+read once, its per-row table (4 B a row) and the placed output, with
+the earlier bound (every plan's dm and qg, the first source and the
+placed output) in its log line and check row ("plan_bound_ms"), not
+in the kernels line; its library_ms is
+torch.segment_reduce over the same runs.  Each path through the cascade
+also times it against the chain of mono_span launches it replaces, as
 kernels ("cascade_vs_chain") and end to end through the entry point
-("cascade_ab", the cascade call made to return None); pr20 does so for
-every count of fold levels too.
+("cascade_ab", the cascade call made to return None).
 
 Run:  python3 chip_smoke.py [--iters 200] [--reps 20]
 Logs too long for the terminal (nvcc -Xptxas -v, profiler tables, every
@@ -155,11 +163,15 @@ TIMED = {"mono_span": "pr20", "mono_cascade": "pr20", "mono_rows": "pr21",
 # the redesigned kernels' earlier designs, as PERF.md records them (this
 # script on an NVIDIA H100 80GB HBM3 at 700 W): inner3 one 1024-thread
 # block a group through a device-memory slab, pair_count one warp an edge
-# binary-searching the longer list; (ms, how it was taken) at a path's
-# shapes: "events" as "ms" here, "in path" from the path's profile
+# binary-searching the longer list, mono_cascade a cooperative kernel of
+# flag-waiting tiles over every level's plan, lane_gather_tasc one tile
+# a block; (ms, how it was taken) at a path's shapes: "events" as "ms"
+# here, "in path" from the path's profile
 EARLIER_MS = {("inner3", "pr20"): (0.2760, "events"),
               ("inner3", "pr21"): (0.5390, "in path"),
-              ("pair_count", "tc18"): (2.2221, "events")}
+              ("pair_count", "tc18"): (2.2221, "events"),
+              ("mono_cascade", "pr20"): (0.0572, "events"),
+              ("lane_gather_tasc", "pr20"): (0.0639, "events")}
 # (kernel, path) -> this run's ms beside the earlier design's
 redesigned = {}
 
@@ -272,6 +284,7 @@ class Checks:
         self.reps = reps
         self.rows = []
         self.cascade_vs_chain = {}      # path -> cascade and chain ms
+        self.segment_reduce_ms = {}     # path -> torch.segment_reduce ms
 
     def run(self, kernel, path, case, kfn, pfn, nbytes, ops=0,
             timed=False, rtol=None, ops_per_s=FP32_OPS_PER_S,
@@ -363,32 +376,6 @@ def cascade_vs_chain(torch, reps, cascade, chain):
     return {k: min(v) for k, v in ms.items()}
 
 
-def cascade_by_levels(torch, reps, plan):
-    """The cascade of the first k fold levels, with plan k as its
-    unfolded last pass, beside the chain of the same k + 1 mono_span
-    launches, for k = 1 .. levels: the slope in k is the cost of one
-    level in each."""
-    from pygraphblas_tpu_torch.core import mono as M
-
-    L = plan.levels + plan.places
-    cur = torch.rand(plan.m1, device="cuda")
-    rows = []
-    for k in range(1, len(L)):
-        def chain(k=k):
-            c = cur
-            for lp in L[:k]:
-                c = M.mono_span(lp, c.reshape(-1), 0.0,
-                                fold="PLUS").reshape(-1)
-            return M.mono_span(L[k], c, 0.0)
-        rows.append(dict(levels=k, **cascade_vs_chain(
-            torch, reps,
-            lambda k=k: M.mono_cascade(L[:k], L[k], cur, 0.0, "PLUS"),
-            chain)))
-        log(f"  cascade vs chain, {k} fold levels: "
-            f"{rows[-1]['cascade_ms']:.4f} vs {rows[-1]['chain_ms']:.4f} ms")
-    return rows
-
-
 def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
     """Walk one xspmv (core/xspmv.py:xspmv) step by step on the card,
     running each kernel and its plain version on the same inputs.
@@ -478,6 +465,8 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
                      x_in.numel() * cell + nout * 4,
                      ops=nout * 7 if f8 else 0,
                      timed="lane_gather_tasc" in timed)
+        if f8 and ("lane_gather_tasc", path) in EARLIER_MS:
+            earlier(path, "lane_gather_tasc", ck.rows[-1]["ms"])
     if fused8:
         acc1 = cur.reshape(-1)
     else:
@@ -493,17 +482,39 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
                                  fold=add).reshape(-1)
                 return gather1(place, c2, fill)
             return run
-        # every plan's dm and qg, the first source and the placed output:
-        # the intermediates never leave L2
+        # the function's bytes: the level-0 source read once, the per-row
+        # table and the placed output; its folds: the rows' runs' cells
+        # and the fills of every level
+        runs = place.cascade
         isz = cur.element_size()
-        nbytes = sum(p.dm.numel() * p.dm.element_size() + p.qg.numel() * 4
-                     for p in levels + [place])
-        nbytes += (min(cur.numel(), levels[0].src_n) + place.S * 128) * isz
+        n_out = place.S * 128
+        nbytes = runs.cells * isz + (n_out + 1) * 4 + n_out * isz
         ops = sum(lp.S // 8 * 128 * 7 for lp in levels)
+        # the earlier bound, of the plans: every plan's dm and qg, the
+        # first source and the placed output
+        plan_bytes = sum(p.dm.numel() * p.dm.element_size()
+                         + p.qg.numel() * 4 for p in levels + [place])
+        plan_bytes += (min(cur.numel(), levels[0].src_n) + n_out) * isz
         cascade = lambda: M.mono_cascade(levels, place, cur, fill, add)
         out = ck.run("mono_cascade", path, f"{len(levels)} levels + place",
                      cascade, chain(M.mono_gather_plain), nbytes, ops=ops,
                      timed="mono_cascade" in timed)
+        row = ck.rows[-1]
+        row["plan_bound_ms"] = plan_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"  mono_cascade bound {row['bound_ms']:.4f} ms (source "
+            f"{runs.cells} cells, table and output {n_out} rows); the "
+            f"plans' bytes {row['plan_bound_ms']:.4f} ms")
+        if "ms" in row:
+            if ("mono_cascade", path) in EARLIER_MS:
+                earlier(path, "mono_cascade", row["ms"])
+            # the library call of the same function, in another order
+            red = {"PLUS": "sum", "MIN": "min", "MAX": "max"}[add]
+            offs = runs.start.long()
+            data = cur[:runs.cells]
+            ms = event_ms(torch, lambda: torch.segment_reduce(
+                data, red, offsets=offs), ck.reps, behind_sleep=False)
+            ck.segment_reduce_ms[path] = ms
+            log(f"  library: torch.segment_reduce ({red}) {ms:.4f} ms")
         ck.cascade_vs_chain[path] = cascade_vs_chain(
             torch, ck.reps, cascade, chain(M.mono_span))
         return out
@@ -709,10 +720,24 @@ def symmetrise(rows, cols, n):
 
 
 def plan_for(A, transpose, tag):
+    """The xspmv plan on the card, with its build seconds and, where it
+    has fold levels, the host seconds of the cascade's row table (the
+    step of mono.fold_plans, timed again on the plan's own runs)."""
+    from pygraphblas_tpu_torch.core import mono as M
+
     t0 = time.perf_counter()
     plan = A._xspmv_plan(transpose, np.float32, device="cuda")
+    build_s = time.perf_counter() - t0
     pp = plan.perm
-    log(f"  {tag} plan {time.perf_counter() - t0:.1f} s: n_perm="
+    table = ""
+    runs = plan.places[0].cascade
+    if runs is not None:
+        n = np.diff(runs.start.cpu().numpy())
+        present = np.flatnonzero(n)
+        t1 = time.perf_counter()
+        M.cascade_table(n[present], present, len(n), runs.levels)
+        table = f", cascade table {time.perf_counter() - t1:.4f} s"
+    log(f"  {tag} plan {build_s:.1f} s{table}: n_perm="
         f"{plan.n_perm} D={pp.D} S={pp.S} R0={pp.R0} K={pp.K} "
         f"levels={len(plan.levels)}")
     for name, mp in ([("pre", plan.pre), ("decode", plan.decode)]
@@ -846,6 +871,7 @@ def check_small_cases(torch, ck):
     """MIN/MAX folds, muls and int32 at small sizes (not timed)."""
     from pygraphblas_tpu_torch.core import mono as M, perm as P
     from pygraphblas_tpu_torch.core.xspmv import XSpmvPlan
+    from pygraphblas_tpu_torch.testing import cascade_runs_case
 
     rng = np.random.RandomState(2)
     src_n = 9000
@@ -921,6 +947,36 @@ def check_small_cases(torch, ck):
             ck.run("mono_cascade", "small", f"{dt} {fold}",
                    lambda: M.mono_cascade(cp.levels, cp.places[0], cur, fill,
                                           fold), chain, 0)
+    # runs of every length class of the cascade kernel (1 .. 5000 cells)
+    nrows, present, counts = cascade_runs_case()
+    levels, place = M.fold_plans(counts, nrows, present)
+    levels = [lp.to("cuda") for lp in levels]
+    place = place.to("cuda")
+    m = int(counts.sum())
+    for dt, folds in ((torch.float32, (("PLUS", 0.0), ("MIN", inf),
+                                       ("MAX", -inf), ("PLUS", 0.25))),
+                      (torch.int32, (("PLUS", 0), ("MIN", imax),
+                                     ("MAX", imin), ("PLUS", 3)))):
+        for fold, fill in folds:
+            if dt == torch.int32:
+                v = rng.randint(imin, imax, m, dtype=np.int64).astype(
+                    np.int32)
+            else:
+                v = rng.randn(m).astype(np.float32)
+                if fold == "PLUS":
+                    v[::5] = -0.0
+            cur = torch.from_numpy(v).cuda()
+
+            def chain():
+                c2 = cur
+                for lp in levels:
+                    c2 = M.mono_gather_plain(lp, c2.reshape(-1), fill,
+                                             fold=fold).reshape(-1)
+                return M.mono_gather_plain(place, c2, fill)
+            ck.run("mono_cascade", "small", f"runs 1..5000 {dt} {fold} "
+                   f"fill={fill}",
+                   lambda: M.mono_cascade(levels, place, cur, fill, fold),
+                   chain, 0)
 
     g, S = 2, 3
     r_l = S * 128
@@ -934,10 +990,23 @@ def check_small_cases(torch, ck):
     ck.run("lane_gather_tdesc", "small", "int32 g=2 r_l=384",
            lambda: P._lane_gather_tdesc(x, ix[0], g, r_l),
            lambda: P._tdesc_plain(x, ix[0], g, r_l), 0)
-    for fold, xx in (("MIN", xf), ("MAX", xf), ("PLUS", x), (None, x)):
-        ck.run("lane_gather_tasc", "small", f"{xx.dtype} fold={fold}",
-               lambda: P._lane_gather_tasc(xx, ix[1], g, r_l, fold),
-               lambda: P._tasc_plain(xx, ix[1], g, r_l, fold), 0)
+    # the banded ascend: one tile, several groups, several tiles a group;
+    # rows 0..7 of each tile's idx hold values equal mod 32
+    for g2, rb in ((1, 1), (3, 1), (2, 3)):
+        n2 = g2 * rb * 128
+        idx = rng.randint(0, 128, (g2 * rb, 128, 128)).astype(np.int8)
+        idx[:, :8] = 5 + 32 * rng.randint(0, 4, (g2 * rb, 8, 128))
+        idx = torch.from_numpy(idx.reshape(n2, 128)).cuda()
+        for xx in (torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1,
+                                                (n2, 128), dtype=np.int64)
+                                    .astype(np.int32)).cuda(),
+                   torch.randn((n2, 128), device="cuda")):
+            for fold in (None, "PLUS", "MIN", "MAX", "TIMES"):
+                ck.run("lane_gather_tasc", "small",
+                       f"{xx.dtype} g={g2} rb={rb} fold={fold}",
+                       lambda: P._lane_gather_tasc(xx, idx, g2, rb * 128,
+                                                   fold),
+                       lambda: P._tasc_plain(xx, idx, g2, rb * 128, fold), 0)
     # inner3 at S = 1 and 24 (g = 128, pr20's and pr21's group count)
     # beside S = 3, 9 and 18, in both dtypes, random index slabs
     for S3 in (1, 3, 9, 18, 24):
@@ -971,6 +1040,87 @@ def check_small_cases(torch, ck):
         ck.run("mid_pass", "small", f"int32 nsub={nsub} S={S}",
                lambda: P._mid_pass(x3, a, ss, c),
                lambda: P._mid_pass_plain(x3, a, ss, c), 0)
+
+
+def check_repairs(torch):
+    """The port's two card-only faults, repaired: a MonoPlan with ok ==
+    False (a streamed window span over _MAX_XB rows) and int64 and
+    float64 values into every gather and permutation wrapper give their
+    plain version's answer on the card, with no launch counted.  Returns
+    the checks (name, ok)."""
+    from pygraphblas_tpu_torch import _kernels
+    from pygraphblas_tpu_torch.core import mono as M, perm as P
+
+    rng = np.random.RandomState(13)
+    rows = []
+
+    def check(name, kfn, pfn):
+        _kernels.reset_launches()
+        got = kfn()
+        torch.cuda.synchronize()
+        launched = sum(_kernels.launches.values())
+        ok = launched == 0 and bool(torch.equal(got, pfn()))
+        rows.append(dict(check=name, ok=ok, launches=launched))
+        log(f"  repair {name:34s} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"repair {name}: {launched} launches or "
+                                 "a value differs from the plain version")
+
+    bad = M.MonoPlan.build(np.sort(rng.randint(0, 4_000_000, 64 * 128)),
+                           4_000_000).to("cuda")
+    assert bad.stream and not bad.ok
+    src = torch.from_numpy(rng.rand(4_000_000).astype(np.float32)).cuda()
+    for kw in ({}, {"fold": "PLUS"}):
+        check(f"ok == False {kw}",
+              lambda: M.mono_gather(bad, src, 0.0, **kw),
+              lambda: M.mono_gather_plain(bad, src, 0.0, **kw))
+    idx = np.sort(rng.randint(0, 9000, 64 * 128))
+    span = M.MonoPlan.build(idx, 9000).to("cuda")
+    saved = M._SPAN_MAX_WVA
+    M._SPAN_MAX_WVA = 0
+    try:
+        per_row = M.MonoPlan.build(idx, 9000).to("cuda")
+    finally:
+        M._SPAN_MAX_WVA = saved
+    g, S = 2, 3
+    r_l = S * 128
+    for dt in (torch.int64, torch.float64):
+        def vals(*shape):
+            return torch.from_numpy(rng.randint(-2 ** 40, 2 ** 40, shape)
+                                    ).to("cuda", dt)
+
+        def lanes():
+            return torch.from_numpy(rng.randint(0, 128, (g * r_l, 128))
+                                    .astype(np.int8)).cuda()
+        s9, x = vals(9000), vals(g * r_l, 128)
+        ix = [lanes() for _ in range(4)]
+        ssel = torch.from_numpy(rng.randint(0, S, (g * 128, S, 128))
+                                .astype(np.int8)).cuda()
+        x3 = x.reshape(g * 128, S, 128)
+        inner = (ix[0], ix[1], ssel, ix[2], ix[3], g, S)
+        for name, kfn, pfn in (
+                ("mono_gather", lambda: M.mono_gather(span, s9, 0,
+                                                      fold="PLUS"),
+                 lambda: M.mono_gather_plain(span, s9, 0, fold="PLUS")),
+                ("mono_span", lambda: M.mono_span(span, s9, 0),
+                 lambda: M.mono_gather_plain(span, s9, 0)),
+                ("mono_rows", lambda: M.mono_rows(per_row, s9, 0,
+                                                  fold="MIN"),
+                 lambda: M.mono_gather_plain(per_row, s9, 0, fold="MIN")),
+                ("lane_gather", lambda: P._lane_gather(x, ix[0]),
+                 lambda: P._lane_gather_plain(x, ix[0])),
+                ("lane_gather_tdesc",
+                 lambda: P._lane_gather_tdesc(x, ix[0], g, r_l),
+                 lambda: P._tdesc_plain(x, ix[0], g, r_l)),
+                ("lane_gather_tasc fold8",
+                 lambda: P._lane_gather_tasc(x, ix[1], g, r_l, "PLUS"),
+                 lambda: P._tasc_plain(x, ix[1], g, r_l, "PLUS")),
+                ("inner3", lambda: P._inner3(x, *inner),
+                 lambda: P._inner3_plain(x, *inner)),
+                ("mid_pass", lambda: P._mid_pass(x3, ix[2], ssel, ix[3]),
+                 lambda: P._mid_pass_plain(x3, ix[2], ssel, ix[3]))):
+            check(f"{name} {str(dt)[6:]}", kfn, pfn)
+    return rows
 
 
 def lane_gather_isolated(torch, ck, rows):
@@ -1738,8 +1888,6 @@ def main():
         check_xspmv_kernels(torch, ck, plan, w, sem_pr, path,
                             timed=[k for k, p in TIMED.items() if p == path]
                             + ["inner3"])
-        if path == "pr20":
-            by_levels = cascade_by_levels(torch, ck.reps, plan)
         # correctness: 5 iterations against the planless COO oracle
         r5 = fused.pagerank(A, itermax=5, tol=0.0)
         rows_d, cols_d, _ = A._device_coo("cuda")
@@ -1770,8 +1918,6 @@ def main():
             f"{el / iters * 1e3:.4f} ms/iteration; card {card}")
         in_path[path] = profile_path(
             torch, drv, lambda: fused.pagerank(A, itermax=5, tol=-1.0), path)
-        if path == "pr20":
-            e2e[path]["cascade_by_levels"] = by_levels
         if per.get("mono_cascade"):
             ab(path, lambda: fused.pagerank(A, itermax=iters, tol=-1.0))
         return A, rows, cols, n
@@ -1958,6 +2104,7 @@ def main():
     log("small cases:")
     check_small_cases(torch, ck)
     check_pair_count_cases(torch, ck)
+    repairs = check_repairs(torch)
     phase_s["small"] = time.perf_counter() - t0
 
     # 5. results
@@ -2003,7 +2150,8 @@ def main():
             bound_by=("bytes" if all(c["bound_by"] == "bytes"
                                      for c in timed) else "operations"),
             library_ms={"lane_gather": lane_lib_ms,
-                        "esc_gather": e2e["esc14"]["index_select_ms"]}.get(
+                        "esc_gather": e2e["esc14"]["index_select_ms"],
+                        "mono_cascade": ck.segment_reduce_ms.get(tp)}.get(
                             name),
             **({"chain_ms": ck.cascade_vs_chain[tp]["chain_ms"]}
                if name == "mono_cascade" else {}),
@@ -2011,7 +2159,8 @@ def main():
             + ("exact" if all(c["tol"] == "exact" for c in allc)
                else "within tolerance"), **per))
     with open(os.path.join(OUT_DIR, "chip_smoke_checks.json"), "w") as f:
-        json.dump(dict(checks=ck.rows, launches=drv.counts, e2e=e2e,
+        json.dump(dict(checks=ck.rows, repairs=repairs, launches=drv.counts,
+                       e2e=e2e,
                        cascade_vs_chain=ck.cascade_vs_chain,
                        redesigned_vs_perf_md={
                            f"{k} {p}": v for (k, p), v in redesigned.items()},

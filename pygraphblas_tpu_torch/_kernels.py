@@ -121,10 +121,8 @@ def lib():
         L.pgb_inner3.argtypes = [p, p, p, p, p, p, p, i64, i32, p]
         L.pgb_mono_rows.argtypes = [p, p, i32, p, i64, i64, p, i64, p, p,
                                     i64, i32, i32, i32, ctypes.c_uint32, p]
-        L.pgb_mono_cascade.argtypes = [i32, p, p, p, p, p, p, i32, i32,
-                                       ctypes.c_uint32, p, i64, i32, p]
-        L.pgb_mono_cascade_tiles.argtypes = [i32, p]
-        L.pgb_mono_cascade_tiles.restype = i64
+        L.pgb_mono_cascade.argtypes = [p, i64, p, p, i64, i32, i32, i32,
+                                       ctypes.c_uint32, p]
         L.pgb_lane_gather.argtypes = [p, p, p, i64, i32, p]
         L.pgb_mid_pass.argtypes = [p, p, p, p, p, i64, i32, i32, p]
         L.pgb_pair_count.argtypes = [p, i64, p, i64, p, p, p, p, p, i64, i32,
@@ -157,8 +155,22 @@ def check(rc, name):
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
 
 
+def on_card(t, name):
+    """Whether a kernel wrapper launches its kernel for tensor `t`: False
+    for a CPU tensor, and for a CUDA tensor of a dtype wider than 4 bytes,
+    which the JAX package sends to XLA (its plain versions run on the
+    card then); True for other CUDA tensors.  Raises for other devices.
+    Reads only the device and the dtype's size."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.dtype.itemsize <= 4
+
+
 def dtype_code(t, name):
-    """The kernel's dtype code for tensor t; raises for other dtypes."""
+    """The kernel's dtype code for tensor t; raises TypeError for other
+    dtypes (1- or 2-byte ones: no entry point of the port passes one)."""
     code = DTYPES.get(t.dtype)
     if code is None:
         raise TypeError(f"{name}: the CUDA kernel takes float32 or int32, "

@@ -18,14 +18,16 @@ PyTorch version:
   - ``mono_rows`` replaces ``pygraphblas_tpu/core/mono.py:_mono_pallas``
     (per-row windows, ``wva == 0``, resident or streamed);
   - ``mono_cascade`` replaces ``pygraphblas_tpu/core/mono.py:mono_cascade``
-    (every xspmv fold level and the final placement in one launch).
+    (every xspmv fold level and the final placement in one launch, as a
+    per-row tree fold of the level-0 source: ``fold_plans``' table).
 All three are bound by bytes: dm (2 or 4 B a cell), the output (4 B a
-cell, or 4 B per 8 cells folded) and the source, each moved once.
-Plans with ``ok == False`` raise on the card (no plan of the xspmv
-engine at kron-16..21 has it).
+cell, or 4 B per 8 cells folded) and the source, each moved once; the
+cascade reads the source, one table entry a row and writes the output.
+On the card, a plan with ``ok == False`` (a streaming span wider than
+``_MAX_XB`` rows) and a dtype wider than 4 bytes take the plain
+version, as the JAX package sends them to its XLA gather
+(pygraphblas_tpu/core/mono.py:209-210).
 """
-
-import ctypes
 
 import numpy as np
 import torch
@@ -59,7 +61,9 @@ class MonoPlan:
     STATIC = ("S", "blk", "src_n", "src_rows", "max_w", "stream", "xb",
               "xblk_max", "ok", "wva")
     ARRAYS = ("q0", "dm", "xblk", "qg")
-    __slots__ = STATIC + ARRAYS
+    # cascade: the CascadeRuns of the fold cascade this plan places (set
+    # by fold_plans on a placement plan; None elsewhere)
+    __slots__ = STATIC + ARRAYS + ("cascade",)
 
     @staticmethod
     def build(idx, src_n, itemsize=4):
@@ -86,6 +90,7 @@ class MonoPlan:
             else dm64.astype(np.int32)
 
         plan = MonoPlan()
+        plan.cascade = None
         plan.S = S
         plan.src_n = src_n
         plan.src_rows = -(-src_n // 128)
@@ -147,11 +152,18 @@ class MonoPlan:
         d = {k: getattr(self, k) for k in self.STATIC}
         for k in self.ARRAYS:
             d[k] = np.asarray(getattr(self, k))
+        if self.cascade is not None:
+            c = self.cascade
+            d["cascade"] = dict(start=np.asarray(c.start), levels=c.levels,
+                                cells=c.cells)
         return d
 
     @staticmethod
     def from_state(d, device=None):
         p = MonoPlan()
+        c = d.get("cascade")
+        p.cascade = (CascadeRuns(np.asarray(c["start"]), int(c["levels"]),
+                                 int(c["cells"])) if c is not None else None)
         for k in MonoPlan.STATIC:
             setattr(p, k, d[k])
         for k in MonoPlan.ARRAYS:
@@ -164,6 +176,8 @@ class MonoPlan:
             setattr(p, k, getattr(self, k))
         for k in self.ARRAYS:
             setattr(p, k, as_tensor(getattr(self, k), device))
+        p.cascade = (self.cascade.to(device) if self.cascade is not None
+                     else None)
         return p
 
 
@@ -173,6 +187,18 @@ def _fill_scalar(fill, dtype):
     return float(fill) if dtype.is_floating_point else int(fill)
 
 
+def gather_route(plan, src):
+    """The kernel mono_gather launches for `src`, or None where it runs
+    the plain version: a CPU tensor, and on the card a plan with ``ok ==
+    False`` or a dtype wider than 4 bytes (the JAX package's XLA rule,
+    mono.py:209-210); else ``mono_span`` for span-encoded plans and
+    ``mono_rows`` for the others (mono.py:234-236).  Reads only the
+    plan's ``ok`` and ``wva``, the device and the dtype's size."""
+    if not _kernels.on_card(src, "mono_gather") or not plan.ok:
+        return None
+    return "mono_span" if plan.wva else "mono_rows"
+
+
 def mono_gather(plan, src, fill, vals=None, mul=None, fold=None):
     """Execute the planned monotone gather.
 
@@ -180,19 +206,13 @@ def mono_gather(plan, src, fill, vals=None, mul=None, fold=None):
     fill: scalar for invalid lanes (monoid identity / zero).
     vals/mul: optional fused product mul(vals, gathered); invalid -> fill.
     fold: optional add-monoid name, folding 8-row slot groups.
-    On the card, span-encoded resident plans launch ``mono_span`` and
-    every other plan ``mono_rows``, as the JAX package's dispatch
-    (mono.py:234-236); a plan with ``ok == False`` raises.
+    The route is ``gather_route``'s.
     """
-    if src.device.type == "cpu":
+    route = gather_route(plan, src)
+    if route is None:
         return mono_gather_plain(plan, src, fill, vals, mul, fold)
-    if not plan.ok:
-        raise NotImplementedError(
-            "MonoPlan with ok == False (a streaming span wider than "
-            f"{_MAX_XB} rows) has no kernel on the card: ROADMAP Queue C")
-    if plan.wva:
-        return mono_span(plan, src, fill, vals, mul, fold)
-    return mono_rows(plan, src, fill, vals, mul, fold)
+    kernel = mono_span if route == "mono_span" else mono_rows
+    return kernel(plan, src, fill, vals, mul, fold)
 
 
 def _repeat(t, k):
@@ -235,8 +255,6 @@ def mono_gather_plain(plan, src, fill, vals=None, mul=None, fold=None):
 def _prepare(name, plan, src, vals, mul, fold, *index):
     """Checks and buffers shared by the gather kernels' wrappers: returns
     (src, vals pointer, out, dtype code, mul code, fold code)."""
-    if src.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {src.device}")
     code = _kernels.dtype_code(src, name)
     S = plan.S
     src = src.contiguous()
@@ -253,11 +271,11 @@ def _prepare(name, plan, src, vals, mul, fold, *index):
 
 
 def mono_span(plan, src, fill, vals=None, mul=None, fold=None):
-    """The span gather: plain version for CPU tensors, the CUDA kernel
-    (``csrc/mono.cu``) for CUDA tensors."""
-    if src.device.type == "cpu":
-        return mono_gather_plain(plan, src, fill, vals, mul, fold)
+    """The span gather: the CUDA kernel (``csrc/mono.cu``) where
+    ``_kernels.on_card``, else the plain version."""
     name = "mono_span"
+    if not _kernels.on_card(src, name):
+        return mono_gather_plain(plan, src, fill, vals, mul, fold)
     src, vp, out, code, mop, fop = _prepare(name, plan, src, vals, mul, fold,
                                             plan.qg)
     if plan.wva == 0 or plan.stream or plan.dm.dtype != torch.int16:
@@ -272,12 +290,12 @@ def mono_span(plan, src, fill, vals=None, mul=None, fold=None):
 
 
 def mono_rows(plan, src, fill, vals=None, mul=None, fold=None):
-    """The per-row gather (resident or streamed plans): plain version
-    for CPU tensors, the CUDA kernel (``csrc/mono.cu``) for CUDA
-    tensors."""
-    if src.device.type == "cpu":
-        return mono_gather_plain(plan, src, fill, vals, mul, fold)
+    """The per-row gather (resident or streamed plans): the CUDA kernel
+    (``csrc/mono.cu``) where ``_kernels.on_card``, else the plain
+    version."""
     name = "mono_rows"
+    if not _kernels.on_card(src, name):
+        return mono_gather_plain(plan, src, fill, vals, mul, fold)
     xblk = plan.xblk if plan.stream else None
     src, vp, out, code, mop, fop = _prepare(name, plan, src, vals, mul, fold,
                                             plan.q0, xblk)
@@ -299,23 +317,6 @@ def mono_rows(plan, src, fill, vals=None, mul=None, fold=None):
 # as the dispatch rule, so that both packages take the same path
 _CASCADE_BUDGET = 90 << 20
 
-# device -> [int32 tile flags, epoch of the last call]: the cascade's
-# tiles publish the epoch of their call there, so the buffer is never
-# cleared (calls are ordered on the current stream)
-_FLAGS = {}
-
-
-def _cascade_flags(device, tiles):
-    """The flag buffer (at least `tiles` long) and a new epoch for one
-    cascade launch on `device`."""
-    ent = _FLAGS.get(device)
-    if ent is None or ent[0].numel() < tiles or ent[1] >= (1 << 31) - 1:
-        ent = _FLAGS[device] = [torch.zeros(max(tiles, 1 << 12),
-                                            dtype=torch.int32,
-                                            device=device), 0]
-    ent[1] += 1
-    return ent[0], ent[1]
-
 
 def _cascade_applies(levels, place, dtype):
     """The JAX package's dispatch rules (mono.py:361-385)."""
@@ -336,6 +337,94 @@ def _cascade_applies(levels, place, dtype):
     return budget <= _CASCADE_BUDGET
 
 
+class CascadeRuns:
+    """The table mono_cascade's kernel reads: placed output cell i folds
+    the run ``src[start[i] : start[i + 1]]`` of the level-0 source
+    through `levels` 8-ary levels (an empty run gives the fill).
+    `start` is int32 numpy on the host, a tensor after ``to``; `cells`
+    is its last entry, the source length the kernel reads."""
+
+    __slots__ = ("start", "levels", "cells")
+
+    def __init__(self, start, levels, cells):
+        self.start, self.levels, self.cells = start, levels, cells
+
+    def to(self, device):
+        return CascadeRuns(as_tensor(self.start, device), self.levels,
+                           self.cells)
+
+
+def fold_index(counts):
+    """xspmv's fold level over rows of `counts` consecutive cells (in row
+    order, from cell 0): output cell (row r, group j) folds the row's
+    cells 8j .. 8j + 7, -1 past the row's end.  Returns the gather index
+    as MonoPlan.build takes it ((groups rounded up to 128) / 128, 8, 128
+    flattened, -1 padded) and the next level's counts."""
+    counts = np.asarray(counts, np.int64)
+    off = np.zeros(len(counts), np.int64)
+    off[1:] = np.cumsum(counts)[:-1]
+    c_n = -(-counts // 8)
+    off_n = np.zeros(len(counts), np.int64)
+    off_n[1:] = np.cumsum(c_n)[:-1]
+    m = int(c_n.sum())
+    m_p = -(-m // 128) * 128
+    gidx = np.full((m_p // 128, 8, 128), -1, np.int64)
+    rr = np.repeat(np.arange(len(counts)), c_n)
+    base = off[rr] + 8 * (np.arange(m) - off_n[rr])
+    lim = off[rr] + counts[rr]
+    cell = np.arange(m)
+    for s in range(8):
+        child = base + s
+        gidx[cell // 128, s, cell % 128] = np.where(child < lim, child, -1)
+    return gidx.reshape(-1), c_n
+
+
+def fold_plans(counts, nrows, present, itemsize=4):
+    """xspmv's fold levels and placement (core/xspmv.py) for the rows
+    `present` (sorted, distinct, of `nrows`) whose level-0 runs hold
+    `counts` cells (at least 1), one run after another from cell 0: the
+    levels fold each row's cells 8 at a time until every row has one,
+    and the placement puts row r's cell at output present[r].  Where
+    there are levels, the placement carries the cascade's row table
+    (``place.cascade``, ``cascade_table``).  Returns (levels, place),
+    numpy plans; raises ValueError for runs of another shape."""
+    c = np.asarray(counts, np.int64)
+    present = np.asarray(present, np.int64)
+    if (len(present) != len(c) or (c < 1).any()
+            or (np.diff(present) < 1).any()
+            or (len(c) and (present[0] < 0 or present[-1] >= nrows))):
+        raise ValueError("fold_plans: every present row (sorted, distinct, "
+                         f"of {nrows}) needs a run of at least one cell")
+    if c.sum() >= 1 << 31:
+        raise ValueError("fold_plans: the level-0 source has 2^31 cells "
+                         "or more")
+    levels = []
+    while len(c) and c.max() > 1:
+        n_in = int(c.sum())
+        gidx, c = fold_index(c)
+        levels.append(MonoPlan.build(gidx, n_in, itemsize))
+    pos = np.full(nrows, -1, np.int64)
+    pos[present] = np.arange(len(present))
+    place = MonoPlan.build(pos, max(1, len(present)), itemsize)
+    if levels:
+        place.cascade = cascade_table(counts, present, place.S * 128,
+                                      len(levels))
+    return levels, place
+
+
+def cascade_table(counts, present, n_out, levels):
+    """The cascade's row table for `n_out` output cells: output
+    present[r] folds the r-th run of `counts` cells of the level-0
+    source (the runs one after another from cell 0) through `levels`
+    levels; every other output cell has an empty run.  An O(rows) step
+    of ``fold_plans``, which checks its inputs."""
+    per = np.zeros(n_out, np.int64)
+    per[present] = counts
+    start = np.zeros(n_out + 1, np.int32)
+    np.cumsum(per, out=start[1:])
+    return CascadeRuns(start, levels, int(start[-1]))
+
+
 def mono_cascade(levels, place, src, fill, fold):
     """Every fold level (add-monoid name `fold`) and the final placement
     in one launch.  Returns the placed (place.S, 128) tensor, or None
@@ -344,9 +433,9 @@ def mono_cascade(levels, place, src, fill, fold):
     ok, or its budget): callers then run the per-level chain.
 
     CPU tensors take the plain version, the chain of
-    ``mono_gather_plain`` calls; CUDA tensors launch the cooperative
-    ``mono_cascade`` kernel (``csrc/cascade.cu``), whose tiles wait on
-    per-tile flags for the window of the level before."""
+    ``mono_gather_plain`` calls; CUDA tensors launch the per-row tree
+    fold (``csrc/cascade.cu``), which reads the table ``fold_plans``
+    attached to `place` with the levels."""
     if not _cascade_applies(levels, place, src.dtype):
         return None
     if src.device.type == "cpu":
@@ -359,33 +448,22 @@ def mono_cascade(levels, place, src, fill, fold):
     if src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {src.device}")
     code = _kernels.dtype_code(src, name)
-    plans = list(levels) + [place]
-    src = src.contiguous()
-    _kernels.cuda_args(name, src, *[p.dm for p in plans],
-                       *[p.qg for p in plans])
-    if any(p.dm.dtype != torch.int16 for p in plans):
-        raise ValueError(f"{name}: needs span-encoded (int16) plans")
-    bufs = [src] + [torch.empty((p.S // 8, 128), dtype=src.dtype,
-                                device=src.device) for p in levels]
+    runs = place.cascade
+    if (runs is None or runs.levels != len(levels)
+            or runs.cells != levels[0].src_n):
+        raise ValueError(f"{name}: the placement plan carries no row table "
+                         f"for these {len(levels)} levels: build the plans "
+                         "with fold_plans")
+    src = src.reshape(-1).contiguous()
+    if src.numel() < runs.cells:
+        raise ValueError(f"{name}: the source has {src.numel()} cells, "
+                         f"the plans read {runs.cells}")
+    _kernels.cuda_args(name, src, runs.start)
     out = torch.empty((place.S, 128), dtype=src.dtype, device=src.device)
-    bufs.append(out)
-    n = len(plans)
-    ptrs = ctypes.c_void_p * n
-    qg = ptrs(*[p.qg.data_ptr() for p in plans])
-    dm = ptrs(*[p.dm.data_ptr() for p in plans])
-    groups = (ctypes.c_int64 * n)(*[p.S // 8 for p in plans])
-    wva = (ctypes.c_int64 * n)(*[p.wva for p in plans])
-    bufp = (ctypes.c_void_p * (n + 1))(*[b.data_ptr() for b in bufs])
-    lens = (ctypes.c_int64 * (n + 1))(*[b.numel() for b in bufs])
-    L = _kernels.lib()
-    tiles = L.pgb_mono_cascade_tiles(n, ctypes.cast(groups, ctypes.c_void_p))
-    flags, epoch = _cascade_flags(src.device, tiles)
-    rc = L.pgb_mono_cascade(
-        n, ctypes.cast(qg, ctypes.c_void_p), ctypes.cast(dm, ctypes.c_void_p),
-        ctypes.cast(groups, ctypes.c_void_p), ctypes.cast(wva, ctypes.c_void_p),
-        ctypes.cast(bufp, ctypes.c_void_p), ctypes.cast(lens, ctypes.c_void_p),
-        code, ADDS[fold][1], _kernels.fill_bits(fill, src.dtype),
-        flags.data_ptr(), flags.numel(), epoch, _kernels.stream())
+    rc = _kernels.lib().pgb_mono_cascade(
+        src.data_ptr(), src.numel(), runs.start.data_ptr(), out.data_ptr(),
+        out.numel(), len(levels), code, ADDS[fold][1],
+        _kernels.fill_bits(fill, src.dtype), _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
     return out

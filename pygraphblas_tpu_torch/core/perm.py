@@ -28,7 +28,9 @@ Kernels (``csrc/perm.cu``), each beside its plain PyTorch version:
     own: A gather, sublane select and C gather in (S,128) tiles, any S
     from 1 to 128), for every other plan.
 All five are bound by bytes: each moves its input, its int8 index
-tables and its output once.
+tables and its output once.  On the card they take float32 and int32;
+values wider than 4 bytes take the plain versions, as the JAX package
+sends them to XLA.
 """
 
 import numpy as np
@@ -529,21 +531,15 @@ def _inner3_plain(x2d, a_in, a_mid, ssel, c_mid, c_in, g, S):
 
 
 # ---------------------------------------------------------------------------
-# wrappers: the plain version for CPU tensors, the kernel for CUDA tensors
-
-
-def _on_card(x, name):
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return True
+# wrappers: the kernel where _kernels.on_card (a CUDA tensor of 4-byte
+# values), else the plain version (perm.py:524, 584-585, 650-651, 752,
+# 822 send 8-byte values to XLA)
 
 
 def _lane_gather(x2d, idx8):
     """out[r, l] = x2d[r, idx[r, l]] over (rows, 128)."""
     name = "lane_gather"
-    if not _on_card(x2d, name):
+    if not _kernels.on_card(x2d, name):
         return _lane_gather_plain(x2d, idx8)
     if x2d.dim() != 2 or x2d.shape[1] != 128 or idx8.shape != x2d.shape:
         raise ValueError(f"{name}: bad shapes {tuple(x2d.shape)} "
@@ -567,7 +563,7 @@ def _mid_pass(x3d, a8, ssel8, c8):
     x3d (nsub, S, 128); a8, c8 hold nsub*S*128 int8 lane indices,
     ssel8 (nsub, S, 128) int8 row indices, None when S == 1."""
     name = "mid_pass"
-    if not _on_card(x3d, name):
+    if not _kernels.on_card(x3d, name):
         return _mid_pass_plain(x3d, a8, ssel8, c8)
     if x3d.dim() != 3 or x3d.shape[2] != 128:
         raise ValueError(f"{name}: bad shape {tuple(x3d.shape)}")
@@ -595,7 +591,7 @@ def _lane_gather_tdesc(x2d, idx8, g, r_l):
     """Descend pass: lane gather + per-tile transpose,
     (g*r_l, 128) -> (g*128*(r_l//128), 128)."""
     name = "lane_gather_tdesc"
-    if not _on_card(x2d, name):
+    if not _kernels.on_card(x2d, name):
         return _tdesc_plain(x2d, idx8, g, r_l)
     if r_l % 128 or x2d.shape != (g * r_l, 128) or idx8.shape != x2d.shape:
         raise ValueError(f"{name}: bad shapes {tuple(x2d.shape)} g={g} "
@@ -616,7 +612,7 @@ def _lane_gather_tasc(x2d, idx8, g, r_l, fold8=None):
     (g*128*(r_l//128), 128) -> (g*r_l, 128); with fold8 (an add-monoid
     name) each 8-row block is folded lanewise -> (g*r_l//8, 128)."""
     name = "lane_gather_tasc"
-    if not _on_card(x2d, name):
+    if not _kernels.on_card(x2d, name):
         return _tasc_plain(x2d, idx8, g, r_l, fold8)
     if r_l % 128 or x2d.shape != (g * r_l, 128) or idx8.shape != x2d.shape:
         raise ValueError(f"{name}: bad shapes {tuple(x2d.shape)} g={g} "
@@ -625,6 +621,9 @@ def _lane_gather_tasc(x2d, idx8, g, r_l, fold8=None):
     _kernels.cuda_args(name, x2d, idx8)
     rows = g * r_l // 8 if fold8 is not None else g * r_l
     out = torch.empty((rows, 128), dtype=x2d.dtype, device=x2d.device)
+    if any(t.data_ptr() % 16 for t in (x2d, idx8, out)):
+        raise ValueError(f"{name}: the kernel's 16-byte loads need "
+                         "16-byte aligned tensors")
     rc = _kernels.lib().pgb_lane_gather_tasc(
         x2d.data_ptr(), idx8.data_ptr(), out.data_ptr(), g, r_l // 128,
         code, ADDS[fold8][1] if fold8 is not None else -1,
@@ -639,7 +638,7 @@ def _inner3(x2d, a_in, a_mid, ssel, c_mid, c_in, g, S):
     (S,128)-tile mid pass + innermost ascend pass, over g groups of
     (S*128, 128) rows."""
     name = "inner3"
-    if not _on_card(x2d, name):
+    if not _kernels.on_card(x2d, name):
         return _inner3_plain(x2d, a_in, a_mid, ssel, c_mid, c_in, g, S)
     shape = (g * S * 128, 128)
     if x2d.shape != shape or any(t.shape != shape for t in

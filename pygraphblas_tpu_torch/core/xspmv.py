@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor
-from .mono import MonoPlan, mono_cascade, mono_gather
+from .mono import MonoPlan, fold_plans, mono_cascade, mono_gather
 from .perm import PermPlan, _choose_shape
 from ..semiring import FLIPPED
 from ..types import torch_dtype
@@ -42,7 +42,8 @@ MIN_NNZ = 1 << 15
 PLAN_CACHE_DIR = os.environ.get(
     "PYGB_TORCH_PLAN_CACHE",
     os.path.join(tempfile.gettempdir(), "pygb_torch_plans"))
-_PLAN_VERSION = 1
+# 2: the placement plan carries the fold cascade's row table
+_PLAN_VERSION = 2
 
 
 def supported(semiring, dtype, nnz):
@@ -165,37 +166,11 @@ class XSpmvPlan:
         p.perm = PermPlan.build(src_of_dst)
 
         # --- reduction levels + single final placement --------------------
-        # level k folds F_k cells (counts c_k per row) to c_{k+1} =
-        # ceil(c_k/8); reduced rows ride along as single-child groups
-        levels = []
-        c_k = g_r
-        off_k = gof
-        while len(c_k) and c_k.max() > 1:
-            c_n = -(-c_k // 8)
-            off_n = np.zeros(len(urows), np.int64)
-            off_n[1:] = np.cumsum(c_n)[:-1]
-            m_next = int(c_n.sum())
-            m_next_p = -(-m_next // 128) * 128
-            gidx = np.full((m_next_p // 128, 8, 128), -1, np.int32)
-            rr = np.repeat(np.arange(len(urows)), c_n)
-            jj = np.arange(m_next) - np.repeat(off_n, c_n)
-            base = off_k[rr] + 8 * jj
-            lim = off_k[rr] + c_k[rr]
-            for s in range(8):
-                child = base + s
-                ok = child < lim
-                gidx[np.arange(m_next) // 128, s,
-                     np.arange(m_next) % 128] = np.where(ok, child, -1)
-            levels.append(MonoPlan.build(gidx.reshape(-1),
-                                         int(c_k.sum()), dtype.itemsize))
-            c_k = c_n
-            off_k = off_n
-        # final placement: present row r's value sits at its rank
-        pos_y = np.full(nrows, -1, np.int64)
-        pos_y[urows] = off_k
-        p.levels = levels
-        p.places = [MonoPlan.build(pos_y, max(1, int(c_k.sum())),
-                                   dtype.itemsize)]
+        # level k folds each row's c_k cells to c_{k+1} = ceil(c_k/8);
+        # reduced rows ride along as single-child groups; present row r's
+        # value is placed at output urows[r]
+        p.levels, place = fold_plans(g_r, nrows, urows, dtype.itemsize)
+        p.places = [place]
         rp = np.zeros(nrows, bool)
         rp[rows] = True
         p.row_present = rp

@@ -1,259 +1,357 @@
 // The xspmv fold cascade in one launch: the CUDA counterpart of
 // pygraphblas_tpu/core/mono.py:mono_cascade.
 //
-// Levels 0..n-2 are span-encoded monotone gathers with an 8-slot fold
-// (mono_span's arithmetic); level n-1 is the final placement, a plain
-// span gather.  Level l reads level l-1's output:
+// What it computes.  The chain it replaces runs `levels` span gathers
+// that fold 8-slot groups, then a plain placement gather.  In xspmv's
+// plans (core/xspmv.py) every level folds, for each matrix row, that
+// row's cells 8 at a time in order, and a row already folded to one
+// cell rides along as a group of one child and seven empty slots.  So
+// placed output cell i is an 8-ary tree fold of one contiguous run of
+// the level-0 source, src[start[i] .. start[i + 1]) (empty: `fill`),
+// whose shape follows from the run's length n and the level count:
 //
-//   dst_l[g, lane] = fold_{s=0..7} src_l[qg_l[g] * 128 + dm_l[8g+s, lane]]
+//   level 1 cell q    = fold_{s=0..7} (8q + s < n ? src[8q + s] : fill)
+//   level k + 1 cell q = fold_{s=0..7} of level k's cells 8q + s, fill
+//                        for the missing ones,
 //
-// (dm < 0 -> fill; the fold in the order s = 0..7, so PLUS folds equal
-// the per-level chain bit for bit).
+// each fold from slot 0 in the order s = 0..7, and `fill` folded into
+// every empty slot, as the chain folds them: PLUS turns -0.0 into +0.0
+// and MIN/MAX fills match bit for bit.  The host makes `start` once
+// per plan, from the run lengths it builds the levels from
+// (core/mono.py: fold_plans).
 //
-// The TPU runs the cascade as one grid-less program that keeps every
-// level in VMEM scratch, serialising some 24k 8-row groups at kron-20.
-// Here it is one cooperative persistent kernel.  The work is cut into
-// tiles of 2 groups (one 256-thread block, a thread per output lane),
-// numbered level by level, and the grid (as large as the card holds at
-// once: occupancy x SMs) takes them grid-strided in that order.  A
-// level's groups read only a window of the level before: group g reads
-// source rows qg[g] .. qg[g] + wva - 1, which are the outputs of that
-// level's groups of the same numbers.  So in place of a grid-wide
-// barrier between levels, a tile waits only for the tiles of the level
-// before that wrote its window: each finished tile publishes a flag
-// (release), and a tile acquires the flags it needs before it reads.
-// A block streams its next tile's dm (4 KB, contiguous) into shared
-// memory with cp.async while it waits on and computes the current one,
-// so the dm bytes, most of the cascade's, keep flowing.  (On an H100 at
-// kron-20, 256-thread tiles were the fastest of 128 to 1024 threads,
-// and folding several groups a thread was slower.)
+// What bounds it on the card: bytes, the first source read once, the
+// table (4 B a row) and the placed output (4 B a row); 17.7 MB, 0.0053
+// ms at 3.35 TB/s at kron-20.  The earlier design (a cooperative kernel
+// walking every level's plan, 2-group tiles waiting on flags from the
+// level before; 0.0572 ms at kron-20 on an H100 80GB HBM3 at 700 W)
+// read every level's dm (8.8 MB a level there, 7 of its 8 slots empty
+// from level 2 on) to fold a few thousand rows, and waited on flags.
 //
-// No deadlock: a tile waits only on tiles of smaller number; a block
-// takes its tiles in increasing order; and the cooperative launch makes
-// every block co-resident, so the block owning the smallest unfinished
-// tile always runs.  Flags hold the number of the call (`epoch`, a
-// caller-kept counter that never repeats on one buffer), so the buffer
-// is never cleared.
-//
-// Each thread computes its source index directly and clips it as the
-// plain version does, so no window reads past a buffer: the TPU
-// kernel's pad rows (mono.py:441-446) have nothing to guard here.  The
-// per-level buffers are device memory (a few MB, so they stay in the 50
-// MB L2); the wrapper allocates them.  A level's source, written by
-// other blocks in this launch, is read from L2 (ld.global.cg).
-//
-// Bound: bytes.  Every level's dm (2 B a cell) and qg, the first source
-// and the placed output; the intermediates stay in L2.
+// This design: one launch, no grid-wide waits, no flags.  A block takes
+// 256 consecutive output rows: it reads their 257 table entries, stages
+// the first 2048 source cells of its span in shared memory with 16-byte
+// loads, and each thread folds its own row if the run has at most 64
+// cells (from shared memory where the run was staged).  A run of 65 ..
+// 1024 cells goes to a warp: 256 cells a step, a level-1 cell a lane
+// from 8 registers loaded a step ahead, level-2 cells by shuffles, the
+// level-2 group in registers.  A longer run goes to the whole block,
+// 2048 cells a round, one step a warp, the level-3 cells by shuffles in
+// warp 0; so kron-20's longest run (4,942 cells) takes 3 rounds, not 20
+// dependent steps of one warp.  From level 3 up one thread folds the
+// cells as they arrive, one pending group a level, so a run of any
+// length needs registers for one step.  The fold op is a template
+// argument, and registers are capped at 32 a thread so that 8 blocks
+// fit an SM.  One-off edits of this kernel on the card (not kept)
+// were slower with 63 registers a thread or with every run past 64
+// cells on one warp, and showed that kron-20's 6,196 runs past 64
+// cells take a large share of its time.  Output cells are written in
+// row order.
 
 #include <cstring>
 
 #include "ops.cuh"
 
-constexpr int CASCADE_MAX = 32;
-constexpr int CASCADE_THREADS = 256;
-constexpr int TILE_GROUPS = CASCADE_THREADS / 128;
+namespace cascade {
+constexpr int BLOCK = 256;      // threads a block = output rows a block
+constexpr int STAGE = 2048;     // source cells a block stages
+constexpr int SHORT = 64;       // the longest run one thread folds
+constexpr int MID = 1024;       // the longest run one warp folds
+constexpr int STEP = 256;       // cells a warp folds a step: 32 x 8
+constexpr int ROUND = STEP * BLOCK / 32;    // cells a block folds a round
+constexpr int MAX_LEVELS = 32;
+}  // namespace cascade
 
-struct CascadeLevel {
-  const int32_t* qg;
-  const int16_t* dm;
-  const void* src;
-  void* dst;
-  int64_t src_len;
-  int64_t n_groups;
-  int64_t tile0;  // number of this level's first tile
-  int64_t wva;    // source rows a group's window spans
-};
-
-struct CascadeArgs {
-  CascadeLevel lv[CASCADE_MAX];
-  int n;
-  int fold_op;
-  uint32_t fill_bits;
-  int* flags;  // one a tile: the epoch of the call that finished it
-  int epoch;
-  int64_t n_tiles;
-};
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// the level of tile t, from the level of an earlier tile
-__device__ __forceinline__ int level_of(const CascadeArgs& a, int64_t t,
-                                        int l) {
-  while (l + 1 < a.n && t >= a.lv[l + 1].tile0) ++l;
-  return l;
-}
-
-// this thread's 16 B of tile t's dm (level l) into shared memory, then
-// a cp.async group boundary (an empty group past the last tile)
-__device__ __forceinline__ void fetch_dm(const CascadeArgs& a, int64_t t,
-                                         int l, int16_t* buf) {
-  if (t < a.n_tiles) {
-    const CascadeLevel& lv = a.lv[l];
-    const int64_t off = (t - lv.tile0) * (TILE_GROUPS * 8 * 128) +
-                        threadIdx.x * 8;
-    if (off < lv.n_groups * 8 * 128) {
-      const unsigned dst = (unsigned)__cvta_generic_to_shared(
-          buf + threadIdx.x * 8);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
-                   "l"(lv.dm + off)
-                   : "memory");
-    }
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <typename T>
-__global__ void __launch_bounds__(CASCADE_THREADS, 2)
-mono_cascade_kernel(const CascadeArgs a) {
-  __shared__ __align__(16) int16_t dms[2][TILE_GROUPS * 8 * 128];
-  T fill;
-  memcpy(&fill, &a.fill_bits, sizeof(T));
-  const int lane = threadIdx.x & 127;
-  const int sub = threadIdx.x >> 7;
-  int64_t t = blockIdx.x;
-  int l = level_of(a, t, 0);
-  fetch_dm(a, t, l, dms[0]);
-  for (int k = 0; t < a.n_tiles; t += gridDim.x, k ^= 1) {
-    const int64_t tn = t + gridDim.x;
-    const int ln = tn < a.n_tiles ? level_of(a, tn, l) : l;
-    fetch_dm(a, tn, ln, dms[k ^ 1]);
-    const CascadeLevel& lv = a.lv[l];
-    const int64_t tile = t - lv.tile0;
-    const int64_t g = tile * TILE_GROUPS + sub;
-    const bool live = g < lv.n_groups;
-    const bool folded = l + 1 < a.n;
-    const int64_t base = live ? (int64_t)__ldg(lv.qg + g) * 128 : 0;
-    if (l > 0 && threadIdx.x < 32) {
-      // the tiles of level l-1 that wrote rows qg[g0] .. qg[g1] + wva - 1,
-      // one flag a lane
-      const CascadeLevel& pv = a.lv[l - 1];
-      const int64_t g0 = tile * TILE_GROUPS;
-      int64_t g1 = g0 + TILE_GROUPS - 1;
-      if (g1 >= lv.n_groups) g1 = lv.n_groups - 1;
-      int64_t r0 = __ldg(lv.qg + g0), r1 = __ldg(lv.qg + g1) + lv.wva - 1;
-      const int64_t last = pv.n_groups - 1;
-      r0 = r0 > last ? last : r0;
-      r1 = r1 > last ? last : r1;
-      for (int64_t f = pv.tile0 + r0 / TILE_GROUPS + threadIdx.x;
-           f <= pv.tile0 + r1 / TILE_GROUPS; f += 32)
-        while (ld_acquire(a.flags + f) != a.epoch) __nanosleep(32);
-    }
-    // this tile's dm has landed (the next tile's group may still fly)
-    asm volatile("cp.async.wait_group 1;" ::: "memory");
-    __syncthreads();
-    if (live) {
-      const int16_t* dm = dms[k] + sub * 8 * 128 + lane;
-      const T* src = (const T*)lv.src;
-      T* dst = (T*)lv.dst;
-      const int64_t src_len = lv.src_len;
-      T acc = fill;
+// A run of 1..64 cells (levels >= 2 past 8 cells) folded by one thread.
+template <typename T, int OP>
+__device__ __forceinline__ T fold_short(const T* v, int n, int levels,
+                                        T fill) {
+  T b = fill;
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const int d = dm[s * 128];
-        T v = fill;
-        if (d >= 0) {
-          int64_t i = base + d;
-          i = i < 0 ? 0 : (i >= src_len ? src_len - 1 : i);
-          v = l == 0 ? __ldg(src + i) : __ldcg(src + i);
-        }
-        if (!folded)
-          dst[(g * 8 + s) * 128 + lane] = v;
-        else
-          acc = s == 0 ? v : apply_fold<T>(a.fold_op, acc, v);
-      }
-      if (folded) dst[g * 128 + lane] = acc;
+  for (int j = 0; j < 8; ++j) {
+    if (8 * j < n) {            // level-1 cell j
+      T a = v[8 * j];
+#pragma unroll
+      for (int s = 1; s < 8; ++s)
+        a = fold_c<OP>(a, 8 * j + s < n ? v[8 * j + s] : fill);
+      b = j == 0 ? a : fold_c<OP>(b, a);
+    } else if (levels > 1) {    // an empty slot of the level-2 group
+      b = fold_c<OP>(b, fill);
     }
-    // every write of this tile (and every read of dms[k]) is done
-    __syncthreads();
-    if (folded && threadIdx.x == 0) st_release(a.flags + t, a.epoch);
-    l = ln;
   }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  for (int l = 2; l < levels; ++l)
+#pragma unroll
+    for (int s = 1; s < 8; ++s) b = fold_c<OP>(b, fill);
+  return b;
 }
 
-template <typename T>
-static int launch_cascade(const CascadeArgs& a, cudaStream_t st) {
-  // grid: every block co-resident (a cooperative launch refuses more)
-  static int per_sm = -1, sms = -1;
-  if (per_sm < 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, mono_cascade_kernel<T>, CASCADE_THREADS, 0);
-    if (e != cudaSuccess) {
-      per_sm = -1;
-      return (int)e;
-    }
+// The fold of the cells from level `first` on, one thread's: a cell of
+// level k joins the pending group of its level, a full group moves up
+// as a cell of level k + 1, and a cell of level `levels` is the result;
+// finish() folds the fill into every partial group, bottom up.
+template <typename T, int OP>
+struct Levels {
+  T acc[cascade::MAX_LEVELS];
+  int cnt[cascade::MAX_LEVELS];
+  int first, levels;
+  T fill, result;
+
+  __device__ Levels(int first_, int levels_, T fill_)
+      : first(first_), levels(levels_), fill(fill_), result(fill_) {
+    for (int k = 0; k < cascade::MAX_LEVELS; ++k) cnt[k] = 0;
   }
-  int64_t grid = (int64_t)per_sm * sms;
-  if (grid > a.n_tiles) grid = a.n_tiles;
-  if (grid < 1) return -1;
-  void* args[] = {(void*)&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)mono_cascade_kernel<T>, dim3((unsigned)grid),
-      dim3(CASCADE_THREADS), args, 0, st);
-  if (e != cudaSuccess) return (int)e;
+  __device__ void feed(T x, int k) {
+    while (k < levels) {
+      acc[k] = cnt[k] == 0 ? x : fold_c<OP>(acc[k], x);
+      if (++cnt[k] < 8) return;
+      x = acc[k];
+      cnt[k] = 0;
+      ++k;
+    }
+    result = x;
+  }
+  __device__ T finish() {
+    for (int k = first; k < levels; ++k) {
+      if (cnt[k] == 0) continue;
+      T a = acc[k];
+      for (int s = cnt[k]; s < 8; ++s) a = fold_c<OP>(a, fill);
+      cnt[k] = 0;
+      feed(a, k + 1);
+    }
+    return result;
+  }
+};
+
+// Lane l's level-1 cell of a step's m cells (m capped at 256; lane l's
+// 8 values in r), and in lanes 8q the step's level-2 cell q, q < *n2
+// (the return).
+template <typename T, int OP>
+__device__ __forceinline__ T level2(const T* r, int64_t m, T fill,
+                                    int* n2) {
+  const int lane = threadIdx.x & 31;
+  const int n1 = (int)(((m < cascade::STEP ? m : cascade::STEP) + 7) >> 3);
+  *n2 = (n1 + 7) >> 3;
+  T a = r[0];
+#pragma unroll
+  for (int s = 1; s < 8; ++s) a = fold_c<OP>(a, r[s]);
+  if (lane >= n1) a = fill;
+  T c2 = a;
+#pragma unroll
+  for (int s = 1; s < 8; ++s) {
+    const T o = __shfl_down_sync(0xffffffffu, a, s);
+    if ((lane & 7) == 0) c2 = fold_c<OP>(c2, lane + s < n1 ? o : fill);
+  }
+  return c2;
+}
+
+// this lane's 8 cells of the 256 from c0 (fill past n)
+template <typename T>
+__device__ __forceinline__ void load8(T* dst, const T* v, int64_t c0,
+                                      int64_t n, T fill) {
+  const int64_t c = c0 + 8 * (threadIdx.x & 31);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) dst[s] = c + s < n ? v[c + s] : fill;
+}
+
+// A run of 65..1024 cells (so levels >= 3) folded by one warp, 256 cells
+// a step with the next step's loads in flight: lane l folds level-1 cell
+// l of the step, lanes 8q .. 8q + 7 level-2 cell q by shuffles, and
+// lane 0 the level-2 cells onward.  The result is valid in lane 0.
+template <typename T, int OP>
+__device__ T fold_mid(const T* v, int64_t n, int levels, T fill) {
+  using namespace cascade;
+  const int lane = threadIdx.x & 31;
+  // lane 0: the pending group of level-2 cells in registers, levels 3 ..
+  // in `up`
+  Levels<T, OP> up(3, levels, fill);
+  T acc2 = fill;
+  int cnt2 = 0;
+  T r[8], nx[8];
+  load8(r, v, 0, n, fill);
+  for (int64_t c0 = 0; c0 < n; c0 += STEP) {
+    if (c0 + STEP < n) load8(nx, v, c0 + STEP, n, fill);
+    int n2;
+    const T c2 = level2<T, OP>(r, n - c0, fill, &n2);
+    for (int q = 0; q < n2; ++q) {
+      const T x = __shfl_sync(0xffffffffu, c2, 8 * q);
+      if (lane == 0) {
+        acc2 = cnt2 == 0 ? x : fold_c<OP>(acc2, x);
+        if (++cnt2 == 8) {
+          up.feed(acc2, 3);
+          cnt2 = 0;
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) r[s] = nx[s];
+  }
+  if (lane != 0) return fill;
+  if (cnt2) {
+    for (int s = cnt2; s < 8; ++s) acc2 = fold_c<OP>(acc2, fill);
+    up.feed(acc2, 3);
+  }
+  return up.finish();
+}
+
+// A run of more than 1024 cells (so levels >= 4) folded by the whole
+// block, 2048 cells a round with the next round's loads in flight: warp
+// w folds the round's step w to 4 level-2 cells (as fold_mid), warp 0
+// their 32 to 4 level-3 cells by shuffles, and thread 0 those onward.
+// The result is valid in thread 0.
+template <typename T, int OP>
+__device__ T fold_long(const T* v, int64_t n, int levels, T fill, T* l2) {
+  using namespace cascade;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  Levels<T, OP> up(3, levels, fill);
+  T r[8], nx[8];
+  load8(r, v, STEP * w, n, fill);
+  for (int64_t c0 = 0; c0 < n; c0 += ROUND) {
+    const int64_t cs = c0 + STEP * w;
+    if (c0 + ROUND < n) load8(nx, v, cs + ROUND, n, fill);
+    int n2;
+    const T c2 = level2<T, OP>(r, cs < n ? n - cs : 0, fill, &n2);
+    if ((lane & 7) == 0) l2[4 * w + (lane >> 3)] = c2;
+    __syncthreads();
+    if (w == 0) {
+      const int64_t mr = n - c0 < ROUND ? n - c0 : ROUND;
+      const int n2r = (int)((((mr + 7) >> 3) + 7) >> 3);
+      const int n3 = (n2r + 7) >> 3;
+      const T x = l2[lane];
+      T c3 = x;
+#pragma unroll
+      for (int s = 1; s < 8; ++s) {
+        const T o = __shfl_down_sync(0xffffffffu, x, s);
+        if ((lane & 7) == 0) c3 = fold_c<OP>(c3, lane + s < n2r ? o : fill);
+      }
+      for (int q = 0; q < n3; ++q) {
+        const T y = __shfl_sync(0xffffffffu, c3, 8 * q);
+        if (lane == 0) up.feed(y, 3);
+      }
+    }
+    __syncthreads();            // l2 is read
+#pragma unroll
+    for (int s = 0; s < 8; ++s) r[s] = nx[s];
+  }
+  return threadIdx.x == 0 ? up.finish() : fill;
+}
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(cascade::BLOCK, 8)
+mono_cascade_kernel(const T* __restrict__ src, int64_t src_len,
+                    const int32_t* __restrict__ start, T* __restrict__ out,
+                    int64_t n_rows, int levels, uint32_t fill_bits) {
+  using namespace cascade;
+  __shared__ int32_t s_start[BLOCK + 1];
+  __shared__ __align__(16) T stage[STAGE];
+  __shared__ int16_t longs[BLOCK], vlongs[BLOCK];
+  __shared__ int n_long, n_vlong;
+  __shared__ T l2[ROUND / 64];
+  T fill;
+  memcpy(&fill, &fill_bits, sizeof(T));
+  const int t = threadIdx.x;
+  const int64_t i0 = (int64_t)blockIdx.x * BLOCK;
+  const int rows = (int)(n_rows - i0 < BLOCK ? n_rows - i0 : BLOCK);
+  if (t < rows) s_start[t] = __ldg(start + i0 + t);
+  if (t == 0) {
+    s_start[rows] = __ldg(start + i0 + rows);
+    n_long = n_vlong = 0;
+  }
+  __syncthreads();
+  // stage [base, end): the span's first cells, from a 16-byte boundary
+  const int64_t lo = s_start[0], hi = s_start[rows];
+  const int64_t base = lo & ~(int64_t)3;
+  const int64_t end = hi < base + STAGE ? hi : base + STAGE;
+  if ((((uintptr_t)src) & 15) == 0) {
+    const int nq = (int)((end - base + 3) >> 2);
+    for (int q = t; q < nq; q += BLOCK) {
+      const int64_t g = base + 4 * q;
+      if (g + 4 <= src_len) {
+        *(uint4*)(stage + 4 * q) = __ldg((const uint4*)(src + g));
+      } else {
+        for (int e = 0; e < 4 && g + e < src_len; ++e)
+          stage[4 * q + e] = src[g + e];
+      }
+    }
+  } else {
+    for (int q = t; q < end - base; q += BLOCK)
+      stage[q] = src[base + q];
+  }
+  int64_t s = 0, n = 0;
+  if (t < rows) {
+    s = s_start[t];
+    n = s_start[t + 1] - s;
+    if (n > MID)
+      vlongs[atomicAdd(&n_vlong, 1)] = (int16_t)t;
+    else if (n > SHORT)
+      longs[atomicAdd(&n_long, 1)] = (int16_t)t;
+  }
+  __syncthreads();
+  if (t < rows && n <= SHORT) {
+    T v = fill;
+    if (n > 0) {
+      const T* p = s + n <= end ? stage + (s - base) : src + s;
+      v = fold_short<T, OP>(p, (int)n, levels, fill);
+    }
+    out[i0 + t] = v;
+  }
+  for (int j = t >> 5; j < n_long; j += BLOCK / 32) {
+    const int r = longs[j];
+    const int64_t rs = s_start[r], rn = s_start[r + 1] - rs;
+    const T* p = rs + rn <= end ? stage + (rs - base) : src + rs;
+    const T v = fold_mid<T, OP>(p, rn, levels, fill);
+    if ((t & 31) == 0) out[i0 + r] = v;
+  }
+  for (int j = 0; j < n_vlong; ++j) {
+    const int r = vlongs[j];
+    const int64_t rs = s_start[r], rn = s_start[r + 1] - rs;
+    const T* p = rs + rn <= end ? stage + (rs - base) : src + rs;
+    const T v = fold_long<T, OP>(p, rn, levels, fill, l2);
+    if (t == 0) out[i0 + r] = v;
+  }
+}
+
+template <typename T, int OP>
+static int launch_cascade_op(const void* src, int64_t src_len,
+                          const int32_t* start, void* out, int64_t n_rows,
+                          int levels, uint32_t fill_bits, cudaStream_t st) {
+  using namespace cascade;
+  const int64_t grid = (n_rows + BLOCK - 1) / BLOCK;
+  if (grid > 0)
+    mono_cascade_kernel<T, OP><<<(unsigned)grid, BLOCK, 0, st>>>(
+        (const T*)src, src_len, start, (T*)out, n_rows, levels, fill_bits);
   return (int)cudaGetLastError();
 }
 
-// Tiles a cascade of n plans of n_groups[i] groups needs flags for.
-extern "C" int64_t pgb_mono_cascade_tiles(int n, const int64_t* n_groups) {
-  int64_t tiles = 0;
-  for (int i = 0; i < n; ++i)
-    tiles += (n_groups[i] + TILE_GROUPS - 1) / TILE_GROUPS;
-  return tiles;
+template <typename T>
+static int launch_cascade(int fold_op, const void* src, int64_t src_len,
+                          const int32_t* start, void* out, int64_t n_rows,
+                          int levels, uint32_t fill_bits, cudaStream_t st) {
+  using Launch = int (*)(const void*, int64_t, const int32_t*, void*,
+                         int64_t, int, uint32_t, cudaStream_t);
+  static const Launch by_op[] = {
+      launch_cascade_op<T, FOLD_PLUS>, launch_cascade_op<T, FOLD_MIN>,
+      launch_cascade_op<T, FOLD_MAX>, launch_cascade_op<T, FOLD_TIMES>};
+  if (fold_op < FOLD_PLUS || fold_op > FOLD_TIMES) return -1;
+  return by_op[fold_op](src, src_len, start, out, n_rows, levels, fill_bits,
+                        st);
 }
 
-// n plans: qg[i], dm[i] (int16), n_groups[i], wva[i]; bufs[0] is the
-// source, bufs[i + 1] the output of plan i (bufs[n] the placed output);
-// lens[i] is the length in elements of bufs[i].  flags: n_flags int32
-// on the card (at least pgb_mono_cascade_tiles), none holding `epoch`.
-extern "C" int pgb_mono_cascade(int n, const void* const* qg,
-                                const void* const* dm,
-                                const int64_t* n_groups, const int64_t* wva,
-                                void* const* bufs, const int64_t* lens,
-                                int dtype, int fold_op, uint32_t fill_bits,
-                                void* flags, int64_t n_flags, int epoch,
+// src: the level-0 source (src_len elements, at least the table's last
+// entry); start: n_rows + 1 int32, non-decreasing from 0; out: n_rows
+// elements; 1 <= levels <= 32.
+extern "C" int pgb_mono_cascade(const void* src, int64_t src_len,
+                                const void* start, void* out,
+                                int64_t n_rows, int levels, int dtype,
+                                int fold_op, uint32_t fill_bits,
                                 void* stream) {
-  if (n < 2 || n > CASCADE_MAX || fold_op < 0 || !flags) return -1;
-  CascadeArgs a;
-  a.n = n;
-  a.fold_op = fold_op;
-  a.fill_bits = fill_bits;
-  a.flags = (int*)flags;
-  a.epoch = epoch;
-  int64_t tiles = 0;
-  for (int i = 0; i < n; ++i) {
-    a.lv[i].qg = (const int32_t*)qg[i];
-    a.lv[i].dm = (const int16_t*)dm[i];
-    a.lv[i].src = bufs[i];
-    a.lv[i].dst = bufs[i + 1];
-    a.lv[i].src_len = lens[i];
-    a.lv[i].n_groups = n_groups[i];
-    a.lv[i].tile0 = tiles;
-    a.lv[i].wva = wva[i];
-    if (n_groups[i] < 1 || wva[i] < 1 || (uintptr_t)dm[i] % 16) return -1;
-    tiles += (n_groups[i] + TILE_GROUPS - 1) / TILE_GROUPS;
-  }
-  a.n_tiles = tiles;
-  if (n_flags < tiles) return -1;
+  if (levels < 1 || levels > cascade::MAX_LEVELS || n_rows < 0) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DT_F32) return launch_cascade<float>(a, st);
-  if (dtype == DT_I32) return launch_cascade<int32_t>(a, st);
+  const int32_t* s = (const int32_t*)start;
+  if (dtype == DT_F32)
+    return launch_cascade<float>(fold_op, src, src_len, s, out, n_rows,
+                                 levels, fill_bits, st);
+  if (dtype == DT_I32)
+    return launch_cascade<int32_t>(fold_op, src, src_len, s, out, n_rows,
+                                   levels, fill_bits, st);
   return -1;
 }

@@ -59,6 +59,15 @@ __device__ __forceinline__ T apply_fold(int op, T a, T b) {
   }
 }
 
+// the fold of op code OP, chosen at compile time
+template <int OP, typename T>
+__device__ __forceinline__ T fold_c(T a, T b) {
+  if constexpr (OP == FOLD_PLUS) return op_add(a, b);
+  else if constexpr (OP == FOLD_MIN) return op_min(a, b);
+  else if constexpr (OP == FOLD_MAX) return op_max(a, b);
+  else return op_mul(a, b);
+}
+
 // a = matrix value, b = gathered x value (mono.py: mul(vals, gathered))
 template <typename T>
 __device__ __forceinline__ T apply_mul(int op, T a, T b) {

@@ -52,41 +52,137 @@ __global__ void tdesc_kernel(const T* __restrict__ x,
   }
 }
 
-// ascend: x (g, 128, rb, 128), idx (g*rb*128, 128) ->
+// ascend (replaces pygraphblas_tpu/core/perm.py:_lane_gather_tasc):
+//   x (g, 128, rb, 128), idx (g*rb*128, 128) ->
 //   y[gi, b, r, l] = x[gi, idx[gi, b, r, l], b, r]
 //   out = y, or with fold_op >= 0 out[gi, b, j, l] = fold_s y[gi, b, 8j+s, l]
-template <typename T>
-__global__ void tasc_kernel(const T* __restrict__ x,
-                            const int8_t* __restrict__ idx,
-                            T* __restrict__ out, int64_t rb, int fold_op) {
-  extern __shared__ unsigned char smem[];
-  T* tile = (T*)smem;                                  // [c][XPAD] over r
-  const int64_t tid = blockIdx.x;
-  const int64_t gi = tid / rb, b = tid % rb;
-  for (int k = threadIdx.x; k < TILE; k += THREADS) {
-    int c = k >> 7, r = k & 127;
-    tile[c * XPAD + r] = x[((gi * 128 + c) * rb + b) * 128 + r];
-  }
-  __syncthreads();
-  const int8_t* it = idx + tid * TILE;
-  if (fold_op < 0) {
-    T* ot = out + tid * TILE;
-    for (int k = threadIdx.x; k < TILE; k += THREADS) {
-      int r = k >> 7;
-      ot[k] = tile[(it[k] & 127) * XPAD + r];
-    }
-    return;
-  }
-  T* ot = out + tid * (TILE / 8);
-  for (int k = threadIdx.x; k < TILE / 8; k += THREADS) {
-    int j = k >> 7, l = k & 127;
-    int r = 8 * j;
-    T acc = tile[(it[r * 128 + l] & 127) * XPAD + r];
+//
+// Bound: bytes, 5 a cell (x and idx) and the output (4 a cell, or 0.5
+// with the fold): 0.0310 ms at kron-20's fold8 pass (1152 tiles).  The
+// earlier design (one 128x128 tile a block, 0.0639 ms there on an H100
+// 80GB HBM3 at 700 W) held a 66 KB padded tile, so 3 blocks an SM; it
+// loaded the whole tile before it gathered, so HBM idled while it did;
+// it read x 4 B and idx 1 B a thread, idx inside the fold loop; and its
+// lane gather hit bank (idx + r) mod 32.
+//
+// Here output rows [32k, 32k + 32) of a tile read only columns [32k,
+// 32k + 32) of its 128 source rows (128 B each) and 32 rows of idx: a
+// band of 20 KB.  Persistent 128-thread blocks (as many as the SMs hold
+// at once) walk the bands; each thread loads its share of the next band
+// (eight 16-byte words of x, two of idx) into registers before it
+// gathers from the current one, so a band's loads overlap the gather of
+// the one before.  The band sits in shared memory as 128 rows of 33
+// words, row c's word r at position r ^ (8 * (c >> 5)): the lane gather
+// at column r hits bank (c + (r ^ 8 (c >> 5))) mod 32, so the four
+// source rows c, c + 32, c + 64, c + 96 of one bank class land in four
+// banks, and the stores of the band's 16-byte words (four rows of eight
+// words a warp) are conflict-free.  Warp w owns the band's rows 8w ..
+// 8w + 7 and each thread four lanes of them: idx comes as one word a
+// row, and a thread stores 16 bytes, the fold's (one output row a warp)
+// or each row's.  At kron-20's fold8 pass: 0.0356 ms against its bound
+// of 0.0310 (chip_smoke, an H100 80GB HBM3 at 700 W).
+namespace tasc {
+constexpr int W = 32;                   // tile columns (output rows) a band
+constexpr int T = 128;                  // threads a block
+constexpr int XS = W + 1;               // shared words a source row
+constexpr int XCH = 128 * W / 4 / T;    // 16-byte words of x a thread: 8
+constexpr int ICH = W * 128 / 16 / T;   // 16-byte words of idx a thread: 2
+constexpr int BANDS = 128 / W;          // bands a tile
+}  // namespace tasc
+
+template <typename V>
+__device__ __forceinline__ V from_bits(uint32_t u) {
+  V v;
+  memcpy(&v, &u, 4);
+  return v;
+}
+template <typename V>
+__device__ __forceinline__ uint32_t to_bits(V v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(tasc::T)
+tasc_kernel(const uint32_t* __restrict__ x, const int8_t* __restrict__ idx,
+            uint32_t* __restrict__ out, int64_t rb, int64_t n_bands,
+            int fold_op) {
+  using namespace tasc;
+  __shared__ uint32_t xs[128 * XS];
+  __shared__ __align__(16) uint32_t is[W * 32];
+  const int t = threadIdx.x, w = t >> 5, lt = t & 31;
+  uint4 xr[XCH], ir[ICH];
+  auto load = [&](int64_t u) {
+    const int64_t tb = u / BANDS;
+    const int k = (int)(u - tb * BANDS);
+    const int64_t gi = tb / rb, b = tb - gi * rb;
+    const uint32_t* xb = x + (gi * 128 * rb + b) * 128 + k * W;
 #pragma unroll
-    for (int s = 1; s < 8; ++s)
-      acc = apply_fold<T>(fold_op, acc,
-                          tile[(it[(r + s) * 128 + l] & 127) * XPAD + r + s]);
-    ot[k] = acc;
+    for (int m = 0; m < XCH; ++m) {
+      const int i = t + T * m;
+      xr[m] = __ldcs((const uint4*)(xb + (int64_t)(i >> 3) * rb * 128) +
+                     (i & 7));
+    }
+    const uint4* ib = (const uint4*)(idx + tb * (128 * 128) + k * W * 128);
+#pragma unroll
+    for (int m = 0; m < ICH; ++m) ir[m] = __ldcs(ib + t + T * m);
+  };
+  int64_t u = blockIdx.x;
+  if (u >= n_bands) return;
+  load(u);
+  for (; u < n_bands; u += gridDim.x) {
+    __syncthreads();            // the band before is gathered
+#pragma unroll
+    for (int m = 0; m < XCH; ++m) {
+      const int i = t + T * m, c = i >> 3, q = i & 7;
+      uint32_t* row = xs + c * XS;
+      const int sw = (c >> 5) << 3;
+      row[(4 * q + 0) ^ sw] = xr[m].x;
+      row[(4 * q + 1) ^ sw] = xr[m].y;
+      row[(4 * q + 2) ^ sw] = xr[m].z;
+      row[(4 * q + 3) ^ sw] = xr[m].w;
+    }
+#pragma unroll
+    for (int m = 0; m < ICH; ++m) ((uint4*)is)[t + T * m] = ir[m];
+    __syncthreads();
+    const int64_t tb = u / BANDS;
+    const int k = (int)(u - tb * BANDS);
+    if (u + gridDim.x < n_bands) load(u + gridDim.x);
+    if (fold_op >= 0) {
+      V acc[4];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int r = 8 * w + s;
+        const uint32_t lanes = is[r * 32 + lt];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = (lanes >> (8 * e)) & 127;
+          const V v = from_bits<V>(xs[c * XS + (r ^ ((c >> 5) << 3))]);
+          acc[e] = s == 0 ? v : apply_fold<V>(fold_op, acc[e], v);
+        }
+      }
+      uint4 o;
+      o.x = to_bits(acc[0]);
+      o.y = to_bits(acc[1]);
+      o.z = to_bits(acc[2]);
+      o.w = to_bits(acc[3]);
+      *(uint4*)(out + (tb * 16 + (W / 8) * k + w) * 128 + 4 * lt) = o;
+    } else {
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int r = 8 * w + s;
+        const uint32_t lanes = is[r * 32 + lt];
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = (lanes >> (8 * e)) & 127;
+          v[e] = xs[c * XS + (r ^ ((c >> 5) << 3))];
+        }
+        *(uint4*)(out + (tb * 128 + k * W + r) * 128 + 4 * lt) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
   }
 }
 
@@ -403,15 +499,29 @@ static int launch_tdesc(const void* x, const int8_t* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// Persistent blocks: as many as the card holds at once (queried once a
+// dtype), at most one a band.
+template <typename V>
 static int launch_tasc(const void* x, const int8_t* idx, void* out,
                        int64_t g, int64_t rb, int fold_op, cudaStream_t st) {
-  const int smem = 128 * XPAD * sizeof(T);
-  cudaFuncSetAttribute(tasc_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (g * rb > 0)
-    tasc_kernel<T><<<(unsigned)(g * rb), THREADS, smem, st>>>(
-        (const T*)x, idx, (T*)out, rb, fold_op);
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, tasc_kernel<V>, tasc::T, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return -1;
+    blocks = per_sm * sms;
+  }
+  const int64_t n_bands = g * rb * tasc::BANDS;
+  if (n_bands > 0)
+    tasc_kernel<V><<<(unsigned)(n_bands < blocks ? n_bands : blocks),
+                     tasc::T, 0, st>>>((const uint32_t*)x, idx,
+                                       (uint32_t*)out, rb, n_bands, fold_op);
   return (int)cudaGetLastError();
 }
 

@@ -123,3 +123,20 @@ def pair_count_case(kind):
     assert (wa + wb).max() <= W
     return [a, b] + [x.astype(np.int32) for x in
                      (a_starts[ia], wa, b_starts[ib], wb)] + [W]
+
+
+def cascade_runs_case():
+    """Rows for the fold cascade's kernel (core/mono.py:fold_plans takes
+    them): (nrows, present rows, level-0 run lengths).  Runs of 1, 8, 9
+    and 64 cells (a thread's path), 65, 600 and 1024 (a warp's), 1025,
+    2100, 4096 and 5000 (the block's: part of a 2048-cell round, two
+    whole rounds, past a block's 2048 staged cells and past 8^4 cells,
+    so 5 levels) among random runs of 1-11 cells, with absent rows
+    between them."""
+    rng = np.random.RandomState(9)
+    counts = rng.randint(1, 12, 300)
+    counts[[0, 5, 17, 40, 41, 60, 61, 99, 150, 200, 299]] = [
+        1, 8, 9, 64, 65, 1024, 1025, 600, 2100, 4096, 5000]
+    nrows = 700
+    present = np.sort(rng.choice(nrows, len(counts), replace=False))
+    return nrows, present, counts

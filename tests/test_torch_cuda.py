@@ -13,7 +13,8 @@ from pygraphblas_tpu_torch import (_kernels, algorithms, fused, generators,
                                    options_set, types)
 from pygraphblas_tpu_torch.core import (esc, gustavson, mono, perm, scan,
                                         spgemm, xspmv)
-from pygraphblas_tpu_torch.testing import PAIR_COUNT_CASES, pair_count_case
+from pygraphblas_tpu_torch.testing import (PAIR_COUNT_CASES,
+                                           cascade_runs_case, pair_count_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,10 +53,124 @@ def test_mono_span_kernel(card, kw, dtype):
 
 
 def test_mono_span_rejects_int64(card):
-    plan, _ = _span_plan(card)
+    """int64 values take the plain version on the card (the JAX
+    package's XLA rule), with no launch; a 2-byte dtype still raises."""
+    plan, rng = _span_plan(card)
+    src = torch.from_numpy(rng.randint(-2 ** 40, 2 ** 40, 9000)).to(card)
+    _kernels.reset_launches()
+    got = mono.mono_span(plan, src, 0, fold="MAX")
+    assert torch.equal(got, mono.mono_gather_plain(plan, src, 0, fold="MAX"))
+    assert sum(_kernels.launches.values()) == 0
     with pytest.raises(TypeError):
-        mono.mono_span(plan, torch.zeros(9000, dtype=torch.int64,
+        mono.mono_span(plan, torch.zeros(9000, dtype=torch.int16,
                                          device=card), 0)
+
+
+def test_mono_gather_plan_not_ok(card):
+    """A streamed plan whose window span passes _MAX_XB rows (ok ==
+    False) gives mono_gather_plain's answer on the card, no launch."""
+    rng = np.random.RandomState(13)
+    src_n = 4_000_000
+    idx = np.sort(rng.randint(0, src_n, 64 * 128))
+    plan = mono.MonoPlan.build(idx, src_n).to(card)
+    assert plan.stream and not plan.ok
+    src = torch.from_numpy(rng.rand(src_n).astype(np.float32)).to(card)
+    for kw in ({}, {"fold": "PLUS"}):
+        _kernels.reset_launches()
+        got = mono.mono_gather(plan, src, 0.0, **kw)
+        torch.cuda.synchronize()
+        assert sum(_kernels.launches.values()) == 0
+        assert torch.equal(got, mono.mono_gather_plain(plan, src, 0.0, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+def test_wide_values_take_the_plain_versions(card, dtype):
+    """8-byte values into every gather and permutation wrapper: the plain
+    version's answer on the card and no launch, as the JAX package sends
+    them to XLA."""
+    rng = np.random.RandomState(4)
+
+    def vals(*shape):
+        return torch.from_numpy(rng.randint(-2 ** 40, 2 ** 40, shape)).to(
+            card, dtype)
+
+    def lanes(*shape):
+        return torch.from_numpy(rng.randint(0, 128, shape)
+                                .astype(np.int8)).to(card)
+
+    plan, _ = _span_plan(card)
+    src = vals(9000)
+    g, S = 2, 3
+    r_l = S * 128
+    x = vals(g * r_l, 128)
+    ix = [lanes(g * r_l, 128) for _ in range(4)]
+    ssel = torch.from_numpy(rng.randint(0, S, (g * 128, S, 128))
+                            .astype(np.int8)).to(card)
+    x3 = x.reshape(g * 128, S, 128)
+    inner = (ix[0], ix[1], ssel, ix[2], ix[3], g, S)
+    cases = [
+        (lambda: mono.mono_gather(plan, src, 0, fold="PLUS"),
+         lambda: mono.mono_gather_plain(plan, src, 0, fold="PLUS")),
+        (lambda: mono.mono_span(plan, src, 0),
+         lambda: mono.mono_gather_plain(plan, src, 0)),
+        (lambda: perm._lane_gather(x, ix[0]),
+         lambda: perm._lane_gather_plain(x, ix[0])),
+        (lambda: perm._lane_gather_tdesc(x, ix[0], g, r_l),
+         lambda: perm._tdesc_plain(x, ix[0], g, r_l)),
+        (lambda: perm._lane_gather_tasc(x, ix[1], g, r_l, "PLUS"),
+         lambda: perm._tasc_plain(x, ix[1], g, r_l, "PLUS")),
+        (lambda: perm._lane_gather_tasc(x, ix[1], g, r_l),
+         lambda: perm._tasc_plain(x, ix[1], g, r_l)),
+        (lambda: perm._inner3(x, *inner),
+         lambda: perm._inner3_plain(x, *inner)),
+        (lambda: perm._mid_pass(x3, ix[2], ssel, ix[3]),
+         lambda: perm._mid_pass_plain(x3, ix[2], ssel, ix[3])),
+    ]
+    old = mono._SPAN_MAX_WVA
+    mono._SPAN_MAX_WVA = 0
+    try:
+        rows = mono.MonoPlan.build(np.sort(rng.randint(0, 9000, 64 * 128)),
+                                   9000).to(card)
+    finally:
+        mono._SPAN_MAX_WVA = old
+    assert rows.wva == 0
+    cases.append((lambda: mono.mono_rows(rows, src, 0, fold="MIN"),
+                  lambda: mono.mono_gather_plain(rows, src, 0, fold="MIN")))
+    for kfn, pfn in cases:
+        _kernels.reset_launches()
+        got = kfn()
+        torch.cuda.synchronize()
+        assert sum(_kernels.launches.values()) == 0
+        assert got.dtype == dtype and torch.equal(got, pfn())
+
+
+@pytest.mark.parametrize("g,rb", [(1, 1), (3, 1), (1, 5), (2, 3)])
+@pytest.mark.parametrize("fold", [None, "PLUS", "MIN", "MAX", "TIMES"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_tasc_kernel(card, g, rb, fold, dtype):
+    """The banded ascend, bit-exact: one tile (rb = 1), g > 1 groups,
+    several tiles a group, every fold op and none, both dtypes; rows
+    0..7 of each tile's idx hold 128 values equal mod 32 (4 distinct
+    source rows of one bank class), the rest random."""
+    rng = np.random.RandomState(g * 10 + rb)
+    r_l = rb * 128
+    if dtype == torch.float32:
+        x = rng.randn(g * r_l, 128).astype(np.float32)
+    else:
+        x = rng.randint(-2 ** 31, 2 ** 31 - 1, (g * r_l, 128),
+                        dtype=np.int64).astype(np.int32)
+    idx = rng.randint(0, 128, (g * rb, 128, 128)).astype(np.int8)
+    idx[:, :8, :] = (5 + 32 * rng.randint(0, 4, (g * rb, 8, 128))).astype(
+        np.int8)
+    x = torch.from_numpy(x).to(card)
+    idx = torch.from_numpy(idx.reshape(g * r_l, 128)).to(card)
+    _kernels.reset_launches()
+    got = perm._lane_gather_tasc(x, idx, g, r_l, fold)
+    torch.cuda.synchronize()
+    assert _kernels.launches["lane_gather_tasc"] == 1
+    want = perm._tasc_plain(x, idx, g, r_l, fold)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_perm_kernels(card):
@@ -191,16 +306,13 @@ def test_mono_cascade_kernel(card, fold, dtype):
     assert torch.equal(got, want)
 
 
-def test_mono_cascade_kernel_repeated(card, monkeypatch):
-    """Calls after calls on two plans: every call's tiles wait on flags
-    of its own epoch, and the flag buffer grows from one flag."""
+def test_mono_cascade_kernel_repeated(card):
+    """Calls after calls on two plans (kron-14's runs reach past a
+    block's staged cells): each equals the chain."""
     small, rng = _cascade_plan(card)
     rows, cols, n = generators.rmat_edges(14, 16)
     big = generators.to_matrix(rows, cols, n, types.FP32)._xspmv_plan(
         True, np.float32, device=card)
-    dev = torch.empty(0, device=card).device          # cuda:<index>
-    monkeypatch.setattr(mono, "_FLAGS", {dev: [torch.zeros(
-        1, dtype=torch.int32, device=dev), 0]})
     for _ in range(3):
         for plan in (small, big):
             cur = torch.from_numpy(rng.rand(plan.m1).astype(np.float32)).to(
@@ -213,7 +325,62 @@ def test_mono_cascade_kernel_repeated(card, monkeypatch):
                                               fold="PLUS").reshape(-1)
             want = mono.mono_gather_plain(plan.places[0], want, 0.0)
             assert torch.equal(got, want)
-    assert mono._FLAGS[dev][0].numel() > 1 and mono._FLAGS[dev][1] == 6
+
+
+@pytest.mark.parametrize("fold,fill", [("PLUS", 0), ("MIN", "max"),
+                                       ("MAX", "min"), ("PLUS", 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_mono_cascade_kernel_run_lengths(card, fold, fill, dtype):
+    """Runs of every length class of the kernel (1 .. 64 cells by a
+    thread, 65 .. 1024 by a warp, 1025 .. 5000 by the block, past its
+    staged cells) against the chain, bit for bit; PLUS with a
+    fill that is not its identity counts every empty slot folded;
+    float32 PLUS sources hold -0.0."""
+    nrows, present, counts = cascade_runs_case()
+    levels, place = mono.fold_plans(counts, nrows, present)
+    levels = [lp.to(card) for lp in levels]
+    place = place.to(card)
+    rng = np.random.RandomState(6)
+    m = int(counts.sum())
+    if dtype == torch.float32:
+        v = rng.randn(m).astype(np.float32)
+        if fold == "PLUS":
+            v[::5] = -0.0
+        big = np.inf
+    else:
+        v = rng.randint(-2 ** 31, 2 ** 31 - 1, m, dtype=np.int64).astype(
+            np.int32)
+        big = np.iinfo(np.int32).max
+    fill = {"max": big, "min": -big if dtype == torch.float32
+            else np.iinfo(np.int32).min}.get(fill, fill)
+    cur = torch.from_numpy(v).to(card)
+    _kernels.reset_launches()
+    got = mono.mono_cascade(levels, place, cur, fill, fold)
+    torch.cuda.synchronize()
+    assert _kernels.launches["mono_cascade"] == 1
+    want = cur
+    for lp in levels:
+        want = mono.mono_gather_plain(lp, want.reshape(-1), fill,
+                                      fold=fold).reshape(-1)
+    want = mono.mono_gather_plain(place, want, fill)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_mono_cascade_needs_the_table(card):
+    """A placement plan with no row table (not made by fold_plans), or
+    one whose table is for other levels, raises rather than folding
+    another way."""
+    nrows, present, counts = cascade_runs_case()
+    levels, place = mono.fold_plans(counts, nrows, present)
+    levels = [lp.to(card) for lp in levels]
+    cur = torch.zeros(int(counts.sum()), device=card)
+    pos = np.full(nrows, -1, np.int64)
+    pos[present] = np.arange(len(present))
+    bare = mono.MonoPlan.build(pos, len(present))
+    with pytest.raises(ValueError):
+        mono.mono_cascade(levels, bare.to(card), cur, 0.0, "PLUS")
+    with pytest.raises(ValueError):
+        mono.mono_cascade(levels[1:], place.to(card), cur, 0.0, "PLUS")
 
 
 @pytest.mark.parametrize("S", [1, 3, 124])

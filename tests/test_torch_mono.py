@@ -7,6 +7,7 @@ folds within rtol 1e-6 (the same s = 0..7 order, so in practice equal).
 """
 
 import functools
+import types
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,7 +15,10 @@ import pytest
 import torch
 
 from pygraphblas_tpu.core import mono as jmono
+from pygraphblas_tpu_torch import _kernels
 from pygraphblas_tpu_torch.core import mono as tmono
+from pygraphblas_tpu_torch.semiring import ADDS
+from pygraphblas_tpu_torch.testing import cascade_runs_case
 
 ARRAYS = ("q0", "dm", "qg", "xblk")
 STATIC = ("S", "blk", "src_n", "src_rows", "max_w", "stream", "xb",
@@ -251,18 +255,242 @@ def test_cascade_dispatch_rules():
                               "PLUS") is not None
 
 
-def test_cascade_flags_epochs(monkeypatch):
-    """The cascade kernel's flag buffer: one new epoch a call, never 0,
-    and a fresh zeroed buffer (epochs from 1 again) when a call needs
-    more tiles or the epoch would overflow int32."""
-    monkeypatch.setattr(tmono, "_FLAGS", {})
-    dev = torch.device("cpu")
-    f1, e1 = tmono._cascade_flags(dev, 10)
-    f2, e2 = tmono._cascade_flags(dev, 4096)
-    assert (e1, e2) == (1, 2) and f2 is f1 and f1.dtype == torch.int32
-    assert f1.numel() >= 4096 and not f1.any()
-    f3, e3 = tmono._cascade_flags(dev, 5000)
-    assert e3 == 1 and f3.numel() == 5000 and f3 is not f1
-    tmono._FLAGS[dev][1] = (1 << 31) - 1
-    f4, e4 = tmono._cascade_flags(dev, 10)
-    assert e4 == 1 and f4 is not f3 and not f4.any()
+# -- the cascade kernel's per-row tree fold ---------------------------------
+
+
+def _emulate_cascade(runs, src, fold, fill):
+    """Plain-torch model of csrc/cascade.cu's per-row tree fold, step by
+    step (a test helper; the port's plain version is the chain): a run
+    of 1..64 cells is folded by one thread, one of up to 1024 by a warp
+    in 256-cell steps (a level-1 cell a lane, level-2 cells by lanes
+    8q .. 8q + 7), a longer one by the block in 2048-cell rounds (8 warps'
+    steps, then level-3 cells by 8 lanes), then level by level with one
+    pending group a level, the last partial groups filled at the end."""
+    f = ADDS[fold][0]
+    start = np.asarray(runs.start, np.int64)
+    L = runs.levels
+    n = np.diff(start)
+    fl = torch.tensor(fill, dtype=src.dtype)
+    out = torch.full((len(n),), fill, dtype=src.dtype)
+    # the thread path, every short row at once
+    rows = np.flatnonzero((n >= 1) & (n <= 64))
+    st = torch.from_numpy(start[rows])
+    nn = torch.from_numpy(n[rows])
+    g = (nn + 7) // 8
+
+    def cell(k):
+        return torch.where(k < nn, src[(st + k).clamp(max=len(src) - 1)], fl)
+
+    b = None
+    for j in range(8):
+        a = cell(torch.full_like(nn, 8 * j))
+        for s in range(1, 8):
+            a = f(a, cell(torch.full_like(nn, 8 * j + s)))
+        if j == 0:
+            b = a
+        elif L >= 2:
+            b = torch.where(j < g, f(b, a), f(b, fl))
+    for _ in range(2, L):
+        for _ in range(7):
+            b = f(b, fl)
+    out[torch.from_numpy(rows)] = b
+    # the warp path, row by row: 256 cells a step, a level-1 cell a lane,
+    # level-2 cells by lanes 8q .. 8q + 7, then one pending group a level
+    for r in np.flatnonzero(n > 64):
+        acc, cnt = [None] * L, [0] * L
+        res = [fl]
+
+        def feed(x, k):
+            while k < L:
+                acc[k] = x if cnt[k] == 0 else f(acc[k], x)
+                cnt[k] += 1
+                if cnt[k] < 8:
+                    return
+                x, cnt[k], k = acc[k], 0, k + 1
+            res[0] = x
+
+        def level2(c0):
+            # a step's level-2 cells: a level-1 cell a lane, then 8 lanes
+            m = min(256, int(n[r]) - c0)
+            n1 = -(-m // 8)
+            v = torch.full((256,), fill, dtype=src.dtype)
+            v[:m] = src[start[r] + c0:start[r] + c0 + m]
+            v = v.reshape(32, 8)
+            a1 = v[:, 0]
+            for s in range(1, 8):
+                a1 = f(a1, v[:, s])
+            a1 = torch.where(torch.arange(32) < n1, a1, fl)
+            out2 = []
+            for q in range(-(-n1 // 8)):
+                c2 = a1[8 * q]
+                for s in range(1, 8):
+                    c2 = f(c2, a1[8 * q + s] if 8 * q + s < n1 else fl)
+                out2.append(c2)
+            return out2
+
+        if n[r] <= 1024:        # a warp: level-2 cells onward one by one
+            for c0 in range(0, int(n[r]), 256):
+                for c2 in level2(c0):
+                    feed(c2, 2)
+        else:                   # the block: 2048 cells a round
+            for c0 in range(0, int(n[r]), 2048):
+                l2 = [c for w in range(8) if c0 + 256 * w < n[r]
+                      for c in level2(c0 + 256 * w)]
+                for q in range(-(-len(l2) // 8)):
+                    c3 = l2[8 * q]
+                    for s in range(1, 8):
+                        c3 = f(c3, l2[8 * q + s] if 8 * q + s < len(l2)
+                               else fl)
+                    feed(c3, 3)
+        for k in range(2, L):
+            if cnt[k]:
+                a = acc[k]
+                for _ in range(cnt[k], 8):
+                    a = f(a, fl)
+                cnt[k] = 0
+                feed(a, k + 1)
+        out[r] = res[0]
+    return out
+
+
+def _chain(levels, place, src, fold, fill):
+    cur = src
+    for lp in levels:
+        cur = tmono.mono_gather_plain(lp, cur.reshape(-1), fill,
+                                      fold=fold).reshape(-1)
+    return tmono.mono_gather_plain(place, cur, fill).reshape(-1)
+
+
+def _runs_case():
+    nrows, present, counts = cascade_runs_case()
+    return tmono.fold_plans(counts, nrows, present)
+
+
+_FOLD_FILLS = {("PLUS", torch.float32): 0.0, ("MIN", torch.float32): np.inf,
+               ("MAX", torch.float32): -np.inf, ("PLUS", torch.int32): 0,
+               ("MIN", torch.int32): np.iinfo(np.int32).max,
+               ("MAX", torch.int32): np.iinfo(np.int32).min}
+
+
+def _source(n, dtype, seed):
+    rng = np.random.RandomState(seed)
+    if dtype == torch.int32:
+        return torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1, n,
+                                            dtype=np.int64).astype(np.int32))
+    v = rng.randn(n).astype(np.float32)
+    v[::5] = -0.0                      # PLUS folds turn -0.0 into +0.0
+    return torch.from_numpy(v)
+
+
+# PLUS with a fill that is not its identity counts every empty slot the
+# chain folds (an identity fill folded twice gives what it gives once)
+_ODD_FILLS = [("PLUS", torch.float32, 0.25), ("PLUS", torch.int32, 3)]
+
+
+@pytest.mark.parametrize("case", ["xspmv", "runs"])
+@pytest.mark.parametrize("fold,dtype,fill", [
+    k + (v,) for k, v in _FOLD_FILLS.items()] + _ODD_FILLS)
+def test_cascade_tree_fold_matches_chain(case, fold, dtype, fill):
+    """The kernel's per-row tree fold, on the table fold_plans attaches,
+    equals the chain of plain gathers bit for bit: xspmv's skewed plans
+    (every run at most 64 cells) and hand-made runs of every length
+    class; float32 sources hold -0.0."""
+    if case == "xspmv":
+        _, tp = _cascade_plans(3)
+        levels, place = tp.levels, tp.places[0]
+    else:
+        levels, place = _runs_case()
+        levels = [lp.to("cpu") for lp in levels]
+        place = place.to("cpu")
+    runs = place.cascade
+    assert runs is not None and runs.levels == len(levels)
+    src = _source(runs.cells, dtype, 5)
+    want = _chain(levels, place, src, fold, fill)
+    got = _emulate_cascade(runs, src, fold, fill)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got.numpy().view(np.uint32),
+                          want.numpy().view(np.uint32))
+
+
+def test_cascade_table():
+    """The table fold_plans attaches: one run a placed cell, the counts
+    at the present rows and empty runs elsewhere, one after another
+    from cell 0; xspmv's plans carry it."""
+    nrows, present, counts = cascade_runs_case()
+    levels, place = tmono.fold_plans(counts, nrows, present)
+    runs = place.cascade
+    n = np.diff(runs.start)
+    assert len(n) == place.S * 128
+    assert runs.start[0] == 0 and runs.start[-1] == runs.cells
+    assert np.array_equal(n[present], counts) and n.sum() == counts.sum()
+    assert sorted(n[n > 64]) == [65, 600, 1024, 1025, 2100, 4096, 5000]
+    assert runs.levels == len(levels) == 5
+    assert runs.cells == levels[0].src_n
+    _, tp = _cascade_plans(3)
+    assert tp.places[0].cascade.cells == tp.levels[0].src_n
+    assert tp.places[0].cascade.levels == len(tp.levels)
+
+
+def test_cascade_table_in_plan_cache():
+    """The table goes through the plan cache's format (state, npz,
+    from_state) unchanged, and no level carries one."""
+    import io
+
+    from pygraphblas_tpu_torch.core import xspmv as tx
+
+    _, tp = _cascade_plans(3)
+    buf = io.BytesIO()
+    np.savez(buf, **tx._flatten(tp.state()))
+    buf.seek(0)
+    back = tx.XSpmvPlan.from_state(tx._unflatten(np.load(buf)))
+    a, b = tp.places[0].cascade, back.places[0].cascade
+    assert (b.levels, b.cells) == (a.levels, a.cells)
+    assert np.array_equal(np.asarray(b.start), np.asarray(a.start))
+    assert all(lp.cascade is None for lp in back.levels)
+
+
+@pytest.mark.parametrize("fault", ["empty_run", "present_order", "lengths"])
+def test_fold_plans_rejects_bad_runs(fault):
+    """Runs that are not xspmv's shape (a present row with no cell, rows
+    out of order, or as many runs as rows not given) make fold_plans
+    raise rather than build a table another fold would read."""
+    rng = np.random.RandomState(2)
+    counts = rng.randint(1, 30, 200)
+    nrows = 250
+    present = np.sort(rng.choice(nrows, len(counts), replace=False))
+    tmono.fold_plans(counts, nrows, present)      # the good runs build
+    if fault == "empty_run":
+        counts[7] = 0
+    elif fault == "present_order":
+        present[[3, 4]] = present[[4, 3]]
+    else:
+        present = present[:-1]
+    with pytest.raises(ValueError):
+        tmono.fold_plans(counts, nrows, present)
+
+
+def _fake(device, dtype):
+    return types.SimpleNamespace(device=torch.device(device), dtype=dtype)
+
+
+@pytest.mark.parametrize("device,dtype,ok,wva,route", [
+    ("cuda", torch.float32, True, 3, "mono_span"),
+    ("cuda", torch.int32, True, 0, "mono_rows"),
+    ("cuda", torch.float32, False, 0, None),
+    ("cuda", torch.float64, True, 3, None),
+    ("cuda", torch.int64, True, 0, None),
+    ("cuda", torch.int16, True, 3, "mono_span"),
+    ("cpu", torch.float32, True, 3, None),
+])
+def test_gather_dispatch_rule(device, dtype, ok, wva, route):
+    """mono_gather's route reads plan.ok, plan.wva, the device and the
+    dtype's size alone: on the card, ok == False and 8-byte values take
+    the plain version, as the JAX package's XLA gather takes them
+    (a 2-byte dtype reaches the kernel wrapper, which raises TypeError);
+    the perm, span and row wrappers launch exactly where on_card."""
+    plan = types.SimpleNamespace(ok=ok, wva=wva)
+    assert tmono.gather_route(plan, _fake(device, dtype)) == route
+    on = _kernels.on_card(_fake(device, dtype), "x")
+    assert on == (device == "cuda" and dtype.itemsize <= 4)
+    with pytest.raises(ValueError):
+        _kernels.on_card(_fake("meta", dtype), "x")
