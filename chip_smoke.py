@@ -53,11 +53,13 @@ Phases, in order; any failure exits non-zero:
      kt14's and kt16's first run too, segfold on each of a call's four
      scans, esc_gather at every slot), and timed at the shapes of the
      path named for it in TIMED (and inner3 at pr21, mid_pass at bc16's
-     S = 124, and pair_count at tc16, too); the redesigned kernels
-     (inner3 at pr20 and pr21, pair_count at tc18, mono_cascade and
-     lane_gather_tasc at pr20) log their time beside their earlier
-     design's (EARLIER_MS: constants copied from PERF.md, kept with this
-     run's times in chip_smoke_checks.json, not in the kernels line);
+     S = 124, lane_gather_tasc without the fold at bfs18, and pair_count
+     at tc16, too); the redesigned kernels (inner3 at pr20 and pr21,
+     pair_count at tc18, mono_cascade and lane_gather_tasc at pr20,
+     segfold at esc14, mid_pass at bfs18 and bc16) log their time beside
+     their earlier design's (EARLIER_MS: constants copied from PERF.md,
+     kept with this run's times in chip_smoke_checks.json, not in the
+     kernels line);
   4. small MIN/MAX-fold, mul and int32 cases of every kernel, inner3 at
      S = 1, 3, 9, 18 and 24 in both dtypes, lane_gather_tasc at one
      tile, several groups and several tiles a group with every fold op
@@ -93,7 +95,11 @@ read once, its per-row table (4 B a row) and the placed output, with
 the earlier bound (every plan's dm and qg, the first source and the
 placed output) in its log line and check row ("plan_bound_ms"), not
 in the kernels line; its library_ms is
-torch.segment_reduce over the same runs.  Each path through the cascade
+torch.segment_reduce over the same runs.  A kernel whose timed launches
+only move data (the gathers, tdesc, tasc without the fold, inner3,
+mid_pass) has for its library_ms one torch.take a launch at an int64
+index built from its plain version over 1..n (testing.take_index),
+checked equal to the kernel's output first.  Each path through the cascade
 also times it against the chain of mono_span launches it replaces, as
 kernels ("cascade_vs_chain") and end to end through the entry point
 ("cascade_ab", the cascade call made to return None).
@@ -165,13 +171,18 @@ TIMED = {"mono_span": "pr20", "mono_cascade": "pr20", "mono_rows": "pr21",
 # block a group through a device-memory slab, pair_count one warp an edge
 # binary-searching the longer list, mono_cascade a cooperative kernel of
 # flag-waiting tiles over every level's plan, lane_gather_tasc one tile
-# a block; (ms, how it was taken) at a path's shapes: "events" as "ms"
-# here, "in path" from the path's profile
+# a block, segfold one 2048-value tile a block (the sum of esc14's four
+# scans), mid_pass whole tiles staged by 4- and 1-byte loads; (ms, how it
+# was taken) at a path's shapes: "events" as "ms" here, "in path" from
+# the path's profile
 EARLIER_MS = {("inner3", "pr20"): (0.2760, "events"),
               ("inner3", "pr21"): (0.5390, "in path"),
               ("pair_count", "tc18"): (2.2221, "events"),
               ("mono_cascade", "pr20"): (0.0572, "events"),
-              ("lane_gather_tasc", "pr20"): (0.0639, "events")}
+              ("lane_gather_tasc", "pr20"): (0.0639, "events"),
+              ("segfold", "esc14"): (1.6443, "events"),
+              ("mid_pass", "bfs18"): (0.0468, "events"),
+              ("mid_pass", "bc16"): (0.0161, "events")}
 # (kernel, path) -> this run's ms beside the earlier design's
 redesigned = {}
 
@@ -288,13 +299,17 @@ class Checks:
 
     def run(self, kernel, path, case, kfn, pfn, nbytes, ops=0,
             timed=False, rtol=None, ops_per_s=FP32_OPS_PER_S,
-            time_fns=None):
+            time_fns=None, take=None):
         """Run kfn (the kernel) and pfn (its plain version) on the same
         inputs and compare: exactly (gathers move values, and the folds
         run in the plain version's order), or for float outputs within
         `rtol` where given (a fold in another order).  A tuple output is
         compared part by part.  Timed with time_fns (kernel, plain) in
-        place of kfn, pfn where given."""
+        place of kfn, pfn where given.  take: where the kernel only moves
+        data, (plain version of one argument, that argument, fill): when
+        timed, one torch.take at the index the recipe builds from it
+        (testing.take_index), checked equal to the kernel's output first,
+        is timed as the row's library_ms; a str says why no call does."""
         torch = self.torch
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
@@ -311,8 +326,30 @@ class Checks:
             else:
                 ok &= bool(torch.equal(g, w))
             err = max(err, max_abs_diff(torch, g, w))
-        return self.record(kernel, path, case, ok, err, got[0], nbytes, ops,
-                           timed, rtol, ops_per_s, time_fns or (kfn, pfn))
+        out = self.record(kernel, path, case, ok, err, got[0], nbytes, ops,
+                          timed, rtol, ops_per_s, time_fns or (kfn, pfn))
+        if timed and isinstance(take, str):
+            self.rows[-1]["library_note"] = take
+        elif timed and take is not None:
+            self.rows[-1]["library_ms"] = self.take_ms(kernel, path, case,
+                                                       got[0], *take)
+        return out
+
+    def take_ms(self, kernel, path, case, got, plain, x, fill):
+        """Event ms of one torch.take computing the kernel's move, at a
+        premade int64 index, after checking it equals the kernel's
+        output `got`."""
+        from pygraphblas_tpu_torch.testing import take_index, take_source
+
+        torch = self.torch
+        idx = take_index(plain, x.shape, x.device)
+        src = take_source(x, fill)
+        if not torch.equal(torch.take(src, idx).reshape(got.shape), got):
+            raise AssertionError(f"{kernel}/{path} {case}: torch.take at "
+                                 "the recipe's index differs from the kernel")
+        ms = event_ms(torch, lambda: torch.take(src, idx), self.reps)
+        log(f"  {kernel:17s} {path:8s} library: torch.take {ms:.4f} ms")
+        return ms
 
     def record(self, kernel, path, case, ok, err, out, nbytes, ops, timed,
                rtol, ops_per_s, time_fns):
@@ -389,13 +426,16 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
         name = "mono_span" if mp.wva else "mono_rows"
         kfn = M.mono_span if mp.wva else M.mono_rows
         fold = kw.get("fold")
+        take = ("none: the launch folds 8 rows" if fold else
+                "none: the launch multiplies" if "mul" in kw else
+                (lambda ids: M.mono_gather_plain(mp, ids, 0), src, fill))
         return ck.run(name, path, case,
                       lambda: kfn(mp, src, fill, **kw),
                       lambda: M.mono_gather_plain(mp, src, fill, **kw),
                       mono_bytes(mp, src.numel(), fold, "mul" in kw),
                       ops=(mp.S // 8 * 128 * 7 if fold else 0)
                       + (mp.S * 128 if "mul" in kw else 0),
-                      timed=name in timed)
+                      timed=name in timed, take=take)
 
     xc = gather("pre", plan.pre, x).reshape(-1)
     if mul == "SECOND":
@@ -428,7 +468,9 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
                      lambda: P._lane_gather_tdesc(x_in, a, g, r_l),
                      lambda: P._tdesc_plain(x_in, a, g, r_l),
                      x_in.numel() * (cell + 4),
-                     timed="lane_gather_tdesc" in timed)
+                     timed="lane_gather_tdesc" in timed,
+                     take=(lambda ids: P._tdesc_plain(ids, a, g, r_l), x_in,
+                           0))
     x_in = cur
     if fuse_mid:
         g, r_l = shapes[-1]
@@ -437,7 +479,8 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
         cur = ck.run("inner3", path, f"g={g} S={S}",
                      lambda: P._inner3(x_in, *args),
                      lambda: P._inner3_plain(x_in, *args),
-                     x_in.numel() * (4 + 5 + 4), timed="inner3" in timed)
+                     x_in.numel() * (4 + 5 + 4), timed="inner3" in timed,
+                     take=(lambda ids: P._inner3_plain(ids, *args), x_in, 0))
         if ("inner3", path) in EARLIER_MS:
             earlier(path, "inner3", ck.rows[-1]["ms"])
         start = D - 3
@@ -450,7 +493,11 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
                      lambda: P._mid_pass(x3, *args),
                      lambda: P._mid_pass_plain(x3, *args),
                      x3.numel() * (4 + nidx + 4),
-                     timed="mid_pass" in timed).reshape(nsub * S, 128)
+                     timed="mid_pass" in timed,
+                     take=(lambda ids: P._mid_pass_plain(ids, *args), x3, 0)
+                     ).reshape(nsub * S, 128)
+        if "mid_pass" in timed and ("mid_pass", path) in EARLIER_MS:
+            earlier(path, "mid_pass", ck.rows[-1]["ms"])
         start = D - 2
     for lvl in range(start, -1, -1):
         g, r_l = shapes[lvl]
@@ -464,7 +511,9 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
                      lambda: P._tasc_plain(x_in, c, g, r_l, f8),
                      x_in.numel() * cell + nout * 4,
                      ops=nout * 7 if f8 else 0,
-                     timed="lane_gather_tasc" in timed)
+                     timed="lane_gather_tasc" in timed,
+                     take="none: the launch folds 8 rows" if f8 else
+                     (lambda ids: P._tasc_plain(ids, c, g, r_l), x_in, 0))
         if f8 and ("lane_gather_tasc", path) in EARLIER_MS:
             earlier(path, "lane_gather_tasc", ck.rows[-1]["ms"])
     if fused8:
@@ -1668,6 +1717,9 @@ def check_esc_kernels(torch, ck, path, tag, scans, gathers, live, timed):
             lib_ms = event_ms(torch, lambda: src.index_select(0, flat),
                               ck.reps)
     if timed:
+        earlier(path, "segfold", sum(
+            r["ms"] for r in ck.rows if r["kernel"] == "segfold"
+            and r["path"] == path and r["timed"]))
         log(f"  yardsticks: torch.cumsum over the four scans' lengths "
             f"{cumsum_ms:.4f} ms (unsegmented); index_select of B's "
             f"(col, value) pairs {lib_ms:.4f} ms")
@@ -1968,8 +2020,10 @@ def main():
     per = EXPECTED["bfs18"]
     f0 = torch.zeros(n, device="cuda")
     f0[:: 97] = 1.0
+    # lane_gather_tasc too: its launches here run without the fold
     check_xspmv_kernels(torch, ck, plan, f0, types.FP32.MAX_SECOND, "bfs18",
-                        timed=[k for k, p in TIMED.items() if p == "bfs18"])
+                        timed=[k for k, p in TIMED.items() if p == "bfs18"]
+                        + ["lane_gather_tasc"])
     lane_lib_ms = lane_gather_isolated(torch, ck, plan.perm.R0)
     srcs = list(range(16))
     fused.bfs_batch(A, srcs)                    # warm
@@ -2135,6 +2189,25 @@ def main():
         timed = [c for c in ck.rows if c["kernel"] == name and c["timed"]
                  and c["path"] == TIMED[name]]
         allc = [c for c in ck.rows if c["kernel"] == name]
+        # the gathers' library call: torch.take at the recipe's index,
+        # summed over the timed launches where every one only moves data
+        take_rows = [c for c in timed if "library_ms" in c]
+        if take_rows and len(take_rows) == len(timed):
+            per["library_note"] = ("one torch.take a launch at a premade "
+                                   "int64 index (testing.take_index)")
+        notes = sorted({c["library_note"] for c in timed
+                        if "library_note" in c})
+        if notes:
+            per["library_note"] = "; ".join(notes)
+        if name == "lane_gather_tasc":
+            # its launches without the fold, at bfs18 (no single call
+            # computes the fold8 launch timed at pr20)
+            nf = [c for c in ck.rows if c["kernel"] == name and c["timed"]
+                  and c["path"] == "bfs18"]
+            per["no_fold_bfs18"] = {
+                k: sum(c[k] for c in nf)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            per["no_fold_bfs18"]["launches_per_xspmv"] = len(nf)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(v["counts"][name] for v in drv.counts.values()),
@@ -2152,7 +2225,9 @@ def main():
             library_ms={"lane_gather": lane_lib_ms,
                         "esc_gather": e2e["esc14"]["index_select_ms"],
                         "mono_cascade": ck.segment_reduce_ms.get(tp)}.get(
-                            name),
+                            name, sum(c["library_ms"] for c in take_rows)
+                            if take_rows and len(take_rows) == len(timed)
+                            else None),
             **({"chain_ms": ck.cascade_vs_chain[tp]["chain_ms"]}
                if name == "mono_cascade" else {}),
             checks=f"{sum(c['ok'] for c in allc)}/{len(allc)} "

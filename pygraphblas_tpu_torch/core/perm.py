@@ -517,7 +517,12 @@ def _mid_pass_plain(x3d, a8, ssel8, c8):
     c = c8.long().reshape(x3d.shape)
     y = torch.gather(x3d, 2, a)
     if ssel8 is not None:
-        y = torch.gather(y, 1, ssel8.long())
+        # a select outside [0, S) gives 0, as the TPU kernel's
+        # zero-initialised select (perm.py:845-848) and the CUDA kernel
+        t = ssel8.long().reshape(x3d.shape)
+        ok = (t >= 0) & (t < x3d.shape[1])
+        y = torch.where(ok, torch.gather(y, 1, t.clamp(0, x3d.shape[1] - 1)),
+                        torch.zeros((), dtype=y.dtype, device=y.device))
     return torch.gather(y, 2, c)
 
 
@@ -578,6 +583,10 @@ def _mid_pass(x3d, a8, ssel8, c8):
     x3d = x3d.contiguous()
     _kernels.cuda_args(name, x3d, a8, ssel8, c8)
     out = torch.empty_like(x3d)
+    if any(t.data_ptr() % 16 for t in (x3d, a8, ssel8, c8, out)
+           if t is not None):
+        raise ValueError(f"{name}: the kernel's 16-byte copies need "
+                         "16-byte aligned tensors")
     rc = _kernels.lib().pgb_mid_pass(
         x3d.data_ptr(), a8.data_ptr(),
         ssel8.data_ptr() if ssel8 is not None else None, c8.data_ptr(),
@@ -702,7 +711,9 @@ def _apply_staged(x, n, D, S, R0, K, a_stages, c_stages, ssel,
                       c_stages[D - 1], c_stages[D - 2], g_count, S)
         start_asc = D - 3
     else:
-        # bottom level: A + select + C within (S,128) tiles
+        # bottom level: A + select + C within (S,128) tiles; the kernel's
+        # 16-byte copies find cur fresh from a pass above (n > TRIVIAL_N,
+        # so D >= 2) and the stage tables whole tensors of R0 * 128 bytes
         nsub = cur.shape[0] // S
         cur = _mid_pass(cur.reshape(nsub, S, 128), a_stages[D - 1], ssel,
                         c_stages[D - 1]).reshape(nsub * S, 128)

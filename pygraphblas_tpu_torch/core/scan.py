@@ -14,7 +14,8 @@ Kernel (``csrc/scan.cu``), beside its plain PyTorch version:
   - ``segfold`` replaces scan.py:53 ``_segfold_pallas``: a single-pass
     scan with decoupled look-back, one launch a scan.  The TPU kernel
     carries across grid blocks in SMEM, which needs the TPU's in-order
-    grid; the card's blocks take tickets and look back instead.
+    grid; the card's blocks take 4096-value tiles by ticket and look
+    back instead.
 The plain version is a Hillis-Steele log-step scan over the segmented
 combine ``(va,fa)·(vb,fb) = (fb ? vb : fold(va,vb), fa|fb)``, the
 counterpart of the JAX package's ``lax.associative_scan`` path.  Integer
@@ -78,9 +79,9 @@ def segfold(values, flags, add):
     code = _kernels.dtype_code(values, name)
     if flags.dtype != torch.bool or flags.numel() != m or values.dim() != 1:
         raise TypeError(f"{name}: values (M,) and bool flags (M,)")
-    if values.data_ptr() % 16 or flags.data_ptr() % 8:
-        raise ValueError(f"{name}: values must be 16-byte aligned and "
-                         "flags 8-byte aligned")
+    if values.data_ptr() % 16 or flags.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel's 16-byte loads need "
+                         "16-byte aligned values and flags")
     out = torch.empty_like(values)
     lib = _kernels.lib()
     status, ticket, epoch = _scan_state(values.device,

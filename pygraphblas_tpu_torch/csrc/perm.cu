@@ -420,42 +420,102 @@ __global__ void lane_gather_kernel(const T* __restrict__ x,
 //   z[s, l] = y[ss[s, l], l]           sublane select (z = y when S == 1)
 //   out[s, l] = z[s, c[s, l]]          C lane gather
 // composed per output cell: with c = c[s, l] and t = ss[s, c],
-// out[s, l] = x[t, a[t, c]].  A block stages `tpb` whole tiles of x, a
-// and ss in shared memory (one tile of 15,872 cells at S = 124; 21
-// tiles at S = 3), so the two dependent index reads and the value read
-// of a cell stay on the SM; c and out stream through once.  A select
-// index outside [0, S) gives 0, as the TPU kernel's zero-initialised
-// select does.
-template <typename T>
-__global__ void mid_pass_kernel(const T* __restrict__ x,
-                                const int8_t* __restrict__ a,
-                                const int8_t* __restrict__ ss,
-                                const int8_t* __restrict__ c,
-                                T* __restrict__ out, int64_t nsub, int S,
-                                int tpb) {
-  extern __shared__ unsigned char smem[];
-  const int cells = S * 128;
-  T* xs = (T*)smem;
-  int8_t* as = (int8_t*)(xs + (int64_t)tpb * cells);
-  int8_t* sss = as + tpb * cells;
-  const int64_t tile0 = (int64_t)blockIdx.x * tpb;
-  const int ntile = (int)(nsub - tile0 < tpb ? nsub - tile0 : tpb);
-  const int total = ntile * cells;
-  const int64_t base = tile0 * cells;
-  for (int k = threadIdx.x; k < total; k += blockDim.x) {
-    xs[k] = x[base + k];
-    as[k] = a[base + k];
-    if (ss != nullptr) sss[k] = ss[base + k];
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < total; k += blockDim.x) {
-    const int tb = (k / cells) * cells;
-    const int s = (k - tb) >> 7;
-    const int cl = c[base + k] & 127;
-    const int t = ss != nullptr ? sss[tb + s * 128 + cl] : s;
-    T v = (T)0;
-    if (t >= 0 && t < S) v = xs[tb + t * 128 + (as[tb + t * 128 + cl] & 127)];
-    out[base + k] = v;
+// out[s, l] = x[t, a[t, c]]; a select index outside [0, S) gives 0, as
+// the TPU kernel's zero-initialised select does.  The kernel moves
+// 32-bit words, so one instantiation serves float32 and int32.
+//
+// Bound: bytes, 11 a cell with a select (x and out 4 each, a, ss and c
+// one each), 10 without: 0.0207 ms at kron-18's bottom level (S = 3),
+// 0.0067 at kron-16 symmetrised's (S = 124), on an H100 at 3.35 TB/s.
+// The first port (0.0468 and 0.0161 ms there, chip_smoke on an H100
+// 80GB HBM3 at 700 W) staged whole tiles with 4-byte and 1-byte loads,
+// then gathered with no load in flight, and divided every cell's index
+// by the tile's size.  Here persistent blocks walk chunks of whole tiles
+// (at least STAGE_CELLS cells, or one tile) through a 2-stage ring
+// in shared memory: x, a, c and ss of a chunk arrive by 16-byte
+// cp.async copies, and the chunk after next is issued as soon as a
+// stage is gathered, so one stage loads while the other gathers (at
+// S = 124 a stage is one 109 KB tile and both fit in 227 KB).  Warp w
+// gathers rows w, w + nw, ... of a chunk, each lane four cells of the
+// row: one 4-byte word of c (a row's c is one 128-byte line: no bank
+// conflict), the row's select bytes (one line), then a and x of the
+// selected rows, and one 16-byte store; the rows' tile and row numbers
+// advance by additions.  The x reads follow the plan's lanes, so their
+// banks are as random as the permutation.
+namespace midp {
+constexpr int STAGE_CELLS = 1024;       // chosen on the card (PERF.md)
+constexpr int CELL_BYTES = 4 + 3;       // x, a, c and ss a cell
+constexpr int MAX_SMEM = 2 * 128 * 128 * CELL_BYTES;   // 229,376 at S = 128
+}  // namespace midp
+
+__global__ void __launch_bounds__(512)
+mid_pass_kernel(const uint32_t* __restrict__ x, const int8_t* __restrict__ a,
+                const int8_t* __restrict__ ss, const int8_t* __restrict__ c,
+                uint32_t* __restrict__ out, int64_t nsub, int S, int tpb,
+                int64_t n_chunks) {
+  extern __shared__ __align__(16) unsigned char mp_smem[];
+  const int cells = S * 128, scells = tpb * cells;
+  const int sbytes = scells * midp::CELL_BYTES;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int warp = t >> 5, lane = t & 31, nw = nt >> 5;
+  // stage st: x words, then a, c and ss bytes, scells of each
+  auto load = [&](int64_t chunk, int st) {
+    if (chunk < n_chunks) {
+      const int64_t tile0 = chunk * tpb;
+      const int ncell =
+          (int)((nsub - tile0 < tpb ? nsub - tile0 : tpb) * cells);
+      const int64_t base = tile0 * cells;
+      unsigned char* xs = mp_smem + st * sbytes;
+      unsigned char *as = xs + scells * 4, *cs = as + scells,
+                    *sq = cs + scells;
+      for (int k = t; k < ncell / 4; k += nt)
+        i3::cp16(xs + 16 * k, x + base + 4 * k);
+      for (int k = t; k < ncell / 16; k += nt) {
+        i3::cp16(as + 16 * k, a + base + 16 * k);
+        i3::cp16(cs + 16 * k, c + base + 16 * k);
+        if (ss != nullptr) i3::cp16(sq + 16 * k, ss + base + 16 * k);
+      }
+    }
+    i3::commit();
+  };
+  // a warp's rows advance by nw = q * S + rem rows a step
+  const int q = nw / S, rem = nw - q * S;
+  const int tb0 = warp / S, s0 = warp - tb0 * S;
+  int64_t chunk = blockIdx.x;
+  load(chunk, 0);
+  load(chunk + gridDim.x, 1);
+  for (int i = 0; chunk < n_chunks; chunk += gridDim.x, ++i) {
+    const int st = i & 1;
+    i3::wait_pending(1);        // this chunk's copies have landed
+    __syncthreads();
+    const unsigned char* xs = mp_smem + st * sbytes;
+    const uint32_t* xw = (const uint32_t*)xs;
+    const int8_t* as = (const int8_t*)(xs + scells * 4);
+    const uint32_t* cw = (const uint32_t*)(xs + scells * 5);
+    const int8_t* sq = (const int8_t*)(xs + scells * 6);
+    const int64_t tile0 = chunk * tpb;
+    const int rows = (int)((nsub - tile0 < tpb ? nsub - tile0 : tpb) * S);
+    uint32_t* ob = out + tile0 * cells;
+    int tb = tb0, s = s0;
+    for (int r = warp; r < rows; r += nw) {
+      const uint32_t cl4 = cw[r * 32 + lane];
+      const int8_t* at = as + tb * cells;
+      const uint32_t* xt = xw + tb * cells;
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = (cl4 >> (8 * e)) & 127;
+        const int tt = ss != nullptr ? sq[r * 128 + cl] : s;
+        o[e] = (tt >= 0 && tt < S) ? xt[tt * 128 + (at[tt * 128 + cl] & 127)]
+                                   : 0u;
+      }
+      *(uint4*)(ob + r * 128 + 4 * lane) = make_uint4(o[0], o[1], o[2], o[3]);
+      s += rem;
+      tb += q;
+      if (s >= S) s -= S, ++tb;
+    }
+    __syncthreads();            // the stage is free
+    load(chunk + 2 * (int64_t)gridDim.x, st);
   }
 }
 
@@ -469,21 +529,38 @@ static int launch_lane_gather(const void* x, const int8_t* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// x, a, ss, c and out 16-byte aligned; persistent blocks, as many as
+// the card holds at once (queried once an S)
 static int launch_mid_pass(const void* x, const int8_t* a, const int8_t* ss,
                            const int8_t* c, void* out, int64_t nsub, int S,
                            cudaStream_t st) {
-  if (S < 1 || S > 128) return -1;
+  static int blocks[129];
+  if (S < 1 || S > 128 || (S > 1) != (ss != nullptr)) return -1;
   const int cells = S * 128;
-  int tpb = 8192 / cells;
-  if (tpb < 1) tpb = 1;
-  const int smem = tpb * cells * ((int)sizeof(T) + 2);
-  cudaFuncSetAttribute(mid_pass_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int64_t blocks = (nsub + tpb - 1) / tpb;
-  if (blocks > 0)
-    mid_pass_kernel<T><<<(unsigned)blocks, THREADS * 2, smem, st>>>(
-        (const T*)x, a, ss, c, (T*)out, nsub, S, tpb);
+  const int tpb = cells >= midp::STAGE_CELLS ? 1 : midp::STAGE_CELLS / cells;
+  const int threads = tpb * S >= 32 ? 512 : 256;
+  const int smem = 2 * tpb * cells * midp::CELL_BYTES;
+  if (blocks[S] == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        mid_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        midp::MAX_SMEM);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mid_pass_kernel, threads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return -1;
+    blocks[S] = per_sm * sms;
+  }
+  const int64_t n_chunks = (nsub + tpb - 1) / tpb;
+  const int64_t grid = n_chunks < blocks[S] ? n_chunks : blocks[S];
+  if (grid > 0)
+    mid_pass_kernel<<<(unsigned)grid, threads, smem, st>>>(
+        (const uint32_t*)x, a, ss, c, (uint32_t*)out, nsub, S, tpb,
+        n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -608,18 +685,15 @@ extern "C" int pgb_lane_gather(const void* x, const void* idx, void* out,
   return -1;
 }
 
-// ss may be null (S == 1)
+// ss null when S == 1; x and out float32 or int32 (the kernel moves
+// 4-byte words); every pointer 16-byte aligned
 extern "C" int pgb_mid_pass(const void* x, const void* a, const void* ss,
                             const void* c, void* out, int64_t nsub, int S,
                             int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int8_t *ai = (const int8_t*)a, *si = (const int8_t*)ss,
-               *ci = (const int8_t*)c;
-  if (dtype == DT_F32)
-    return launch_mid_pass<float>(x, ai, si, ci, out, nsub, S, st);
-  if (dtype == DT_I32)
-    return launch_mid_pass<int32_t>(x, ai, si, ci, out, nsub, S, st);
-  return -1;
+  if (dtype != DT_F32 && dtype != DT_I32) return -1;
+  return launch_mid_pass(x, (const int8_t*)a, (const int8_t*)ss,
+                         (const int8_t*)c, out, nsub, S,
+                         (cudaStream_t)stream);
 }
 
 // x and out: 4-byte words (float32 or int32: the kernel only moves

@@ -14,10 +14,11 @@
 // next in SMEM scratch, which is right only because a TPU grid runs its
 // blocks in order (scan.py:68-72, 113-116).  CUDA blocks run in no
 // order, so this is a single-pass scan with decoupled look-back:
-//   - each block takes a ticket from an atomic counter (not blockIdx),
-//     and scans tile `ticket` (256 threads x 8 values): a serial scan of
-//     each thread's 8 values, warp shuffles over the threads' (value,
-//     flag) totals, a serial pass over the 8 warps' totals;
+//   - each block takes a ticket from an atomic counter (not blockIdx)
+//     and scans tile `ticket` (256 threads x 16 values, loaded as five
+//     16-byte words a thread): a serial scan of each thread's 16 values,
+//     warp shuffles over the threads' (value, flag) totals, shuffles
+//     over the 8 warps' totals in every warp;
 //   - it publishes the tile's total (an "aggregate"; its inclusive
 //     prefix already if the tile holds a segment start), then its warp 0
 //     looks back over the 32 tiles before it at a time: it folds their
@@ -36,17 +37,30 @@
 // One launch of this kernel is the whole scan: `segfold` counts one.
 //
 // Bound: bytes.  Each value and flag is read once and each result
-// written once (9 bytes an element); the statuses are 8 bytes a tile.
+// written once (9 bytes an element); the statuses are 8 bytes a tile:
+// 0.7212 ms for esc14's four scans of 2^26 (an H100 at 3.35 TB/s).  The
+// first port (2048-value tiles, 1.6443 ms there in chip_smoke on an
+// H100 80GB HBM3 at 700 W) polled statuses with acquire loads and a
+// sleep, folded the warps' totals serially and loaded 32 bytes of
+// values a thread.  Here tiles are twice as long, polls are relaxed
+// (the status word carries all a reader needs) and tight, the warps'
+// totals are scanned by shuffles, and 8 blocks fit an SM.  Designs tried
+// on the card and not kept (PERF.md): persistent blocks loading their
+// next ticket's tile while they look back (a held ticket's aggregate
+// comes an iteration late, which stalls every look-back behind it),
+// look-back windows of 64 to 256 tiles, tiles of 2048 and 8192 values.
 
 #include "ops.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;
+constexpr int kItems = 16;              // values a thread, contiguous
 constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
+constexpr int kVec = kItems / 4;        // 16-byte words of values a thread
 constexpr uint32_t kAggregate = 1, kPrefix = 2;
+// n % 1024 == 0 and kItems | 1024: a thread's values are all in or out
 
 // a (value, segment-start flag) pair; h = 0: the empty prefix
 template <typename T>
@@ -55,11 +69,11 @@ struct Seg {
   uint32_t f, h;
 };
 
-template <typename T>
-__device__ __forceinline__ Seg<T> combine(int op, Seg<T> a, Seg<T> b) {
+template <int OP, typename T>
+__device__ __forceinline__ Seg<T> combine(Seg<T> a, Seg<T> b) {
   if (!b.h) return a;
   if (!a.h) return b;
-  return Seg<T>{b.f ? b.v : apply_fold<T>(op, a.v, b.v), a.f | b.f, 1u};
+  return Seg<T>{b.f ? b.v : fold_c<OP, T>(a.v, b.v), a.f | b.f, 1u};
 }
 
 __device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
@@ -72,31 +86,42 @@ template <>
 __device__ __forceinline__ int32_t from_bits<int32_t>(uint32_t b) { return (int32_t)b; }
 
 template <typename T>
-__device__ __forceinline__ Seg<T> shfl_up(Seg<T> x, int d) {
-  uint32_t v = __shfl_up_sync(0xffffffffu, bits_of(x.v), d);
-  uint32_t fh = __shfl_up_sync(0xffffffffu, x.f | (x.h << 1), d);
+__device__ __forceinline__ Seg<T> unpack(uint32_t v, uint32_t fh) {
   return Seg<T>{from_bits<T>(v), fh & 1u, fh >> 1};
 }
 
 template <typename T>
+__device__ __forceinline__ Seg<T> shfl_up(Seg<T> x, int d) {
+  return unpack<T>(__shfl_up_sync(0xffffffffu, bits_of(x.v), d),
+                   __shfl_up_sync(0xffffffffu, x.f | (x.h << 1), d));
+}
+
+template <typename T>
 __device__ __forceinline__ Seg<T> shfl_down(Seg<T> x, int d) {
-  uint32_t v = __shfl_down_sync(0xffffffffu, bits_of(x.v), d);
-  uint32_t fh = __shfl_down_sync(0xffffffffu, x.f | (x.h << 1), d);
-  return Seg<T>{from_bits<T>(v), fh & 1u, fh >> 1};
+  return unpack<T>(__shfl_down_sync(0xffffffffu, bits_of(x.v), d),
+                   __shfl_down_sync(0xffffffffu, x.f | (x.h << 1), d));
+}
+
+template <typename T>
+__device__ __forceinline__ Seg<T> shfl(Seg<T> x, int lane) {
+  return unpack<T>(__shfl_sync(0xffffffffu, bits_of(x.v), lane),
+                   __shfl_sync(0xffffffffu, x.f | (x.h << 1), lane));
 }
 
 // status word: low 32 bits the value, high 32 bits
-// epoch << 3 | flag << 2 | kind (kind 0: not yet published this call)
-__device__ __forceinline__ void st_release64(unsigned long long* p,
-                                             unsigned long long v) {
-  asm volatile("st.release.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
+// epoch << 3 | flag << 2 | kind (kind 0: not yet published this call).
+// The word carries all a reader needs, so relaxed accesses suffice
+// (acquire polls measured slower).
+__device__ __forceinline__ void st_status(unsigned long long* p,
+                                          unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
                : "memory");
 }
 
-__device__ __forceinline__ unsigned long long ld_acquire64(
+__device__ __forceinline__ unsigned long long ld_status(
     const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.b64 %0, [%1];"
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
                : "=l"(v)
                : "l"(p)
                : "memory");
@@ -107,46 +132,107 @@ template <typename T>
 __device__ __forceinline__ void publish(unsigned long long* st, uint32_t epoch,
                                         uint32_t kind, Seg<T> x) {
   const unsigned long long hi = (epoch << 3) | (x.f << 2) | kind;
-  st_release64(st, (hi << 32) | bits_of(x.v));
+  st_status(st, (hi << 32) | bits_of(x.v));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-segfold_kernel(const T* __restrict__ vals, const uint8_t* __restrict__ flags,
-               T* __restrict__ out, int64_t n, int op,
-               unsigned long long* status, uint32_t epoch, int* ticket,
-               int64_t n_tiles) {
+// The exclusive prefix of `tile` (> 0), in lane 0 of the calling warp:
+// 32 tiles at a time, lane l polling tile end - 32 + l, folded right to
+// left down to the last tile that has published its inclusive prefix or
+// holds a segment start (nothing before such a tile can reach this one),
+// or down to tile 0.  (Windows of 64 to 256 tiles measured slower.)
+template <typename T, int OP>
+__device__ __forceinline__ Seg<T> look_back(
+    const unsigned long long* status, uint32_t epoch, int64_t tile,
+    int lane) {
+  Seg<T> prefix{T(0), 0u, 0u};
+  for (int64_t end = tile;; end -= 32) {
+    const int64_t j = end - 32 + lane;
+    Seg<T> x{T(0), 0u, 0u};
+    bool stop = j < 0;
+    if (j >= 0) {
+      unsigned long long s;
+      while (((s = ld_status(status + j)) >> 35) != epoch ||
+             ((s >> 32) & 3u) == 0) {
+      }
+      const uint32_t hi = (uint32_t)(s >> 32);
+      x = Seg<T>{from_bits<T>((uint32_t)s), (hi >> 2) & 1u, 1u};
+      stop = (hi & 3u) == kPrefix || x.f;
+    }
+    const uint32_t stops = __ballot_sync(0xffffffffu, stop);
+    const int from = stops ? 31 - __clz(stops) : 0;
+    if (lane < from) x.h = 0;
+    // ordered fold of lanes from..31 into lane 0
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Seg<T> y = shfl_down(x, d);
+      if ((lane & (2 * d - 1)) == 0 && lane + d < 32) x = combine<OP>(x, y);
+    }
+    prefix = combine<OP>(x, prefix);
+    if (stops) return prefix;
+  }
+}
+
+// a thread's share of a tile as loaded: its values' bits, its flag bytes
+struct Chunk {
+  uint4 v[kVec];
+  uint32_t f[kItems / 4];
+};
+
+__device__ __forceinline__ void load_chunk(Chunk& c,
+                                           const uint32_t* __restrict__ vals,
+                                           const uint8_t* __restrict__ flags,
+                                           int64_t i0) {
+  const uint4* vp = reinterpret_cast<const uint4*>(vals + i0);
+#pragma unroll
+  for (int q = 0; q < kVec; ++q) c.v[q] = __ldcs(vp + q);
+  const uint4 f = __ldcs(reinterpret_cast<const uint4*>(flags + i0));
+  c.f[0] = f.x, c.f[1] = f.y, c.f[2] = f.z, c.f[3] = f.w;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& q, int e) {
+  return e == 0 ? q.x : e == 1 ? q.y : e == 2 ? q.z : q.w;
+}
+
+// a ticket; the block that takes the last one sets the counter back to 0
+__device__ __forceinline__ int take(int* ticket, int last) {
+  const int t = atomicAdd(ticket, 1);
+  if (t == last) atomicExch(ticket, 0);
+  return t;
+}
+
+// 8 blocks an SM (32 registers a thread) measured fastest
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads, 8)
+segfold_kernel(const uint32_t* __restrict__ vals,
+               const uint8_t* __restrict__ flags, uint32_t* __restrict__ out,
+               int64_t n, unsigned long long* status, uint32_t epoch,
+               int* ticket, int n_tiles) {
   __shared__ int s_tile;
   __shared__ Seg<T> s_warp[kWarps];
   __shared__ Seg<T> s_prefix;
-  if (threadIdx.x == 0) {
-    const int t = atomicAdd(ticket, 1);
-    if (t == n_tiles - 1) atomicExch(ticket, 0);  // every ticket is taken
-    s_tile = t;
-  }
-  __syncthreads();
-  const int64_t tile = s_tile;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t i0 = tile * kTile + (int64_t)threadIdx.x * kItems;
-  const bool live = i0 < n;  // n % 1024 == 0: a thread's 8 are all in or out
+  if (threadIdx.x == 0) s_tile = take(ticket, n_tiles - 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const int64_t i0 = (int64_t)tile * kTile + (int64_t)threadIdx.x * kItems;
+  const bool live = i0 < n;
 
-  // 1. this thread's 8 values, scanned serially
+  // 1. this thread's values, scanned serially; bit k of `starts`: a
+  //    segment start at value k
   T v[kItems];
-  uint32_t run[kItems];  // a segment start at or before item k (this thread)
+  uint32_t starts = 0;
   Seg<T> mine{T(0), 0u, 0u};
   if (live) {
-    const uint4* vp = reinterpret_cast<const uint4*>(vals + i0);
-    const uint4 a = vp[0], b = vp[1];
-    const uint2 fw = *reinterpret_cast<const uint2*>(flags + i0);
-    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    Chunk cur;
+    load_chunk(cur, vals, flags, i0);
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      const uint32_t fk = ((k < 4 ? fw.x : fw.y) >> (8 * (k & 3))) & 0xffu;
-      const T x = from_bits<T>(w[k]);
-      v[k] = (k == 0 || fk) ? x : apply_fold<T>(op, v[k - 1], x);
-      run[k] = (k ? run[k - 1] : 0u) | (fk ? 1u : 0u);
+      const uint32_t fk = (cur.f[k >> 2] >> (8 * (k & 3))) & 0xffu;
+      const T x = from_bits<T>(word(cur.v[k >> 2], k & 3));
+      v[k] = (k == 0 || fk) ? x : fold_c<OP, T>(v[k - 1], x);
+      starts |= (fk ? 1u : 0u) << k;
     }
-    mine = Seg<T>{v[kItems - 1], run[kItems - 1], 1u};
+    mine = Seg<T>{v[kItems - 1], starts ? 1u : 0u, 1u};
   }
 
   // 2. inclusive scan of the threads' totals within the warp
@@ -154,90 +240,90 @@ segfold_kernel(const T* __restrict__ vals, const uint8_t* __restrict__ flags,
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const Seg<T> y = shfl_up(inc, d);
-    if (lane >= d) inc = combine(op, y, inc);
+    if (lane >= d) inc = combine<OP>(y, inc);
   }
   Seg<T> excl = shfl_up(inc, 1);
   if (lane == 0) excl.h = 0;
   if (lane == 31) s_warp[warp] = inc;
   __syncthreads();
 
-  // 3. the warps' totals, serially; then the tile's look-back
-  if (warp == 0) {
-    Seg<T> total{T(0), 0u, 0u};
-    if (lane == 0) {
+  // 3. the warps' totals, scanned by every warp in its lanes
+  Seg<T> wx = lane < kWarps ? s_warp[lane] : Seg<T>{T(0), 0u, 0u};
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const Seg<T> x = s_warp[w];
-        s_warp[w] = total;  // now the exclusive prefix of warp w
-        total = combine(op, total, x);
-      }
-      // a tile that holds a segment start needs nothing before it for
-      // its inclusive prefix (its values before that start still do)
+  for (int d = 1; d < kWarps; d <<= 1) {
+    const Seg<T> y = shfl_up(wx, d);
+    if (lane >= d) wx = combine<OP>(y, wx);
+  }
+  const Seg<T> total = shfl(wx, kWarps - 1);
+  Seg<T> wpre = shfl(wx, warp > 0 ? warp - 1 : 0);
+  if (warp == 0) wpre.h = 0;
+
+  // 4. the tile's look-back
+  if (warp == 0) {
+    // a tile that holds a segment start needs nothing before it for its
+    // inclusive prefix (its values before that start still do)
+    if (lane == 0)
       publish(status + tile, epoch,
               tile == 0 || total.f ? kPrefix : kAggregate, total);
-    }
-    Seg<T> prefix{T(0), 0u, 0u};
-    if (tile > 0) {
-      int64_t end = tile;  // the window is tiles [end - 32, end)
-      while (true) {
-        const int64_t j = end - 32 + lane;
-        Seg<T> x{T(0), 0u, 0u};
-        bool stop = j < 0;
-        if (j >= 0) {
-          unsigned long long s;
-          while (((s = ld_acquire64(status + j)) >> 35) != epoch ||
-                 ((s >> 32) & 3u) == 0)
-            __nanosleep(20);
-          const uint32_t hi = (uint32_t)(s >> 32);
-          x = Seg<T>{from_bits<T>((uint32_t)s), (hi >> 2) & 1u, 1u};
-          stop = (hi & 3u) == kPrefix || x.f;
-        }
-        const uint32_t stops = __ballot_sync(0xffffffffu, stop);
-        const int from = stops ? 31 - __clz(stops) : 0;
-        if (lane < from) x.h = 0;
-        // ordered fold of lanes from..31 into lane 0
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const Seg<T> y = shfl_down(x, d);
-          if ((lane & (2 * d - 1)) == 0 && lane + d < 32)
-            x = combine(op, x, y);
-        }
-        prefix = combine(op, x, prefix);
-        if (stops) break;
-        end -= 32;
-      }
-    }
+    const Seg<T> prefix = tile > 0
+        ? look_back<T, OP>(status, epoch, tile, lane)
+        : Seg<T>{T(0), 0u, 0u};
     if (lane == 0) {
       if (tile > 0 && !total.f)
-        publish(status + tile, epoch, kPrefix,
-                combine(op, prefix, total));
+        publish(status + tile, epoch, kPrefix, combine<OP>(prefix, total));
       s_prefix = prefix;
     }
   }
   __syncthreads();
 
-  // 4. this thread's exclusive prefix, applied up to its first start
+  // 5. this thread's exclusive prefix, applied up to its first start
   if (!live) return;
-  Seg<T> pre = combine(op, s_prefix, combine(op, s_warp[warp], excl));
+  const Seg<T> pre = combine<OP>(s_prefix, combine<OP>(wpre, excl));
+  // bit k: a start at or before value k
+  const uint32_t run = starts ? ~0u << (__ffs(starts) - 1) : 0u;
   uint4* op4 = reinterpret_cast<uint4*>(out + i0);
-  uint32_t w[kItems];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const T x = (pre.h && !run[k]) ? apply_fold<T>(op, pre.v, v[k]) : v[k];
-    w[k] = bits_of(x);
+  for (int q = 0; q < kVec; ++q) {
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * q + e;
+      w[e] = bits_of((pre.h && !((run >> k) & 1u))
+                         ? fold_c<OP, T>(pre.v, v[k])
+                         : v[k]);
+    }
+    op4[q] = make_uint4(w[0], w[1], w[2], w[3]);
   }
-  op4[0] = make_uint4(w[0], w[1], w[2], w[3]);
-  op4[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+template <typename T, int OP>
+int launch_op(const void* vals, const void* flags, void* out, int64_t n,
+              void* status, uint32_t epoch, void* ticket, cudaStream_t st) {
+  const int64_t n_tiles = (n + kTile - 1) / kTile;
+  segfold_kernel<T, OP><<<(unsigned)n_tiles, kThreads, 0, st>>>(
+      (const uint32_t*)vals, (const uint8_t*)flags, (uint32_t*)out, n,
+      (unsigned long long*)status, epoch, (int*)ticket, (int)n_tiles);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* vals, const void* flags, void* out, int64_t n, int op,
            void* status, uint32_t epoch, void* ticket, cudaStream_t st) {
-  const int64_t n_tiles = (n + kTile - 1) / kTile;
-  segfold_kernel<T><<<(unsigned)n_tiles, kThreads, 0, st>>>(
-      (const T*)vals, (const uint8_t*)flags, (T*)out, n, op,
-      (unsigned long long*)status, epoch, (int*)ticket, n_tiles);
-  return (int)cudaGetLastError();
+  switch (op) {
+    case FOLD_PLUS:
+      return launch_op<T, FOLD_PLUS>(vals, flags, out, n, status, epoch,
+                                     ticket, st);
+    case FOLD_MIN:
+      return launch_op<T, FOLD_MIN>(vals, flags, out, n, status, epoch,
+                                    ticket, st);
+    case FOLD_MAX:
+      return launch_op<T, FOLD_MAX>(vals, flags, out, n, status, epoch,
+                                    ticket, st);
+    case FOLD_TIMES:
+      return launch_op<T, FOLD_TIMES>(vals, flags, out, n, status, epoch,
+                                      ticket, st);
+  }
+  return -1;
 }
 
 }  // namespace
@@ -246,9 +332,11 @@ extern "C" int64_t pgb_segfold_tiles(int64_t n) {
   return (n + kTile - 1) / kTile;
 }
 
-// values (n,) float32 or int32, flags (n,) bool, n % 1024 == 0; status:
-// pgb_segfold_tiles(n) 8-byte words; ticket: one int, 0 between calls;
-// epoch: nonzero, below 2^29, new for each call on this status buffer
+// values (n,) float32 or int32, flags (n,) bool, n % 1024 == 0, below
+// 2^31 tiles; values and out 16-byte aligned, flags 16-byte aligned;
+// status: pgb_segfold_tiles(n) 8-byte words; ticket: one int, 0 between
+// calls; epoch: nonzero, below 2^29, new for each call on this status
+// buffer
 extern "C" int pgb_segfold(const void* vals, const void* flags, void* out,
                            int64_t n, int dtype, int op, void* status,
                            uint32_t epoch, void* ticket, void* stream) {

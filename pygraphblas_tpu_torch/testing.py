@@ -1,9 +1,11 @@
 """Hand-made kernel inputs, shared by the GPU tests
 (tests/test_torch_cuda.py) and chip_smoke.py, which hold the kernels
-against their plain versions on them.  numpy only: the callers move the
-arrays to the device they test."""
+against their plain versions on them (numpy arrays: the callers move
+them to the device they test), and the index recipe by which one
+``torch.take`` computes a kernel that only moves data (`take_index`)."""
 
 import numpy as np
+import torch
 
 PAIR_COUNT_CASES = ("run_across_blocks", "runs_of_one_128",
                     "runs_of_one_256", "alternating", "longer_32768",
@@ -140,3 +142,24 @@ def cascade_runs_case():
     nrows = 700
     present = np.sort(rng.choice(nrows, len(counts), replace=False))
     return nrows, present, counts
+
+
+def take_index(plain, shape, device=None):
+    """The int64 index at which one ``torch.take`` of ``take_source(x,
+    fill)`` equals ``plain(x)`` for every x of `shape`, where `plain` only
+    moves data (a gather, a transpose, a select: no fold, no mul).  It
+    runs `plain` over an int32 input holding 1..n, so that each output
+    holds 1 + the position it reads; a 0 there (a fill, or a select out
+    of range, which gives 0) reads the pad cell n that `take_source`
+    appends."""
+    n = int(np.prod(shape))
+    ids = torch.arange(1, n + 1, dtype=torch.int32,
+                       device=device).reshape(shape)
+    pos = plain(ids).reshape(-1).long()
+    return torch.where(pos == 0, n, pos - 1)
+
+
+def take_source(x, fill=0):
+    """x flattened, with the pad cell `fill` appended (see take_index)."""
+    return torch.cat([x.reshape(-1),
+                      torch.full((1,), fill, dtype=x.dtype, device=x.device)])

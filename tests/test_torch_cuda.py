@@ -404,6 +404,42 @@ def test_mid_pass_and_lane_gather_kernels(card, S, dtype):
     assert torch.equal(got, perm._lane_gather_plain(x2, a))
 
 
+@pytest.mark.parametrize("S,nsubs", [(1, (53, 40000)), (2, (53, 20000)),
+                                     (3, (53, 16384)), (24, (53, 2000)),
+                                     (124, (3, 300)), (128, (3, 300))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_mid_pass_kernel(card, S, nsubs, dtype):
+    """The persistent ring: chunk counts that are not a multiple of the
+    tiles a stage holds (1024 // (S * 128), at least 1) and chunks past
+    one a block; selects out of [0, S) give 0: bit-exact, one launch."""
+    rng = np.random.RandomState(S)
+    for nsub in nsubs:
+        x = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1,
+                                         (nsub, S, 128), dtype=np.int64)
+                             .astype(np.int32)).to(card)
+        if dtype == torch.float32:
+            x = torch.randn((nsub, S, 128), device=card)
+        a, c = (torch.from_numpy(rng.randint(0, 128, (nsub * S, 128))
+                                 .astype(np.int8)).to(card)
+                for _ in range(2))
+        ssel = (torch.from_numpy(rng.randint(-3, S + 3, (nsub, S, 128))
+                                 .astype(np.int8)).to(card)
+                if S > 1 else None)
+        _kernels.reset_launches()
+        got = perm._mid_pass(x, a, ssel, c)
+        torch.cuda.synchronize()
+        assert _kernels.launches["mid_pass"] == 1
+        assert torch.equal(got, perm._mid_pass_plain(x, a, ssel, c))
+
+
+def test_mid_pass_rejects_misaligned(card):
+    x = torch.zeros(3 * 128 * 2 + 1, device=card)[1:].reshape(2, 3, 128)
+    a = torch.zeros((6, 128), dtype=torch.int8, device=card)
+    ssel = torch.zeros((2, 3, 128), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError):
+        perm._mid_pass(x, a, ssel, a)
+
+
 def _kron12(sym):
     rows, cols, n = generators.rmat_edges(12, 16)
     if sym:
@@ -586,10 +622,13 @@ def _scan_inputs(card, m, dtype, flags, seed):
 @pytest.mark.parametrize("flags", ["none", "all", "sparse"])
 @pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-@pytest.mark.parametrize("m", [1024, 3 * 2048 + 1024, 1 << 20])
+@pytest.mark.parametrize("m", [1024, 3 * 2048 + 1024, 5 * 4096 + 1024,
+                               1 << 20, 1 << 26])
 def test_segfold_kernel(card, m, dtype, add, flags):
-    """Partial last tiles, one segment over every tile (the longest
-    look-back), a start at every value, and sparse starts: exact."""
+    """Lengths that are not a multiple of the kernel's 4096-value tile
+    (partial last tiles), esc14's 2^26, one segment over every tile (at
+    2^20 and 2^26 it spans more tiles than one 32-tile look-back window),
+    a start at every value, and sparse starts: exact."""
     v, f = _scan_inputs(card, m, dtype, flags, m % 97)
     _kernels.reset_launches()
     got = scan.segfold(v, f, add)

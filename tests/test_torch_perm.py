@@ -7,7 +7,9 @@ Both routing routes of the port's PermPlan.build are checked:
     at n = 2 * 128^3 (D = 3, S = 2), which takes the fused middle and
     the fold8-fused ascend.
 The plain versions of kernels 5-7 must equal the JAX Pallas kernels in
-interpret mode: moves exactly, PLUS folds within rtol 1e-6.
+interpret mode: moves exactly, PLUS folds within rtol 1e-6.  The
+library call chip_smoke times beside the moving kernels (one torch.take
+at testing.take_index's index) must equal the JAX functions too.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import pygraphblas_tpu.io.native as jnative
 from pygraphblas_tpu.core import perm as jperm
 from pygraphblas_tpu_torch import _native
 from pygraphblas_tpu_torch.core import perm as tperm
+from pygraphblas_tpu_torch.testing import take_index, take_source
 
 
 def test_choose_shape_equal():
@@ -227,3 +230,77 @@ def test_native_route_mid_pass_plans(n, K):
     f = np.concatenate([f, np.zeros(-len(f) % 1024, np.float32)])
     want = f.reshape(-1, 8, 128).max(axis=1).reshape(-1)
     assert np.array_equal(folded.numpy()[:want.size], want)
+
+
+def _take(plain, x, fill=0):
+    """One torch.take at the recipe's premade index (testing.take_index)
+    in place of `plain` on x."""
+    idx = take_index(plain, x.shape)
+    return torch.take(take_source(x, fill), idx).reshape(plain(x).shape)
+
+
+@pytest.mark.parametrize("nsub,S", [(64, 1), (40, 3), (4, 124)])
+def test_take_index_mid_pass_matches_jax(nsub, S):
+    """The library call beside kernel 8: torch.take at the index built
+    from _mid_pass_plain over 1..n equals the JAX function on the CPU."""
+    rng = np.random.RandomState(nsub + S)
+    x = _rand(rng, (nsub, S, 128), np.float32)
+    a = rng.randint(0, 128, (nsub * S, 128)).astype(np.int8)
+    c = rng.randint(0, 128, (nsub * S, 128)).astype(np.int8)
+    ssel = (rng.randint(0, S, (nsub, S, 128)).astype(np.int8)
+            if S > 1 else None)
+    want = np.asarray(jperm._mid_pass(
+        jnp.asarray(x), jnp.asarray(a),
+        None if ssel is None else jnp.asarray(ssel), jnp.asarray(c), S))
+    T = lambda v: None if v is None else torch.from_numpy(v)
+    got = _take(lambda v: tperm._mid_pass_plain(v, T(a), T(ssel), T(c)),
+                T(x))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_take_index_mid_pass_select_out_of_range():
+    """A select outside [0, S) gives 0 in the plain version (as in the
+    TPU and CUDA kernels), and the recipe maps it to the pad cell."""
+    rng = np.random.RandomState(5)
+    nsub, S = 6, 3
+    x = torch.from_numpy(_rand(rng, (nsub, S, 128), np.int32))
+    a, c = (torch.from_numpy(rng.randint(0, 128, (nsub * S, 128))
+                             .astype(np.int8)) for _ in range(2))
+    ssel = torch.from_numpy(rng.randint(-4, S + 4, (nsub, S, 128))
+                            .astype(np.int8))
+    plain = lambda v: tperm._mid_pass_plain(v, a, ssel, c)
+    want = plain(x)
+    cl = c.long().reshape(nsub, S, 128)
+    dead = ~torch.gather((ssel >= 0) & (ssel < S), 2, cl)
+    assert bool(dead.any()) and bool((want[dead] == 0).all())
+    assert torch.equal(_take(plain, x), want)
+
+
+@pytest.mark.parametrize("kernel", ["tdesc", "tasc", "inner3"])
+def test_take_index_matches_interpret(kernel, interpret):
+    """The library call beside kernels 5, 6 (without the fold) and 7:
+    torch.take at the index built from the port's plain version equals
+    the JAX Pallas kernel in interpret mode."""
+    rng = np.random.RandomState(11)
+    if kernel == "inner3":
+        g, S = 2, 3
+        x = _rand(rng, (g * S * 128, 128), np.int32)
+        ix = [rng.randint(0, 128, (g * S * 128, 128)).astype(np.int8)
+              for _ in range(4)]
+        ssel = rng.randint(0, S, (g * 128, S, 128)).astype(np.int8)
+        want = jperm._inner3(*map(jnp.asarray, (x, ix[0], ix[1], ssel,
+                                                ix[2], ix[3])), g, S)
+        T = [torch.from_numpy(v) for v in (ix[0], ix[1], ssel, ix[2],
+                                           ix[3])]
+        plain = lambda v: tperm._inner3_plain(v, *T, g, S)
+    else:
+        g, r_l = 1, 2 * 128
+        x = _rand(rng, (g * r_l, 128), np.float32)
+        idx = rng.randint(0, 128, (g * r_l, 128)).astype(np.int8)
+        jfn = jperm._lane_gather_tdesc if kernel == "tdesc" else \
+            jperm._lane_gather_tasc
+        want = jfn(jnp.asarray(x), jnp.asarray(idx), g, r_l)
+        pfn = tperm._tdesc_plain if kernel == "tdesc" else tperm._tasc_plain
+        plain = lambda v: pfn(v, torch.from_numpy(idx), g, r_l)
+    got = _take(plain, torch.from_numpy(x))
+    assert np.array_equal(got.numpy(), np.asarray(want))
