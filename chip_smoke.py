@@ -56,16 +56,24 @@ Phases, in order; any failure exits non-zero:
      S = 124, lane_gather_tasc without the fold at bfs18, and pair_count
      at tc16, too); the redesigned kernels (inner3 at pr20 and pr21,
      pair_count at tc18, mono_cascade and lane_gather_tasc at pr20,
-     segfold at esc14, mid_pass at bfs18 and bc16) log their time beside
-     their earlier design's (EARLIER_MS: constants copied from PERF.md,
-     kept with this run's times in chip_smoke_checks.json, not in the
-     kernels line);
+     segfold at esc14, mid_pass at bfs18 and bc16, pair_fold at val16,
+     mono_rows at pr21) log their time beside their earlier design's
+     (EARLIER_MS: constants copied from PERF.md, kept with this run's
+     times in chip_smoke_checks.json, not in the kernels line);
+     pair_fold's check rows hold each val16 bucket's time, and
+     pair_count, timed on the same buckets, is its yardstick (a log
+     line and check rows of path "val16_yardstick"); each mono_rows
+     launch logs its plan's shape (S, blk, xb, max_w, dm dtype);
   4. small MIN/MAX-fold, mul and int32 cases of every kernel, inner3 at
      S = 1, 3, 9, 18 and 24 in both dtypes, lane_gather_tasc at one
      tile, several groups and several tiles a group with every fold op
      (rows of 128 indices equal mod 32 among them), the cascade on runs
      of every length class of its kernel (pygraphblas_tpu_torch.testing),
-     pair_count on hand-made edge lists, and _lane_gather (which no path
+     pair_count on hand-made edge lists, pair_fold on the same lists
+     with values (FP32 PLUS_TIMES and MAX_RDIV, INT32 MIN_PLUS and
+     PLUS_MINUS), mono_rows on hand-made plans (streamed and resident,
+     int16 and int32 dm, every fold, with mul and without, both
+     dtypes), and _lane_gather (which no path
      reaches) at kron-18's level-0 shape beside torch.gather; then the
      repairs: a MonoPlan with ok == False, and int64 and float64 values
      into every gather and permutation wrapper, each giving its plain
@@ -172,7 +180,10 @@ TIMED = {"mono_span": "pr20", "mono_cascade": "pr20", "mono_rows": "pr21",
 # binary-searching the longer list, mono_cascade a cooperative kernel of
 # flag-waiting tiles over every level's plan, lane_gather_tasc one tile
 # a block, segfold one 2048-value tile a block (the sum of esc14's four
-# scans), mid_pass whole tiles staged by 4- and 1-byte loads; (ms, how it
+# scans), mid_pass whole tiles staged by 4- and 1-byte loads, pair_fold
+# one warp an edge binary-searching the longer list (the sum of val16's
+# buckets), mono_rows one thread a lane with a 64-bit division a cell;
+# (ms, how it
 # was taken) at a path's shapes: "events" as "ms" here, "in path" from
 # the path's profile
 EARLIER_MS = {("inner3", "pr20"): (0.2760, "events"),
@@ -182,7 +193,9 @@ EARLIER_MS = {("inner3", "pr20"): (0.2760, "events"),
               ("lane_gather_tasc", "pr20"): (0.0639, "events"),
               ("segfold", "esc14"): (1.6443, "events"),
               ("mid_pass", "bfs18"): (0.0468, "events"),
-              ("mid_pass", "bc16"): (0.0161, "events")}
+              ("mid_pass", "bc16"): (0.0161, "events"),
+              ("pair_fold", "val16"): (0.4956, "events"),
+              ("mono_rows", "pr21"): (0.0534, "events")}
 # (kernel, path) -> this run's ms beside the earlier design's
 redesigned = {}
 
@@ -226,7 +239,9 @@ _SYMBOLS = {"mono_span_kernel": "mono_span",
             "mid_pass_kernel": "mid_pass", "fill_keys_kernel": "fill_keys",
             "pair_count_kernel": "pair_count",
             "pair_count_short_kernel": "pair_count",
-            "pair_fold_kernel": "pair_fold", "segfold_kernel": "segfold",
+            "pair_fold_kernel": "pair_fold",
+            "pair_fold_search_kernel": "pair_fold",
+            "pair_fold_warp_kernel": "pair_fold", "segfold_kernel": "segfold",
             "esc_gather_kernel": "esc_gather"}
 
 
@@ -429,13 +444,23 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
         take = ("none: the launch folds 8 rows" if fold else
                 "none: the launch multiplies" if "mul" in kw else
                 (lambda ids: M.mono_gather_plain(mp, ids, 0), src, fill))
-        return ck.run(name, path, case,
-                      lambda: kfn(mp, src, fill, **kw),
-                      lambda: M.mono_gather_plain(mp, src, fill, **kw),
-                      mono_bytes(mp, src.numel(), fold, "mul" in kw),
-                      ops=(mp.S // 8 * 128 * 7 if fold else 0)
-                      + (mp.S * 128 if "mul" in kw else 0),
-                      timed=name in timed, take=take)
+        out = ck.run(name, path, case,
+                     lambda: kfn(mp, src, fill, **kw),
+                     lambda: M.mono_gather_plain(mp, src, fill, **kw),
+                     mono_bytes(mp, src.numel(), fold, "mul" in kw),
+                     ops=(mp.S // 8 * 128 * 7 if fold else 0)
+                     + (mp.S * 128 if "mul" in kw else 0),
+                     timed=name in timed, take=take)
+        if name == "mono_rows":
+            row = ck.rows[-1]
+            row["plan"] = dict(S=mp.S, blk=mp.blk, xb=mp.xb, max_w=mp.max_w,
+                               dm=str(mp.dm.dtype).replace("torch.", ""),
+                               stream=mp.stream)
+            log(f"  mono_rows {path} {case} plan: " + " ".join(
+                f"{k}={v}" for k, v in row["plan"].items()))
+            if "ms" in row and (name, path) in EARLIER_MS:
+                earlier(path, name, row["ms"])
+        return out
 
     xc = gather("pre", plan.pre, x).reshape(-1)
     if mul == "SECOND":
@@ -794,6 +819,8 @@ def plan_for(A, transpose, tag):
                         for i, lp in enumerate(plan.levels)]
                      + [("place", plan.places[0])]):
         log(f"    {name:8s} S={mp.S} src_n={mp.src_n} wva={mp.wva} "
+            f"blk={mp.blk} xb={mp.xb} max_w={mp.max_w} "
+            f"dm={str(mp.dm.dtype).replace('torch.', '')} "
             f"stream={mp.stream} ok={mp.ok}")
     return plan
 
@@ -1353,6 +1380,77 @@ def check_pair_count_cases(torch, ck):
                lambda: SG._pair_count_plain(a, b, ast, wa, bst, wb, w), 0)
 
 
+def check_pair_fold_cases(torch, ck):
+    """pair_fold against its plain version on the hand-made edge lists of
+    testing.pair_fold_case (pair_count's kinds, with values), through
+    each of its kernels: FP32 PLUS_TIMES (rtol 1e-5) and MAX_RDIV, INT32
+    MIN_PLUS and PLUS_MINUS (exact)."""
+    from pygraphblas_tpu_torch.core import spgemm as SG
+    from pygraphblas_tpu_torch.testing import PAIR_COUNT_CASES, pair_fold_case
+
+    rule = SG._RUNS_WIDTH, SG._RUNS_EDGES
+    try:
+        for path, moved in (("search", (1, 1 << 40)), ("runs", (0, 0))):
+            # the rule moved so that every case takes this kernel
+            SG._RUNS_WIDTH, SG._RUNS_EDGES = moved
+            for kind in PAIR_COUNT_CASES:
+                for dt, sems in ((np.float32, (("PLUS", "TIMES"),
+                                               ("MAX", "RDIV"))),
+                                 (np.int32, (("MIN", "PLUS"),
+                                             ("PLUS", "MINUS")))):
+                    *arrs, w = pair_fold_case(kind, dt)
+                    a, av, b, bv, ast, wa, bst, wb = (
+                        torch.from_numpy(x).cuda() for x in arrs)
+                    for add, mul in sems:
+                        ck.run("pair_fold", "cases",
+                               f"{path} {kind} W={w} {add}_{mul} "
+                               f"{np.dtype(dt).name}",
+                               lambda: SG.pair_fold(a, av, b, bv, ast, wa,
+                                                    bst, wb, w, mul, add),
+                               lambda: SG._pair_fold_plain(
+                                   a, av, b, bv, ast, wa, bst, wb, w, mul,
+                                   add), 0,
+                               rtol=1e-5 if (add, dt) == ("PLUS", np.float32)
+                               else None)
+    finally:
+        SG._RUNS_WIDTH, SG._RUNS_EDGES = rule
+
+
+def check_mono_rows_cases(torch, ck):
+    """mono_rows against its plain version on testing.mono_rows_case's
+    plans, on every route: float32 and int32, no fold or a PLUS, MIN or
+    MAX fold, with mul or without."""
+    from pygraphblas_tpu_torch.core import mono as M
+    from pygraphblas_tpu_torch.testing import MONO_ROWS_CASES, mono_rows_case
+
+    rng = np.random.RandomState(4)
+    saved = M._SPAN_MAX_WVA
+    M._SPAN_MAX_WVA = 0
+    try:
+        plans = {k: M.MonoPlan.build(*mono_rows_case(k)).to("cuda")
+                 for k in MONO_ROWS_CASES}
+    finally:
+        M._SPAN_MAX_WVA = saved
+    for kind, mp in plans.items():
+        assert mp.wva == 0 and mp.ok
+        for dt in (torch.float32, torch.int32):
+            src = torch.from_numpy(rng.randint(-99, 99, mp.src_n)).to(
+                "cuda", dt)
+            vals = torch.from_numpy(rng.randint(1, 9, mp.S * 128)).to(
+                "cuda", dt)
+            for kw, fill in (({}, 0), ({"fold": "PLUS"}, 0),
+                             ({"fold": "MIN"}, 999), ({"fold": "MAX"}, -99),
+                             ({"mul": "TIMES"}, 0),
+                             ({"mul": "PLUS", "fold": "MIN"}, 999)):
+                if "mul" in kw:
+                    kw = dict(kw, vals=vals)
+                ck.run("mono_rows", "cases",
+                       f"{kind} {str(dt)[6:]} "
+                       f"{kw.get('mul', '-')}/{kw.get('fold', '-')}",
+                       lambda: M.mono_rows(mp, src, fill, **kw),
+                       lambda: M.mono_gather_plain(mp, src, fill, **kw), 0)
+
+
 def check_fill_keys(torch, ck, bk, path):
     """fill_keys against its plain version on every chunk of every width
     bucket (the launches of the unfused chain), timed over each bucket's
@@ -1398,14 +1496,45 @@ def check_pair_fold(ck, bk, path):
         for add, mul, dt, rtol in (("PLUS", "TIMES", np.float32, 1e-5),
                                    ("MIN", "PLUS", np.int32, None)):
             av, bv = bk.vals[dt]
-            ck.run("pair_fold", path,
-                   f"W={w} E={b['n']} {add}_{mul} {np.dtype(dt).name}",
-                   lambda: SG.pair_fold(bk.a, av, bk.b, bv, *m, w, mul, add),
-                   lambda: SG._pair_fold_plain(bk.a, av, bk.b, bv, *m, w,
-                                               mul, add),
-                   2 * bk.id_bytes(b) + 24 * b["n"], ops=b["compares"],
-                   timed=rtol is not None, rtol=rtol,
-                   ops_per_s=INT32_OPS_PER_S)
+            cnt = ck.run("pair_fold", path,
+                         f"W={w} E={b['n']} {add}_{mul} {np.dtype(dt).name}",
+                         lambda: SG.pair_fold(bk.a, av, bk.b, bv, *m, w, mul,
+                                              add),
+                         lambda: SG._pair_fold_plain(bk.a, av, bk.b, bv, *m,
+                                                     w, mul, add),
+                         2 * bk.id_bytes(b) + 24 * b["n"],
+                         ops=b["compares"], timed=rtol is not None,
+                         rtol=rtol, ops_per_s=INT32_OPS_PER_S)
+            # the kernel the rule picks; the matches against the probes
+            # (one a shorter-list id)
+            ck.rows[-1].update(kernel_path=SG.fold_path(w, b["n"]),
+                               matches=int(cnt.sum()), probes=b["probes"])
+    rows = [c for c in ck.rows if c["kernel"] == "pair_fold"
+            and c["path"] == path and c["timed"]]
+    fold_ms = sum(c["ms"] for c in rows)
+    if ("pair_fold", path) in EARLIER_MS:
+        earlier(path, "pair_fold", fold_ms)
+    # the yardstick: pair_count's time for the same intersections without
+    # the values (checked against its plain version first; its rows are
+    # not pair_count's timed path, so not in the kernels line)
+    yard = 0.0
+    for b in bk.buckets:
+        w, m = b["w"], b["meta"]
+        ck.run("pair_count", path + "_yardstick", f"W={w} E={b['n']}",
+               lambda: SG.pair_count(bk.a, bk.b, *m, w),
+               lambda: SG._pair_count_plain(bk.a, bk.b, *m, w),
+               bk.id_bytes(b) + 20 * b["n"], ops=b["probes"],
+               ops_per_s=INT32_OPS_PER_S)
+        ms = event_ms(ck.torch, lambda: SG.pair_count(bk.a, bk.b, *m, w),
+                      ck.reps)
+        ck.rows[-1]["yardstick_ms"] = ms
+        yard += ms
+    log(f"  yardstick: pair_count at {path} {yard:.4f} ms over "
+        f"{len(bk.buckets)} buckets; pair_fold {fold_ms:.4f} ms, "
+        f"{fold_ms / yard:.2f}x it; per bucket (W: pair_fold, pair_count) "
+        + ", ".join(f"{y['case'].split()[0]} {c['ms']:.4f}/"
+                    f"{y['yardstick_ms']:.4f}"
+                    for c, y in zip(rows, ck.rows[-len(bk.buckets):])))
 
 
 def with_env(name, value, run):
@@ -2158,6 +2287,8 @@ def main():
     log("small cases:")
     check_small_cases(torch, ck)
     check_pair_count_cases(torch, ck)
+    check_pair_fold_cases(torch, ck)
+    check_mono_rows_cases(torch, ck)
     repairs = check_repairs(torch)
     phase_s["small"] = time.perf_counter() - t0
 

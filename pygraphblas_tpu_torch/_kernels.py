@@ -130,7 +130,8 @@ def lib():
         L.pgb_fill_keys.argtypes = [p, i64, p, i64, p, p, p, p, p, i64, i32,
                                     p]
         L.pgb_pair_fold.argtypes = [p, p, i64, p, p, i64, p, p, p, p, p, p,
-                                    i64, i32, i32, i32, ctypes.c_uint32, p]
+                                    i64, i32, i32, i32, i32, i32,
+                                    ctypes.c_uint32, p]
         L.pgb_segfold.argtypes = [p, p, p, i64, i32, i32, p,
                                   ctypes.c_uint32, p, p]
         L.pgb_segfold_tiles.argtypes = [i64]

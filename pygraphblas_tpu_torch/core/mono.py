@@ -303,6 +303,12 @@ def mono_rows(plan, src, fill, vals=None, mul=None, fold=None):
         raise ValueError(f"{name}: needs a per-row plan with ok == True")
     if plan.dm.dtype not in (torch.int16, torch.int32):
         raise ValueError(f"{name}: dm must be int16 or int32")
+    # the kernel reads dm and vals, and writes out, in 16-byte words
+    if plan.dm.data_ptr() % 16:
+        raise ValueError(f"{name}: the plan's dm is not 16-byte aligned")
+    if vp is not None and vp % 16:
+        vals = vals.reshape(-1).to(src.dtype).clone()
+        vp = vals.data_ptr()
     rc = _kernels.lib().pgb_mono_rows(
         plan.q0.data_ptr(), plan.dm.data_ptr(), plan.dm.element_size(),
         xblk.data_ptr() if xblk is not None else None, plan.xb, plan.blk,

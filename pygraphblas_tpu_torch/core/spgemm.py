@@ -20,8 +20,9 @@ Kernels (``csrc/spgemm.cu``), each beside its plain PyTorch version:
     the same intersect with ``mul(a, b)`` at each match, folded per edge
     with the add monoid (4-byte values), one launch per width bucket.
 Their plain versions build the TPU kernels' key rows and sort them:
-an algorithm apart from the kernels', which search.  The generic
-intersect (spgemm.py:684-771, XLA in the JAX package) is torch ops here.
+an algorithm apart from the kernels', which search and probe bitmaps.
+The generic intersect (spgemm.py:684-771, XLA in the JAX package) is
+torch ops here.
 
 The fused paths run where the JAX package's would on a TPU, with "the
 device is ``cuda``" (``_fast_paths``) in place of the TPU backend test.
@@ -298,12 +299,28 @@ def fill_keys(a_cols, b_cols, a_st, wa, b_st, wb, width):
     return out
 
 
+# pair_fold's path rule (csrc/spgemm.cu, the note above its kernels): a
+# bucket of width _RUNS_WIDTH or more with _RUNS_EDGES edges or more
+# takes the runs kernel, the others the search kernel
+_RUNS_WIDTH = 1024
+_RUNS_EDGES = 32768
+
+
+def fold_path(width, n_edges):
+    """pair_fold's kernel for a bucket of `n_edges` edges of `width`:
+    "runs" or "search".  Reads only the bucket's shape, before launch."""
+    return ("runs" if width >= _RUNS_WIDTH and n_edges >= _RUNS_EDGES
+            else "search")
+
+
 def pair_fold(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb, width,
               mul, add):
     """Kernel 11: per mask edge, the match count (int32) and the fold
     with add monoid `add` of ``mul(a_val, b_val)`` over the matches (the
     monoid's identity where none); values float32 or int32, op names of
-    ``semiring.MULS`` / ``ADDS``."""
+    ``semiring.MULS`` / ``ADDS``.  `width` (the bucket's, >= wa + wb)
+    shapes the plain version's key rows; with the edge count it picks
+    the kernel (``fold_path``) and its lanes per edge."""
     if a_cols.device.type == "cpu":
         return _pair_fold_plain(a_cols, a_vals, b_cols, b_vals, a_st, wa,
                                 b_st, wb, width, mul, add)
@@ -323,8 +340,9 @@ def pair_fold(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb, width,
         a_cols.data_ptr(), a_vals.data_ptr(), a_cols.numel(),
         b_cols.data_ptr(), b_vals.data_ptr(), b_cols.numel(), a_st.data_ptr(),
         wa.data_ptr(), b_st.data_ptr(), wb.data_ptr(), cnt.data_ptr(),
-        vals.data_ptr(), E, code,
-        MULS[mul][1], ADDS[add][1], _kernels.fill_bits(ident, a_vals.dtype),
+        vals.data_ptr(), E, int(width), int(fold_path(width, E) == "runs"),
+        code, MULS[mul][1], ADDS[add][1],
+        _kernels.fill_bits(ident, a_vals.dtype),
         _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)

@@ -127,6 +127,79 @@ def pair_count_case(kind):
                      (a_starts[ia], wa, b_starts[ib], wb)] + [W]
 
 
+def pair_fold_case(kind, dtype=np.float32):
+    """pair_count_case(kind) with values: (a, av, b, bv, ast, wa, bst, wb,
+    width), numpy arrays.  Values are made from a seed: float32 in
+    [0.5, 4.5) (no zero divisor), int32 in [-9, 9]."""
+    a, b, ast, wa, bst, wb, width = pair_count_case(kind)
+    rng = np.random.RandomState(7 + len(kind))
+
+    def vals(n):
+        if np.dtype(dtype) == np.float32:
+            return (rng.rand(n) * 4 + 0.5).astype(np.float32)
+        return rng.randint(-9, 10, n).astype(np.int32)
+
+    return a, vals(len(a)), b, vals(len(b)), ast, wa, bst, wb, width
+
+
+# mono_rows' hand-made index vectors, by kind: the plan each must build
+# (per-row encoding: build with core/mono.py's _SPAN_MAX_WVA at 0)
+MONO_ROWS_CASES = {
+    "stream_straddle": dict(stream=True, dm="int16"),
+    "stream_int32": dict(stream=True, dm="int32"),
+    "wide_rows": dict(stream=False, dm="int16"),
+    "empty_groups": dict(stream=False, dm="int16"),
+    "few_groups": dict(stream=False, dm="int16"),
+    "resident_int32": dict(stream=False, dm="int32"),
+}
+
+
+def mono_rows_case(kind):
+    """A non-decreasing gather index (-1: invalid) and its source length
+    for mono_rows (MONO_ROWS_CASES): a streamed plan whose row blocks'
+    windows straddle two source blocks of xb rows; a streamed plan with
+    int32 dm (one row spreads its 128 ids over 40,000 cells); rows each
+    spanning several 128-cell windows; whole 8-row groups of invalid
+    lanes between valid ones; one block of 64 rows (8 groups: fewer than
+    a block of the kernel takes); and a resident plan with int32 dm."""
+    rng = np.random.RandomState(31 + len(kind))
+
+    def sorted_ids(n, lo, hi):
+        return np.sort(rng.randint(lo, hi, n))
+
+    if kind == "stream_straddle":
+        src_n = 3_000_000
+        idx = sorted_ids(3 * 64 * 128, 0, 1_500_000)
+        idx[::13] = -1
+    elif kind == "stream_int32":
+        src_n = 3_000_000
+        idx = sorted_ids(2 * 64 * 128, 0, 1_000_000)
+        wide = np.sort(rng.choice(40_000, 128, replace=False))
+        idx[64 * 128:65 * 128] = idx[64 * 128 - 1] + wide
+        idx[65 * 128:] = np.sort(idx[65 * 128:]) + 40_000
+        idx[::17] = -1
+    elif kind == "wide_rows":
+        src_n = 200_000
+        idx = sorted_ids(64 * 128, 0, src_n)        # ~3 windows a row
+        idx[::5] = -1
+    elif kind == "empty_groups":
+        src_n = 40_000
+        idx = sorted_ids(4 * 64 * 128, 0, src_n)
+        for g in (0, 3, 4, 17, 31):                 # groups of 1024 lanes
+            idx[g * 1024:(g + 1) * 1024] = -1
+    elif kind == "few_groups":
+        src_n = 9000
+        idx = sorted_ids(5000, 0, src_n)
+        idx[::3] = -1
+    elif kind == "resident_int32":
+        src_n = 2_500_000
+        idx = sorted_ids(64 * 128, 0, src_n)
+        idx[::7] = -1
+    else:
+        raise ValueError(kind)
+    return idx.astype(np.int64), src_n
+
+
 def cascade_runs_case():
     """Rows for the fold cascade's kernel (core/mono.py:fold_plans takes
     them): (nrows, present rows, level-0 run lengths).  Runs of 1, 8, 9

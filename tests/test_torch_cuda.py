@@ -13,8 +13,9 @@ from pygraphblas_tpu_torch import (_kernels, algorithms, fused, generators,
                                    options_set, types)
 from pygraphblas_tpu_torch.core import (esc, gustavson, mono, perm, scan,
                                         spgemm, xspmv)
-from pygraphblas_tpu_torch.testing import (PAIR_COUNT_CASES,
-                                           cascade_runs_case, pair_count_case)
+from pygraphblas_tpu_torch.testing import (MONO_ROWS_CASES, PAIR_COUNT_CASES,
+                                           cascade_runs_case, mono_rows_case,
+                                           pair_count_case, pair_fold_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -270,6 +271,35 @@ def test_mono_rows_kernel(card, kw, route, dtype, monkeypatch):
     assert _kernels.launches["mono_rows"] == 1
     want = mono.mono_gather_plain(plan, src, fill, **kw)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", list(MONO_ROWS_CASES))
+@pytest.mark.parametrize("kw", [{}, {"fold": "PLUS"}, {"fold": "MIN"},
+                                {"fold": "MAX"}, {"mul": "TIMES"},
+                                {"mul": "PLUS", "fold": "MIN"}])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_mono_rows_kernel_cases(card, kind, kw, dtype, monkeypatch):
+    """mono_rows on testing.mono_rows_case's plans (streamed blocks that
+    straddle two source blocks, int32 dm streamed and resident, rows
+    over several windows, invalid groups, fewer groups than a block):
+    one launch, equal to the plain version."""
+    monkeypatch.setattr(mono, "_SPAN_MAX_WVA", 0)
+    idx, src_n = mono_rows_case(kind)
+    plan = mono.MonoPlan.build(idx, src_n).to(card)
+    assert plan.wva == 0 and plan.ok
+    assert plan.stream == MONO_ROWS_CASES[kind]["stream"]
+    rng = np.random.RandomState(len(kind))
+    src = torch.from_numpy(rng.randint(-99, 99, src_n)).to(card, dtype)
+    kw = dict(kw)
+    if "mul" in kw:
+        kw["vals"] = torch.from_numpy(
+            rng.randint(1, 9, plan.S * 128)).to(card, dtype)
+    fill = {"MIN": 999, "MAX": -99}.get(kw.get("fold"), 0)
+    _kernels.reset_launches()
+    got = mono.mono_gather(plan, src, fill, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["mono_rows"] == 1
+    assert torch.equal(got, mono.mono_gather_plain(plan, src, fill, **kw))
 
 
 def _cascade_plan(card, seed=3):
@@ -562,6 +592,38 @@ def test_pair_count_kernel_cases(card, kind):
 @pytest.mark.parametrize("W", [128, 4096])
 def test_pair_fold_kernel(card, W, add, mul, vdt):
     a, b, ast, wa, bst, wb, av, bv = _intersect_inputs(card, W, W + 1, vdt)
+    _kernels.reset_launches()
+    cnt, vals = spgemm.pair_fold(a, av, b, bv, ast, wa, bst, wb, W, mul, add)
+    torch.cuda.synchronize()
+    assert _kernels.launches["pair_fold"] == 1
+    wcnt, wvals = spgemm._pair_fold_plain(a, av, b, bv, ast, wa, bst, wb, W,
+                                          mul, add)
+    assert torch.equal(cnt, wcnt)
+    if vdt == np.float32 and add == "PLUS":
+        assert torch.allclose(vals, wvals, rtol=1e-5)
+    else:
+        assert torch.equal(vals, wvals)
+
+
+@pytest.mark.parametrize("add,mul,vdt", [("PLUS", "TIMES", np.float32),
+                                         ("MIN", "PLUS", np.int32),
+                                         ("PLUS", "MINUS", np.int32),
+                                         ("MAX", "RDIV", np.float32)])
+@pytest.mark.parametrize("kind", PAIR_COUNT_CASES)
+@pytest.mark.parametrize("path", ["search", "runs"])
+def test_pair_fold_kernel_cases(card, kind, add, mul, vdt, path,
+                                monkeypatch):
+    """pair_fold on testing.pair_fold_case's edge lists (pair_count's
+    runs, with values), through each kernel (the rule moved so that the
+    case takes it): one launch; counts exact, values exact but float32
+    PLUS (within rtol 1e-5: another fold order)."""
+    monkeypatch.setattr(spgemm, "_RUNS_WIDTH", 0 if path == "runs" else 1)
+    monkeypatch.setattr(spgemm, "_RUNS_EDGES", 0 if path == "runs"
+                        else 1 << 40)
+    a, av, b, bv, ast, wa, bst, wb, W = (
+        torch.from_numpy(x).to(card) if isinstance(x, np.ndarray) else x
+        for x in pair_fold_case(kind, vdt))
+    assert spgemm.fold_path(W, ast.numel()) == path
     _kernels.reset_launches()
     cnt, vals = spgemm.pair_fold(a, av, b, bv, ast, wa, bst, wb, W, mul, add)
     torch.cuda.synchronize()

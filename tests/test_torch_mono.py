@@ -18,7 +18,8 @@ from pygraphblas_tpu.core import mono as jmono
 from pygraphblas_tpu_torch import _kernels
 from pygraphblas_tpu_torch.core import mono as tmono
 from pygraphblas_tpu_torch.semiring import ADDS
-from pygraphblas_tpu_torch.testing import cascade_runs_case
+from pygraphblas_tpu_torch.testing import (MONO_ROWS_CASES, cascade_runs_case,
+                                           mono_rows_case)
 
 ARRAYS = ("q0", "dm", "qg", "xblk")
 STATIC = ("S", "blk", "src_n", "src_rows", "max_w", "stream", "xb",
@@ -185,6 +186,65 @@ def test_rows_plain_matches_pallas_interpret(route, mode, monkeypatch):
         jkw = dict(vals=jnp.asarray(vals), mul=_J_MUL[op])
         tkw = dict(vals=torch.from_numpy(vals), mul=op)
     elif kind == "fold":
+        jkw = dict(fold=_J_FOLD[op])
+        tkw = dict(fold=op)
+    monkeypatch.setattr(jmono, "_FORCE_INTERPRET", True)
+    want = np.asarray(jmono.mono_gather(plan_j, jnp.asarray(src), fill,
+                                        **jkw))
+    got = tmono.mono_rows(plan_t, torch.from_numpy(src), fill, **tkw)
+    if mode == "fold:PLUS":
+        assert np.allclose(got.numpy(), want, rtol=1e-6)
+    else:
+        assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", list(MONO_ROWS_CASES))
+@pytest.mark.parametrize("mode,dtype", [
+    ("plain", np.float32), ("mul:TIMES", np.float32),
+    ("fold:PLUS", np.float32), ("fold:MIN", np.int32)])
+def test_rows_cases_plain_match_pallas_interpret(kind, mode, dtype,
+                                                 monkeypatch):
+    """mono_rows' hand-made index vectors (testing.mono_rows_case): each
+    builds the plan its kind names (streamed or resident, int16 or int32
+    dm; a row block straddling two source blocks; whole groups invalid;
+    fewer groups than a block of the kernel), and the port's mono_rows
+    on CPU tensors equals _mono_pallas in interpret mode."""
+    monkeypatch.setattr(jmono, "_SPAN_MAX_WVA", 0)
+    monkeypatch.setattr(tmono, "_SPAN_MAX_WVA", 0)
+    idx, src_n = mono_rows_case(kind)
+    plan_j = jmono.MonoPlan.build(idx, src_n)
+    plan_t = tmono.MonoPlan.build(idx, src_n).to("cpu")
+    want_plan = MONO_ROWS_CASES[kind]
+    assert plan_j.wva == 0 and plan_j.ok
+    assert plan_t.stream == plan_j.stream == want_plan["stream"]
+    assert str(plan_t.dm.dtype) == "torch." + want_plan["dm"]
+    dm = np.asarray(plan_j.dm)
+    if kind == "stream_straddle":
+        nb = plan_j.S // plan_j.blk
+        q = (np.asarray(plan_j.q0, np.int64) + np.repeat(
+            np.asarray(plan_j.xblk, np.int64) * plan_j.xb, plan_j.blk))
+        lo = q.reshape(nb, plan_j.blk).min(1)
+        hi = (q + dm.max(1) // 128 + 1).reshape(nb, plan_j.blk).max(1)
+        assert ((lo // plan_j.xb) != (hi - 1) // plan_j.xb).any()
+    if kind == "wide_rows":
+        assert plan_j.max_w >= 8
+    if kind == "empty_groups":
+        assert (dm.reshape(-1, 8 * 128) < 0).all(1).sum() >= 5
+    if kind == "few_groups":
+        assert plan_j.S // 8 == 8
+    rng = np.random.RandomState(len(kind))
+    if dtype == np.float32:
+        src = rng.rand(src_n).astype(dtype)
+    else:
+        src = rng.randint(-1000, 1000, src_n).astype(dtype)
+    vals = rng.randint(1, 5, plan_j.S * 128).astype(dtype)
+    kind_, _, op = mode.partition(":")
+    fill = dtype(np.iinfo(dtype).max if op == "MIN" else 0)
+    jkw, tkw = {}, {}
+    if kind_ == "mul":
+        jkw = dict(vals=jnp.asarray(vals), mul=_J_MUL[op])
+        tkw = dict(vals=torch.from_numpy(vals), mul=op)
+    elif kind_ == "fold":
         jkw = dict(fold=_J_FOLD[op])
         tkw = dict(fold=op)
     monkeypatch.setattr(jmono, "_FORCE_INTERPRET", True)

@@ -20,7 +20,9 @@ from pygraphblas_tpu.core import coosparse as jcoo, sparse as jsparse
 from pygraphblas_tpu.core import spgemm as jsg
 from pygraphblas_tpu_torch import types
 from pygraphblas_tpu_torch.core import coosparse, sparse, spgemm
-from pygraphblas_tpu_torch.testing import PAIR_COUNT_CASES, pair_count_case
+from pygraphblas_tpu_torch.semiring import ADDS, MULS
+from pygraphblas_tpu_torch.testing import (PAIR_COUNT_CASES, pair_count_case,
+                                           pair_fold_case)
 
 E = 64
 NNZ = 1 << 12
@@ -143,6 +145,79 @@ def test_pair_fold_plain_matches_pallas(sem, dt, monkeypatch):
         np.testing.assert_allclose(vals.numpy(), np.asarray(jv), rtol=1e-5)
     else:
         assert np.array_equal(vals.numpy(), np.asarray(jv))
+
+
+def _fold_oracle(a, av, b, bv, ast, wa, bst, wb, mul, add, dt):
+    """Per edge: np.intersect1d with indices, mul(A's value, B's value) at
+    the common ids, folded in id order from the monoid's identity."""
+    mulf, foldf = MULS[mul][0], ADDS[add][0]
+    ident = spgemm.identity(add, np.dtype(dt))
+    cnt, out = [], []
+    for s, n, t, m in zip(ast, wa, bst, wb):
+        _, ia, ib = np.intersect1d(a[s:s + n], b[t:t + m],
+                                   return_indices=True)
+        acc = torch.tensor(ident, dtype=_t(np.zeros(0, dt))[0].dtype)
+        for x in mulf(*_t(av[s + ia], bv[t + ib])):
+            acc = foldf(acc, x)
+        cnt.append(len(ia))
+        out.append(acc.item())
+    return np.array(cnt), np.array(out, dt)
+
+
+def _slab_of(x):
+    """A column or value array as the JAX kernels' (rows, 128) slab with
+    at least 1280 entries of tail padding."""
+    n = -(-(len(x) + 1280) // 128) * 128
+    y = np.zeros(n, x.dtype)
+    y[:len(x)] = x
+    return jnp.asarray(y.reshape(-1, 128))
+
+
+@pytest.mark.parametrize("kind", PAIR_COUNT_CASES)
+@pytest.mark.parametrize("sem,dt", [("PLUS_TIMES", np.float32),
+                                    ("MIN_PLUS", np.int32)])
+def test_pair_fold_cases_plain(kind, sem, dt, monkeypatch):
+    """The hand-made edge lists with values the GPU checks hold pair_fold
+    to: the plain version on CPU tensors equals a numpy oracle (counts
+    and INT32 MIN_PLUS exactly, FP32 PLUS_TIMES within rtol 1e-5), and
+    at widths up to 256 JAX's _pallas_fill_merge_fold in interpret
+    mode."""
+    a, av, b, bv, ast, wa, bst, wb, W = pair_fold_case(kind, dt)
+    add, mul = sem.split("_")
+    cnt, vals = spgemm.pair_fold(*_t(a, av, b, bv, ast, wa, bst, wb), W,
+                                 mul, add)
+    wc, wv = _fold_oracle(a, av, b, bv, ast, wa, bst, wb, mul, add, dt)
+    assert np.array_equal(cnt.numpy(), wc)
+    assert (wc.max() == 0) == (kind == "disjoint")
+    if dt == np.float32:
+        np.testing.assert_allclose(vals.numpy(), wv, rtol=1e-5)
+    else:
+        assert np.array_equal(vals.numpy(), wv)
+    if W > 256:
+        return
+    jsem = getattr(jtypes.FP32 if dt == np.float32 else jtypes.INT32,
+                   sem.lower())
+    _interpret(monkeypatch)
+    jc, jv = jsg._pallas_fill_merge_fold(
+        _slab_of(a), _slab_of(av), _slab_of(b), _slab_of(bv),
+        *[jnp.asarray(x) for x in (ast, wa, bst, wb)], W,
+        jsem.mul_op.apply, jsem.add_monoid.binaryop.apply,
+        jsem.add_monoid.identity(dt), dt)
+    assert np.array_equal(cnt.numpy(), np.asarray(jc))
+    if dt == np.float32:
+        np.testing.assert_allclose(vals.numpy(), np.asarray(jv), rtol=1e-5)
+    else:
+        assert np.array_equal(vals.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("width,edges,path", [
+    (128, 10 ** 6, "search"), (256, 10 ** 6, "search"),
+    (512, 10 ** 6, "search"), (1024, 32767, "search"),
+    (1024, 32768, "runs"), (16384, 72229, "runs"), (16384, 9641, "search")])
+def test_fold_path_rule(width, edges, path):
+    """pair_fold's kernel by the bucket's shape: the runs kernel from
+    width 1024 with 32768 edges or more, else the search kernel."""
+    assert spgemm.fold_path(width, edges) == path
 
 
 @pytest.mark.parametrize("hi", [5000, 10 ** 9])
