@@ -46,18 +46,36 @@ Phases, in order; any failure exits non-zero:
               equal to scipy's S @ S; MIN_PLUS with weights 1..255 equal
               to the same product through spgemm_engine="scipy" (scipy's
               pattern, then masked_spgemm's pair_fold on the card);
+       then the algebra (types, ops, monoids and semirings carried into
+       the kernels at every type of 4 bytes or less):
+       sr14   six gustavson.spgemm calls on esc14's graph (ESC, each
+              four segfold launches and one esc_gather): BOOL LOR_LAND
+              (all true) equal to scipy's (A @ A) != 0; INT8 ANY_PAIR to
+              scipy's pattern, values 1; INT16 PLUS_TIMES (weights 1..4)
+              to scipy's product wrapped to int16; UINT8 MIN_PLUS
+              (1..100) and UINT32 BOR_BAND (any 32 bits) to the same
+              call under spgemm_engine="scipy"; INT32 PLUS_DIV (B's
+              values 0..4: x / 0 saturates) to the same call on the CPU;
+       sr16   masked_spgemm on tc16's L with val16's weights, the JAX
+              package's route shown by the counters: BOOL LOR_PAIR
+              launches pair_count, INT16 PLUS_TIMES pair_fold, BOOL
+              LOR_LAND and UINT32 BXOR_PAIR neither (the generic
+              intersect); each equal to scipy;
      before each path, every kernel it runs is held against its plain
      PyTorch version on the card at the path's own shapes (bit-exact,
      but pair_fold's float32 PLUS within rtol 1e-5: another fold order),
      at every width bucket of its call (pair_count at every launch of
      kt14's and kt16's first run too, segfold on each of a call's four
-     scans, esc_gather at every slot), and timed at the shapes of the
+     scans, esc_gather at every slot; before sr14, segfold at every fold
+     code the algebra adds and pair_fold at its new mul and fold codes,
+     testing.SEGFOLD_CODES and PAIR_FOLD_CODES), and timed at the shapes of the
      path named for it in TIMED (and inner3 at pr21, mid_pass at bc16's
      S = 124, lane_gather_tasc without the fold at bfs18, and pair_count
      at tc16, too); the redesigned kernels (inner3 at pr20 and pr21,
      pair_count at tc18, mono_cascade and lane_gather_tasc at pr20,
      segfold at esc14, mid_pass at bfs18 and bc16, pair_fold at val16,
-     mono_rows at pr21) log their time beside their earlier design's
+     mono_rows at pr21, lane_gather alone) log their time beside their
+     earlier design's
      (EARLIER_MS: constants copied from PERF.md, kept with this run's
      times in chip_smoke_checks.json, not in the kernels line);
      pair_fold's check rows hold each val16 bucket's time, and
@@ -73,8 +91,10 @@ Phases, in order; any failure exits non-zero:
      with values (FP32 PLUS_TIMES and MAX_RDIV, INT32 MIN_PLUS and
      PLUS_MINUS), mono_rows on hand-made plans (streamed and resident,
      int16 and int32 dm, every fold, with mul and without, both
-     dtypes), and _lane_gather (which no path
-     reaches) at kron-18's level-0 shape beside torch.gather; then the
+     dtypes), every wrapper at INT8, UINT16, UINT32 and BOOL
+     (testing.wrapper_cases), and _lane_gather (which no path
+     reaches) at kron-18's level-0 shape beside torch.gather, and at 1
+     and 7 rows with the values' top bit set; then the
      repairs: a MonoPlan with ok == False, and int64 and float64 values
      into every gather and permutation wrapper, each giving its plain
      version's answer on the card with no launch;
@@ -182,7 +202,8 @@ TIMED = {"mono_span": "pr20", "mono_cascade": "pr20", "mono_rows": "pr21",
 # a block, segfold one 2048-value tile a block (the sum of esc14's four
 # scans), mid_pass whole tiles staged by 4- and 1-byte loads, pair_fold
 # one warp an edge binary-searching the longer list (the sum of val16's
-# buckets), mono_rows one thread a lane with a 64-bit division a cell;
+# buckets), mono_rows one thread a lane with a 64-bit division a cell,
+# lane_gather one thread a cell (4-byte loads and stores);
 # (ms, how it
 # was taken) at a path's shapes: "events" as "ms" here, "in path" from
 # the path's profile
@@ -195,7 +216,8 @@ EARLIER_MS = {("inner3", "pr20"): (0.2760, "events"),
               ("mid_pass", "bfs18"): (0.0468, "events"),
               ("mid_pass", "bc16"): (0.0161, "events"),
               ("pair_fold", "val16"): (0.4956, "events"),
-              ("mono_rows", "pr21"): (0.0534, "events")}
+              ("mono_rows", "pr21"): (0.0534, "events"),
+              ("lane_gather", "isolated"): (0.0338, "events")}
 # (kernel, path) -> this run's ms beside the earlier design's
 redesigned = {}
 
@@ -222,12 +244,18 @@ EXPECTED_SPGEMM = {
     "tc18": ("pair_count", "bucket"), "kt14": ("pair_count", "bucket"),
     "kt16": ("pair_count", "bucket"), "kt16_chain": ("fill_keys", "chunk"),
     "val16": ("pair_fold", "bucket"),
+    "sr16 LOR_PAIR": ("pair_count", "bucket"),
+    "sr16 PLUS_TIMES": ("pair_fold", "bucket"),
 }
+# the algebra's masked calls that the JAX package's rule sends to its
+# generic intersect (spgemm.py:886-913): no kernel launches
+GENERIC_SPGEMM = ("sr16 LOR_LAND", "sr16 BXOR_PAIR")
 
 # unmasked-SpGEMM paths: launches per ESC call (segfold: one launch a
 # scan, four scans a call)
 EXPECTED_ESC = {"esc14": {"segfold": 4, "esc_gather": 1},
-                "esc13": {"segfold": 4, "esc_gather": 1}}
+                "esc13": {"segfold": 4, "esc_gather": 1},
+                "sr14": {"segfold": 4, "esc_gather": 1}}
 
 # kernel symbol prefix in a profile -> kernel name
 _SYMBOLS = {"mono_span_kernel": "mono_span",
@@ -434,8 +462,8 @@ def check_xspmv_kernels(torch, ck, plan, x, sem, path, timed=()):
     Kernels named in `timed` are timed too."""
     from pygraphblas_tpu_torch.core import mono as M, perm as P
 
-    fill = sem.identity(np.float32)
-    add, mul = sem.add, sem.mul
+    fill = float(sem.add_monoid.identity(np.float32))
+    add, mul = sem.pls, sem.mul
 
     def gather(case, mp, src, **kw):
         name = "mono_span" if mp.wva else "mono_rows"
@@ -694,6 +722,29 @@ class PathRunner:
                                          **SG.stats["seconds"]})
         return out
 
+
+    def drive_generic(self, path, run):
+        """Run `run()` (masked_spgemm calls the JAX package's rule sends
+        to its generic intersect) with the counters at 0; check that no
+        kernel ran."""
+        from pygraphblas_tpu_torch.core import spgemm as SG
+
+        torch, K = self.torch, self.K
+        torch.cuda.synchronize()
+        K.reset_launches()
+        SG.reset_stats()
+        out = run()
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        log(f"  {path}: {SG.stats['calls']} masked_spgemm calls, no kernel "
+            "(the generic intersect)")
+        if any(counts.values()):
+            raise AssertionError(f"{path}: kernels launched {counts}, the "
+                                 "JAX package's rule takes none")
+        self.counts[path] = dict(counts=counts,
+                                 spgemm_calls=SG.stats["calls"],
+                                 host_s=dict(SG.stats["seconds"]))
+        return out
 
     def drive_esc(self, path, run):
         """Run `run()` with the counters at 0; check that every ESC call
@@ -1202,7 +1253,9 @@ def check_repairs(torch):
 def lane_gather_isolated(torch, ck, rows):
     """_lane_gather at the bfs18 level-0 shape (rows x 128): no path of
     either package reaches it; beside it torch.gather on a premade int64
-    index, the library call that computes the same function."""
+    index, the library call that computes the same function, and its
+    earlier design's time (EARLIER_MS).  Then its redesign's edge cases
+    (1 and 7 rows, values with the top bit set), not timed."""
     from pygraphblas_tpu_torch.core import perm as P
 
     rng = np.random.RandomState(4)
@@ -1213,6 +1266,18 @@ def lane_gather_isolated(torch, ck, rows):
            lambda: P._lane_gather(x, idx),
            lambda: P._lane_gather_plain(x, idx), x.numel() * (4 + 1 + 4),
            timed=True)
+    earlier("isolated", "lane_gather", ck.rows[-1]["ms"])
+    # the redesign's edges: a row, part of a warp's rows, and values with
+    # the top bit set (int32 and negative floats, moved bit for bit)
+    for r in (1, 7, rows):
+        xi = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (r, 128),
+                                          dtype=np.int64).astype(np.int32)
+                              ).cuda()
+        ir = idx[:r].contiguous()
+        for xx in (xi, xi.view(torch.float32)):
+            ck.run("lane_gather", "small", f"({r}, 128) {xx.dtype} top bit",
+                   lambda: P._lane_gather(xx, ir).view(torch.int32),
+                   lambda: P._lane_gather_plain(xx, ir).view(torch.int32), 0)
     idx64 = idx.long()
     lib_ms = event_ms(torch, lambda: torch.gather(x, 1, idx64), ck.reps)
     log(f"  library: torch.gather (int64 index) {lib_ms:.4f} ms")
@@ -1816,8 +1881,10 @@ def check_esc_kernels(torch, ck, path, tag, scans, gathers, live, timed):
     cumsum_ms, lib_ms = 0.0, None
     for name, (v, f, add) in zip(SCAN_NAMES, scans):
         dt = str(v.dtype).replace("torch.", "")
-        case = f"{tag}{name} {add} {dt} M={v.numel()}"
-        rtol = 1e-5 if v.is_floating_point() and add == "PLUS" else None
+        aname = add if isinstance(add, str) else add.name
+        plus = (add if isinstance(add, str) else add.binaryop.op) == "PLUS"
+        case = f"{tag}{name} {aname} {dt} M={v.numel()}"
+        rtol = 1e-5 if v.is_floating_point() and plus else None
         out = ck.run("segfold", path, case, lambda: SC.segfold(v, f, add),
                      lambda: SC._segfold_plain(v, f, add),
                      v.numel() * (2 * v.element_size() + 1), timed=timed,
@@ -1996,6 +2063,279 @@ def esc13_path(torch, ck, drv, card):
         f"({t_gen:.4f} s); seconds {secs}; card {card}")
     res["profile"] = profile_spgemm(torch, pair, "esc13")
     return res
+
+
+def check_algebra_codes(torch, ck):
+    """segfold at every fold code the algebra adds, at the types of its
+    paths (testing.SEGFOLD_CODES: 2^20 values, about 2000 segments), and
+    pair_fold at its new mul and fold codes (testing.PAIR_FOLD_CODES, on
+    the run_across_blocks edge lists, through each of its kernels; a mul
+    or fold the algebra added takes the warp kernel at every width),
+    against their plain versions: exact (ANY folds as MAX in both; the
+    FP32 cases' values have no zero divisor, so no NaN)."""
+    from pygraphblas_tpu_torch import _kernels as K, types
+    from pygraphblas_tpu_torch.core import scan as SC, spgemm as SG
+    from pygraphblas_tpu_torch.testing import (PAIR_FOLD_CODES,
+                                               SEGFOLD_CODES, pair_fold_case,
+                                               typed_values)
+
+    for add, typ in SEGFOLD_CODES:
+        T = getattr(types, typ)
+        m = getattr(T, add + "_MONOID")
+        rng = np.random.RandomState(len(add) + len(typ))
+        v = typed_values(rng, T, 1 << 20).cuda()
+        f = torch.from_numpy(rng.rand(1 << 20) < 0.002).cuda()
+        f[0] = True
+        ck.run("segfold", "sr14", f"codes {m.name} M={v.numel()}",
+               lambda: SC.segfold(v, f, m),
+               lambda: SC._segfold_plain(v, f, m),
+               v.numel() * (2 * v.element_size() + 1))
+    a, av, b, bv, ast, wa, bst, wb, w = pair_fold_case("run_across_blocks",
+                                                       np.int32)
+    a, b, ast, wa, bst, wb = (torch.from_numpy(x).cuda()
+                              for x in (a, b, ast, wa, bst, wb))
+    rule = SG._RUNS_WIDTH, SG._RUNS_EDGES
+    try:
+        for path, moved in (("search", (1, 1 << 40)), ("runs", (0, 0))):
+            SG._RUNS_WIDTH, SG._RUNS_EDGES = moved
+            for add, mul, typ in PAIR_FOLD_CODES:
+                T = getattr(types, typ)
+                x, y = av, bv
+                if typ == "FP32":
+                    x, y = np.where(av == 0, 5, av), np.where(bv == 0, 5, bv)
+                xa, xb = (T.to_torch(z.astype(T.numpy_dtype)).cuda()
+                          for z in (x, y))
+                mop, fop = getattr(T, mul), getattr(T, add + "_MONOID")
+                # a code the algebra added takes the warp kernel
+                ext = (K.MULS[mul] > K.MULS["MAX"]
+                       or K.FOLDS[add] > K.FOLDS["ANY"])
+                ck.run("pair_fold", "sr16", f"codes {'warp' if ext else path}"
+                       f" {fop.op}_{mop.name} W={w}",
+                       lambda: SG.pair_fold(a, xa, b, xb, ast, wa, bst, wb,
+                                            w, mop, fop),
+                       lambda: SG._pair_fold_plain(a, xa, b, xb, ast, wa,
+                                                   bst, wb, w, mop, fop), 0,
+                       rtol=1e-5 if (add, typ) == ("PLUS", "FP32")
+                       else None)
+    finally:
+        SG._RUNS_WIDTH, SG._RUNS_EDGES = rule
+
+
+def check_typed_cases(torch, ck):
+    """Every kernel wrapper at INT8, UINT16, UINT32 and BOOL
+    (testing.wrapper_cases): 1- and 2-byte values as 4-byte words, UINT32
+    words with the unsigned code, against the plain versions, exact."""
+    from pygraphblas_tpu_torch.testing import (typed_plains, typed_wrappers,
+                                               wrapper_cases)
+
+    wrappers, plains = typed_wrappers(), typed_plains()
+    for typ in ("INT8", "UINT16", "UINT32", "BOOL"):
+        for name, case, call in wrapper_cases(typ, "cuda"):
+            kfn = wrappers[name]
+            ck.run(name, "small", case, lambda: call(kfn),
+                   lambda: call(plains[kfn]), 0)
+
+
+def sr14_calls(rows, cols):
+    """sr14's six gustavson.spgemm calls on esc14's graph: (name,
+    semiring, out dtype, A's values, B's values), values from seed 7."""
+    from pygraphblas_tpu_torch import types
+
+    m = len(rows)
+    rng = np.random.RandomState(7)
+    ones = np.ones(m, bool)
+    i8 = rng.randint(-128, 128, m).astype(np.int8)
+    w16 = rng.randint(1, 5, m).astype(np.int16)
+    w8 = rng.randint(1, 101, m).astype(np.uint8)
+    w32 = rng.randint(0, 1 << 32, m, dtype=np.int64).astype(np.uint32)
+    a32 = rng.randint(-9, 10, m).astype(np.int32)
+    b32 = rng.randint(0, 5, m).astype(np.int32)       # zero divisors
+    return (("LOR_LAND BOOL", types.BOOL.LOR_LAND, np.bool_, ones, ones),
+            ("ANY_PAIR INT8", types.INT8.ANY_PAIR, np.int8, i8, i8),
+            ("PLUS_TIMES INT16", types.INT16.PLUS_TIMES, np.int16, w16, w16),
+            ("MIN_PLUS UINT8", types.UINT8.MIN_PLUS, np.uint8, w8, w8),
+            ("BOR_BAND UINT32", types.UINT32.BOR_BAND, np.uint32, w32, w32),
+            ("PLUS_DIV INT32", types.INT32.PLUS_DIV, np.int32, a32, b32))
+
+
+def sr14_path(torch, ck, drv, card):
+    """The algebra through the unmasked SpGEMM: six gustavson.spgemm
+    calls ("auto": ESC on the card) on esc14's graph (kron-14 ef16
+    directed): BOOL LOR_LAND (every value true) equal to scipy's
+    (A @ A) != 0, all true; INT8 ANY_PAIR to scipy's pattern with values
+    1; INT16 PLUS_TIMES (weights 1..4) to scipy's int64 product wrapped
+    to int16, exactly; UINT8 MIN_PLUS (weights 1..100) and UINT32
+    BOR_BAND (any 32 bits) to the same call under spgemm_engine="scipy"
+    (scipy's pattern, then masked_spgemm on the card); INT32 PLUS_DIV
+    (B's values 0..4: x / 0 saturates) to the same call on the CPU (the
+    ESC engine's plain versions).  Before it, each call's four scans and
+    its gather against their plain versions, and segfold and pair_fold
+    at every code the algebra adds."""
+    import scipy.sparse as sp
+    from pygraphblas_tpu_torch import options_set
+    from pygraphblas_tpu_torch.core import gustavson as G
+
+    rows, cols, n = graph(14)
+    calls = sr14_calls(rows, cols)
+    F = int(np.bincount(rows, minlength=n)[cols].sum())
+    log(f"sr14: kron-14 ef16 n={n} nnz={len(rows)}; F={F}; "
+        + ", ".join(c[0] for c in calls))
+
+    def run(c, **kw):
+        return G.spgemm(rows, cols, c[3], rows, cols, c[4], c[1], c[2], **kw)
+
+    for c in calls:
+        _, scans, gathers = record_esc(lambda: run(c))
+        check_esc_kernels(torch, ck, "sr14", c[0] + " ", scans, gathers, F,
+                          timed=False)
+        del scans, gathers
+    check_algebra_codes(torch, ck)
+    secs = {}
+
+    def all_six():
+        out = []
+        for c in calls:
+            t = time.perf_counter()
+            out.append(run(c))
+            secs[c[0]] = time.perf_counter() - t
+        return out
+
+    got = drv.drive_esc("sr14", all_six)
+    A1 = sp.csr_matrix((np.ones(len(rows), np.int64), (rows, cols)), (n, n))
+    P = csr_coo(A1 @ A1)
+    W16 = sp.csr_matrix((calls[2][3].astype(np.int64), (rows, cols)), (n, n))
+    Q = csr_coo(W16 @ W16)
+    checks = {}
+
+    def same(x, y):
+        return all(np.array_equal(u, v) for u, v in zip(x, y))
+
+    checks["LOR_LAND BOOL"] = (same(got[0][:2], P[:2])
+                               and got[0][2].dtype == np.bool_
+                               and bool(got[0][2].all()))
+    checks["ANY_PAIR INT8"] = (same(got[1][:2], P[:2])
+                               and got[1][2].dtype == np.int8
+                               and bool((got[1][2] == 1).all()))
+    checks["PLUS_TIMES INT16"] = same(got[2], (Q[0], Q[1],
+                                               Q[2].astype(np.int16)))
+    options_set(spgemm_engine="scipy")
+    try:
+        t = time.perf_counter()
+        checks["MIN_PLUS UINT8"] = same(got[3], run(calls[3]))
+        checks["BOR_BAND UINT32"] = same(got[4], run(calls[4]))
+        t_gen = time.perf_counter() - t
+    finally:
+        options_set(spgemm_engine="auto")
+    options_set(spgemm_engine="esc")
+    try:
+        t = time.perf_counter()
+        cpu = run(calls[5], device="cpu")
+        t_cpu = time.perf_counter() - t
+    finally:
+        options_set(spgemm_engine="auto")
+    checks["PLUS_DIV INT32"] = same(got[5], cpu)
+    saturated = int((np.abs(got[5][2].astype(np.int64)) >= 2 ** 30).sum())
+    log(f"  sr14: {checks}; PLUS_DIV {saturated} entries past 2^30 (x / 0 "
+        f"saturated); generic tier {t_gen:.4f} s, CPU {t_cpu:.4f} s; "
+        f"seconds {secs}; card {card}")
+    if not all(checks.values()):
+        raise AssertionError(f"sr14: a product differs from its oracle: "
+                             f"{checks}")
+    if not saturated:
+        raise AssertionError("sr14: PLUS_DIV met no zero divisor")
+    return dict(seconds=secs, F=F, nnz_out=len(P[0]), checks=checks,
+                plus_div_saturated=saturated, generic_s=t_gen, cpu_s=t_cpu,
+                host_s_per_call=host_split(drv, "sr14", len(calls)))
+
+
+def record_pair_fold(run):
+    """run() with the arguments of each pair_fold launch recorded."""
+    from pygraphblas_tpu_torch.core import spgemm as SG
+
+    calls, orig = [], SG.pair_fold
+
+    def rec(*a):
+        calls.append(a)
+        return orig(*a)
+
+    SG.pair_fold = rec
+    try:
+        return run(), calls
+    finally:
+        SG.pair_fold = orig
+
+
+def sr16_path(torch, ck, drv, card, L):
+    """The algebra through the masked SpGEMM on tc16's L with val16's
+    weights (1..4, seed 7): C<L> = W (+.x) W, the route the JAX package's
+    rule picks (spgemm.py:886-913) shown by the counters: BOOL LOR_PAIR
+    launches pair_count (PAIR with an idempotent monoid), INT16
+    PLUS_TIMES pair_fold (an int output of 4 bytes or less), BOOL
+    LOR_LAND and UINT32 BXOR_PAIR (made with new_semiring: no family has
+    it) neither (a BOOL output, and a parity monoid: the generic
+    intersect).  LOR_* equal scipy's pattern of
+    (W @ W) .* L, all true; PLUS_TIMES its values wrapped to int16;
+    BXOR_PAIR the parity of scipy's counts.  Before it, pair_fold on
+    every launch of the INT16 call against its plain version."""
+    from pygraphblas_tpu_torch import types
+    from pygraphblas_tpu_torch.core import spgemm as SG
+
+    W = L.copy()
+    W.data = np.random.RandomState(7).randint(1, 5, W.nnz).astype(np.float64)
+    lr, lc, lv = csr_coo(W)
+    tr, tc, tv = csr_coo(W.T)
+
+    def call(sem, dt):
+        return SG.masked_spgemm(lr, lc, lv.astype(dt), tr, tc, tv.astype(dt),
+                                lr, lc, sem, dt)
+
+    routes = (("LOR_LAND", types.BOOL.LOR_LAND, np.bool_),
+              ("LOR_PAIR", types.BOOL.LOR_PAIR, np.bool_),
+              ("PLUS_TIMES", types.INT16.PLUS_TIMES, np.int16),
+              ("BXOR_PAIR", types.UINT32.new_semiring(
+                  types.UINT32.BXOR_MONOID, types.UINT32.PAIR), np.uint32))
+    _, launches = record_pair_fold(lambda: call(*routes[2][1:]))
+    for i, (a, av, b, bv, ast, wa, bst, wb, w, mul, add) in \
+            enumerate(launches):
+        ck.run("pair_fold", "sr16", f"launch {i} W={w} E={ast.numel()} "
+               f"{add.op}_{mul.name}",
+               lambda: SG.pair_fold(a, av, b, bv, ast, wa, bst, wb, w, mul,
+                                    add),
+               lambda: SG._pair_fold_plain(a, av, b, bv, ast, wa, bst, wb,
+                                           w, mul, add), 0)
+    del launches
+    want = masked_square(W)
+    ones = W.copy()
+    ones.data[:] = 1.0
+    cnt = masked_square(ones)
+    got, secs = {}, {}
+    for tag, sem, dt in routes:
+        path = f"sr16 {tag}"
+        t = time.perf_counter()
+        if path in GENERIC_SPGEMM:
+            got[tag] = drv.drive_generic(path, lambda: call(sem, dt))
+        else:
+            got[tag] = drv.drive_spgemm(path, lambda: call(sem, dt))
+        secs[tag] = time.perf_counter() - t
+
+    def same(x, y):
+        return all(np.array_equal(u, v) for u, v in zip(x, y))
+
+    checks = {t: same(got[t][:2], want[:2]) and bool(got[t][2].all())
+              and got[t][2].dtype == np.bool_
+              for t in ("LOR_LAND", "LOR_PAIR")}
+    checks["PLUS_TIMES"] = same(got["PLUS_TIMES"],
+                                (want[0], want[1],
+                                 want[2].astype(np.int64).astype(np.int16)))
+    checks["BXOR_PAIR"] = same(got["BXOR_PAIR"],
+                               (cnt[0], cnt[1],
+                                (cnt[2].astype(np.int64) % 2)
+                                .astype(np.uint32)))
+    log(f"  sr16: {checks}; {len(want[0])} present; seconds {secs}; "
+        f"card {card}")
+    if not all(checks.values()):
+        raise AssertionError(f"sr16: a product differs from scipy: {checks}")
+    return dict(seconds=secs, checks=checks, present=len(want[0]))
 
 
 def main():
@@ -2274,7 +2614,10 @@ def main():
             ("val16", lambda: val_path(torch, ck, drv, card,
                                        degree_lower(*kron16s))),
             ("esc14", lambda: esc14_path(torch, ck, drv, card)),
-            ("esc13", lambda: esc13_path(torch, ck, drv, card))):
+            ("esc13", lambda: esc13_path(torch, ck, drv, card)),
+            ("sr14", lambda: sr14_path(torch, ck, drv, card)),
+            ("sr16", lambda: sr16_path(torch, ck, drv, card,
+                                       degree_lower(*kron16s)))):
         t0 = time.perf_counter()
         e2e[path] = run()
         for tag in ("profile", "profile_chain"):
@@ -2289,6 +2632,7 @@ def main():
     check_pair_count_cases(torch, ck)
     check_pair_fold_cases(torch, ck)
     check_mono_rows_cases(torch, ck)
+    check_typed_cases(torch, ck)
     repairs = check_repairs(torch)
     phase_s["small"] = time.perf_counter() - t0
 

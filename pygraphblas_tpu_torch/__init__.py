@@ -1,25 +1,101 @@
 """pygraphblas_tpu_torch: the PyTorch/CUDA port of pygraphblas_tpu.
 
-Ported so far: the gather-free semiring SpMV (``core/xspmv.py``) and
-the fused loops over it (``fused.pagerank``, ``bfs_level``,
-``bfs_batch``, ``sssp``, ``bc``); the masked SpGEMM
-(``core/spgemm.py``) with ``algorithms.triangle_count`` and
-``k_truss``; and the unmasked SpGEMM (``core/gustavson.py``, with the
-expand/sort/compact engine ``core/esc.py``).  Thirteen hand-written CUDA
-kernels for Hopper (``csrc/*.cu``), one for each Pallas kernel of the
-JAX package, carry them.  Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``, which runs each kernel's plain PyTorch
-version.
+Ported so far: the algebra (``types``, ``binaryop``, ``unaryop``,
+``monoid``, ``semiring``, ``selectop``, ``descriptor``, ``scalar`` and
+``base``, from the tables of ``ops/table.py``: every type, operator,
+monoid and semiring name of the JAX package); the gather-free semiring
+SpMV (``core/xspmv.py``) and the fused loops over it
+(``fused.pagerank``, ``bfs_level``, ``bfs_batch``, ``sssp``, ``bc``);
+the masked SpGEMM (``core/spgemm.py``) with
+``algorithms.triangle_count`` and ``k_truss``; and the unmasked SpGEMM
+(``core/gustavson.py``, with the expand/sort/compact engine
+``core/esc.py`` and the dense tier ``core/dense.py``).  Thirteen
+hand-written CUDA kernels for Hopper (``csrc/*.cu``), one for each
+Pallas kernel of the JAX package, carry them.  Entry points run on the
+CUDA card unless the caller passes ``device="cpu"``, which runs each
+kernel's plain PyTorch version.
 
 Imports torch, numpy and scipy only: nothing of JAX or of
 pygraphblas_tpu.
 """
 
+from .base import (
+    NULL,
+    GxB_INDEX_MAX,
+    GxB_IMPLEMENTATION,
+    GxB_SPEC,
+    config,
+    options_get,
+    options_set,
+    GraphBLASException,
+    NoValue,
+    UninitializedObject,
+    InvalidObject,
+    NullPointer,
+    InvalidValue,
+    InvalidIndex,
+    DomainMismatch,
+    DimensionMismatch,
+    OutputNotEmpty,
+    OutOfMemory,
+    InsufficientSpace,
+    IndexOutOfBound,
+    Panic,
+)
+
+__version__ = "1.0.0"
+
+__pdoc__ = {}
+
+# Build the operator registries, in the JAX package's order.
+from .semiring import build_semirings, current_semiring
+from .binaryop import (build_binaryops, Accum, binary_op, current_binop,
+                       current_accum)
+from .unaryop import build_unaryops, unary_op
+from .selectop import build_selectops, select_op
+from .monoid import build_monoids, current_monoid
+
+build_binaryops(__pdoc__)
+build_unaryops(__pdoc__)
+build_monoids(__pdoc__)
+build_semirings(__pdoc__)
+build_selectops(__pdoc__)
+
 from . import types
-from .base import config, options_set
+from . import descriptor
+from . import selectop
+from . import unaryop
+from . import binaryop
+from . import monoid
+from . import semiring
 from .matrix import Matrix
 from .vector import Vector
+from .scalar import Scalar
 from ._device import resolve_device
 
-__all__ = ["types", "config", "options_set", "Matrix", "Vector",
-           "resolve_device"]
+from .types import (
+    BOOL,
+    FP64,
+    FP32,
+    FC64,
+    FC32,
+    INT64,
+    INT32,
+    INT16,
+    INT8,
+    UINT64,
+    UINT32,
+    UINT16,
+    UINT8,
+    promote,
+    binop,
+    Type,
+)
+
+__all__ = [
+    "GxB_INDEX_MAX", "GxB_IMPLEMENTATION", "GxB_SPEC", "Matrix", "Vector",
+    "Scalar", "Accum", "BOOL", "FP64", "FP32", "FC64", "FC32", "INT64",
+    "INT32", "INT16", "INT8", "UINT64", "UINT32", "UINT16", "UINT8",
+    "descriptor", "selectop", "binary_op", "unary_op", "select_op",
+    "options_set", "options_get", "types", "config", "resolve_device",
+]

@@ -36,8 +36,28 @@ launches = {"mono_span": 0, "mono_cascade": 0, "mono_rows": 0,
 _lib = None
 build_log = ""
 
-# torch dtype -> csrc/ops.cuh dtype code
-DTYPES = {torch.float32: 0, torch.int32: 1}
+# GraphBLAS type name -> csrc/ops.cuh dtype code: the value type of the
+# 4-byte words a kernel reads (DT_F32 float, DT_U32 uint32, the others
+# int32, the narrow ones widened: see to_words)
+TYPE_CODES = {"FP32": 0, "INT32": 1, "UINT32": 2, "INT8": 3, "INT16": 4,
+              "UINT8": 5, "UINT16": 6, "BOOL": 7}
+# add-monoid op name -> fold code (csrc/ops.cuh FOLD_*)
+FOLDS = {"PLUS": 0, "MIN": 1, "MAX": 2, "TIMES": 3, "ANY": 4, "LOR": 5,
+         "LAND": 6, "LXOR": 7, "LXNOR": 8, "BOR": 9, "BAND": 10,
+         "BXOR": 11, "BXNOR": 12}
+# mul op name -> mul code (csrc/ops.cuh MUL_*)
+MULS = {"TIMES": 0, "PLUS": 1, "MINUS": 2, "RMINUS": 3, "DIV": 4,
+        "RDIV": 5, "FIRST": 6, "SECOND": 7, "PAIR": 8, "MIN": 9, "MAX": 10,
+        "ISEQ": 11, "ISNE": 12, "ISGT": 13, "ISLT": 14, "ISGE": 15,
+        "ISLE": 16, "LOR": 17, "LAND": 18, "LXOR": 19, "EQ": 20, "NE": 21,
+        "GT": 22, "LT": 23, "GE": 24, "LE": 25, "ANY": 7}
+# BOOL arithmetic (ops/table.py): PLUS is OR, TIMES is AND, MINUS is XOR,
+# DIV is FIRST, MIN is AND, MAX is OR; on 0/1 words EQ is LXNOR
+_BOOL_OPS = {"PLUS": "LOR", "TIMES": "LAND", "MINUS": "LXOR",
+             "RMINUS": "LXOR", "DIV": "FIRST", "RDIV": "SECOND",
+             "MIN": "LAND", "MAX": "LOR", "EQ": "LXNOR"}
+# the fold codes a float word takes
+_FLOAT_FOLDS = ("PLUS", "MIN", "MAX", "TIMES", "ANY")
 
 
 def reset_launches():
@@ -160,8 +180,9 @@ def on_card(t, name):
     """Whether a kernel wrapper launches its kernel for tensor `t`: False
     for a CPU tensor, and for a CUDA tensor of a dtype wider than 4 bytes,
     which the JAX package sends to XLA (its plain versions run on the
-    card then); True for other CUDA tensors.  Raises for other devices.
-    Reads only the device and the dtype's size."""
+    card then); True for other CUDA tensors, 1- and 2-byte ones among
+    them (the wrappers widen them to 4-byte words).  Raises for other
+    devices.  Reads only the device and the dtype's size."""
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
@@ -169,20 +190,154 @@ def on_card(t, name):
     return t.dtype.itemsize <= 4
 
 
-def dtype_code(t, name):
-    """The kernel's dtype code for tensor t; raises TypeError for other
-    dtypes (1- or 2-byte ones: no entry point of the port passes one)."""
-    code = DTYPES.get(t.dtype)
+def value_type(t, *ops):
+    """The GraphBLAS type whose values tensor `t` holds: that of the first
+    op object given (a Monoid, BinaryOp or Type), else the type torch
+    dtype t.dtype is read as (int32 -> INT32: the bit-view types UINT16,
+    UINT32 and UINT64 always travel with their op objects)."""
+    from . import types
+
+    for op in ops:
+        if op is None or isinstance(op, str):
+            continue
+        if isinstance(op, type) and issubclass(op, types.Type):
+            return op
+        if hasattr(op, "type_cls"):
+            return op.type_cls
+        return getattr(types, op.type)
+    return types.from_torch_dtype(t.dtype)
+
+
+def dtype_code(typ, name):
+    """The kernels' dtype code for GraphBLAS type `typ`; raises TypeError
+    for types wider than 4 bytes (their callers take the plain version:
+    ``on_card``)."""
+    code = TYPE_CODES.get(typ.__name__)
     if code is None:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 or int32, "
-                        f"not {t.dtype}")
+        raise TypeError(f"{name}: the CUDA kernels take types of 4 bytes "
+                        f"or less, not {typ.__name__}")
     return code
 
 
-def fill_bits(fill, dtype):
-    """The 32 bits of scalar `fill` in the kernel dtype, as an int."""
-    npt = np.float32 if dtype == torch.float32 else np.int32
-    return int(np.asarray(fill, npt).reshape(1).view(np.uint32)[0])
+def monoid_of(fold, typ):
+    """An add monoid given by name (at type `typ`) or as an object."""
+    if fold is None or not isinstance(fold, str):
+        return fold
+    return getattr(typ, fold + "_MONOID")
+
+
+def binaryop_of(mul, typ):
+    """A binary op given by name (at type `typ`) or as an object."""
+    if mul is None or not isinstance(mul, str):
+        return mul
+    return getattr(typ, mul)
+
+
+def fold_code(monoid, typ, name):
+    """The kernels' fold code for add monoid `monoid` over words of type
+    `typ` (-1 for None); derived from its op's name.  Raises TypeError
+    for a monoid no kernel folds (a user monoid, a bitwise or logical
+    one on float words)."""
+    if monoid is None:
+        return -1
+    op = monoid.binaryop
+    nm = op.op if op.builtin else None
+    if typ.__name__ == "BOOL":
+        nm = _BOOL_OPS.get(nm, nm)
+    code = FOLDS.get(nm)
+    if code is None or (typ._kind == "f" and nm not in _FLOAT_FOLDS):
+        raise TypeError(f"{name}: no kernel fold for {monoid.name} over "
+                        f"{typ.__name__}")
+    return code
+
+
+def mul_code(op, typ, name):
+    """The kernels' mul code for binary op `op` over words of type `typ`
+    (-1 for None); derived from its name."""
+    if op is None:
+        return -1
+    nm = op.op if op.builtin and op.positional is None else None
+    if typ.__name__ == "BOOL":
+        nm = _BOOL_OPS.get(nm, nm)
+    code = MULS.get(nm)
+    if code is None:
+        raise TypeError(f"{name}: no kernel multiply for {op.name} over "
+                        f"{typ.__name__}")
+    return code
+
+
+def fold_fill(monoid, typ):
+    """The fill a kernel folds with for `monoid` over type `typ` (a
+    numpy scalar): the monoid's identity, except ANY, which the kernels
+    fold as MAX (any product is the largest of some products, and an
+    identity lane never beats a product): MAX's identity."""
+    if monoid.binaryop.builtin and monoid.binaryop.op == "ANY" \
+            and typ.__name__ != "BOOL":
+        return typ.MAX_MONOID.identity(typ.numpy_dtype)
+    return monoid.identity(typ.numpy_dtype)
+
+
+def fold_fn(monoid, typ):
+    """The torch closure the fold kernels' plain versions fold with: the
+    monoid's, except ANY, which they fold as the kernels do (MAX; LOR
+    over BOOL)."""
+    if monoid.binaryop.builtin and monoid.binaryop.op == "ANY":
+        return (typ.LOR_MONOID if typ.__name__ == "BOOL"
+                else typ.MAX_MONOID).apply
+    return monoid.apply
+
+
+def to_words(t, typ):
+    """Values of type `typ` (held dtype) -> the 4-byte words a kernel
+    reads: float32 or int32 as they are, BOOL, INT8, INT16 and UINT8
+    widened by value, UINT16 (an int16 bit view) zero-extended."""
+    if t.dtype.itemsize >= 4:
+        return t
+    w = t.to(torch.int32)
+    return w & 0xFFFF if typ.__name__ == "UINT16" else w
+
+
+def from_words(w, typ):
+    """Kernel words -> values of type `typ` (held dtype): narrow ones
+    keep their low bits (a fold that wrapped in 32 bits wraps the same
+    at its own width), BOOL is nonzero."""
+    if w.dtype == typ.torch_dtype:
+        return w
+    if typ.__name__ == "BOOL":
+        return w != 0
+    return w.to(typ.torch_dtype)
+
+
+def widen(t):
+    """Any 1- or 2-byte tensor -> int32 words for a kernel that only
+    moves data, and the function that narrows its result back (the same
+    bits: a 2-byte float goes through its int16 bit view)."""
+    if t.dtype.itemsize == 4:
+        return t, lambda w: w
+    dt = t.dtype
+    if dt.is_floating_point:
+        return (t.view(torch.int16).to(torch.int32),
+                lambda w: w.to(torch.int16).view(dt))
+    if dt == torch.bool:
+        return t.to(torch.int32), lambda w: w != 0
+    return t.to(torch.int32), lambda w: w.to(dt)
+
+
+def word_code(t):
+    """The dtype code of a 4-byte word tensor for a kernel that only
+    moves data (float32 words or int32 words)."""
+    return TYPE_CODES["FP32"] if t.dtype == torch.float32 else \
+        TYPE_CODES["INT32"]
+
+
+def fill_bits(fill, typ):
+    """The 32 bits of scalar `fill` (a value of type `typ`) as a kernel
+    word, as an int."""
+    if typ.__name__ == "FP32":
+        return int(np.asarray(fill, np.float32).reshape(1)
+                   .view(np.uint32)[0])
+    v = np.asarray(fill).astype(typ.numpy_dtype).astype(np.int64)
+    return int(v.astype(np.uint32))
 
 
 def cuda_args(name, *tensors):

@@ -1,0 +1,153 @@
+"""Binary operators.
+
+BinaryOp objects pair a name with a torch closure and a result-type
+rule.  Built-ins are generated from the semantic table in
+``ops/table.py`` (the JAX package's ``binaryop.py``); user ops are made
+with the :func:`binary_op` decorator from a plain Python function over
+tensors.  The container forms (``op(A, B)`` as an element-wise multiply)
+need the containers, Queue A item 8 of ROADMAP.md.
+"""
+
+__all__ = ["BinaryOp", "Accum", "current_binop", "current_accum",
+           "binary_op"]
+
+import contextvars
+import sys
+
+from . import types
+from .ops import table
+
+current_accum = contextvars.ContextVar("current_accum")
+current_binop = contextvars.ContextVar("current_binop")
+
+
+def _needs_containers(what):
+    return NotImplementedError(
+        f"{what} needs Matrix and Vector, which are not ported yet "
+        "(ROADMAP.md Queue A item 8)")
+
+
+class BinaryOp:
+    """A GraphBLAS binary operator z = f(x, y).
+
+    Also a context manager: ``with op:`` sets the default operator."""
+
+    def __init__(self, op, typ, fn=None, ztype="T", positional=None,
+                 boolean=False, udt=None, attach=True, builtin=False):
+        self.op = op
+        self.type_name = typ
+        self.fn = fn
+        self.builtin = builtin
+        self.ztype_rule = "BOOL" if boolean else ztype
+        self.positional = positional
+        self.udt = udt
+        self.name = "_".join((op, typ))
+        self.__doc__ = self.name
+        self.token = None
+        if attach and udt is None:
+            cls = getattr(types, typ, None)
+            if cls is not None:
+                setattr(cls, op, self)
+                setattr(cls, op.lower(), self)
+
+    @property
+    def type_cls(self):
+        """The Type class the operator is defined on (None for a UDT op
+        or a user op on an unknown type name)."""
+        return self.udt or getattr(types, self.type_name, None)
+
+    def __repr__(self):
+        return f"<BinaryOp {self.name}>"
+
+    def __enter__(self):
+        self.token = current_binop.set(self)
+        return self
+
+    def __exit__(self, *errors):
+        current_binop.reset(self.token)
+        return False
+
+    def __call__(self, A, B, *args, **kwargs):
+        raise _needs_containers(f"{self.name}(A, B)")
+
+    def get_op(self):
+        return self
+
+    def ztype(self, input_type):
+        """Result Type given the operand Type."""
+        if self.ztype_rule == "BOOL":
+            return types.BOOL
+        if self.ztype_rule == "CMPLX":
+            return types.FC32 if input_type == types.FP32 else types.FC64
+        if self.positional is not None:
+            return getattr(types, self.type_name)
+        return input_type
+
+    def apply(self, x, y, pos=None):
+        """The operator on tensors of its type's held dtype (a struct
+        UDT's op on dicts of member tensors; a structured numpy array is
+        turned into one at this boundary)."""
+        if self.positional is not None:
+            key, off = self.positional
+            return pos[key] + off
+        if self.udt is not None and getattr(self.udt, "member_def", None):
+            import numpy as np
+
+            def as_dict(a):
+                if isinstance(a, dict):
+                    return a
+                a = np.asarray(a)
+                if a.dtype.names:
+                    return self.udt.to_dict(a)
+                return a
+
+            zd = self.fn(as_dict(x), as_dict(y))
+            if isinstance(zd, dict) and not isinstance(x, dict):
+                return self.udt.from_dict(zd)
+            return zd
+        if self.builtin:
+            return self.fn(x, y, self.type_cls)
+        return self.fn(x, y)
+
+
+class Accum:
+    """Context manager to set the default accumulator."""
+
+    __slots__ = ("binaryop", "token")
+
+    def __init__(self, binaryop):
+        self.binaryop = binaryop
+
+    def __enter__(self):
+        self.token = current_accum.set(self.binaryop)
+        return self
+
+    def __exit__(self, *errors):
+        current_accum.reset(self.token)
+        return False
+
+
+def build_binaryops(__pdoc__=None):
+    """Instantiate every built-in BinaryOp and attach it to its type
+    class and this module (``binaryop.PLUS_INT64`` and ``INT64.PLUS``)."""
+    this = sys.modules[__name__]
+    for op_name, spec in table.BINARY.items():
+        for typ in spec["types"]:
+            r = BinaryOp(op_name, typ, fn=spec["fn"], ztype=spec["ztype"],
+                         positional=spec["positional"], builtin=True)
+            setattr(this, r.name, r)
+            if r.name not in __all__:
+                __all__.append(r.name)
+            if __pdoc__ is not None:
+                __pdoc__[f"{typ}.{op_name}"] = f"BinaryOp {typ}.{op_name}"
+
+
+def binary_op(arg_type, nopython=True, boolean=False):
+    """Decorator turning a Python function over tensors into a
+    BinaryOp."""
+
+    def inner(func):
+        return BinaryOp(func.__name__, arg_type.__name__, fn=func,
+                        boolean=boolean, attach=False)
+
+    return inner

@@ -1,10 +1,15 @@
-"""Plans carried across from the JAX package.
+"""Plans and algebra objects carried across from the JAX package.
 
 The JAX plans (``MonoPlan``, ``PermPlan``, ``XSpmvPlan``) are pytrees;
 a caller flattens one into a dict of numpy arrays and ints (its leaves
 and static fields) and hands the dict here, which builds the port's
 plan on a given device.  So both packages can run the very same plan.
 This module never sees a JAX object.
+
+The algebra goes across by name: ``semiring_from_name``,
+``monoid_from_name``, ``binaryop_from_name`` and ``type_from_name`` take
+the JAX object's ``.name`` ("PLUS_TIMES_FP32", "MIN_INT8_monoid",
+"BSHIFT_UINT16", "UINT32") and return the port's object of that name.
 
 Dict formats (keys as the JAX plans' attributes):
   MonoPlan: S, blk, src_n, src_rows, max_w, stream, xb, xblk_max, ok,
@@ -18,6 +23,7 @@ Dict formats (keys as the JAX plans' attributes):
 
 import numpy as np
 
+from . import binaryop, monoid, semiring, types
 from .core.mono import MonoPlan
 from .core.perm import PermPlan
 from .core.xspmv import XSpmvPlan
@@ -56,3 +62,23 @@ def xspmv_plan_from_arrays(d, device="cpu"):
     p.places = [mono_plan_from_arrays(s) for s in d["places"]]
     p.row_present = np.asarray(d["row_present"])
     return p.to(device)
+
+
+def semiring_from_name(name):
+    """"PLUS_TIMES_FP32" -> the port's ``semiring.PLUS_TIMES_FP32``."""
+    return getattr(semiring, name)
+
+
+def monoid_from_name(name):
+    """"MIN_INT8_monoid" -> the port's ``monoid.MIN_INT8_monoid``."""
+    return getattr(monoid, name)
+
+
+def binaryop_from_name(name):
+    """"BSHIFT_UINT16" -> the port's ``binaryop.BSHIFT_UINT16``."""
+    return getattr(binaryop, name)
+
+
+def type_from_name(name):
+    """"UINT32" -> the port's ``types.UINT32``."""
+    return types.MetaType._name_type_map[name]

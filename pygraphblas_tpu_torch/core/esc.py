@@ -12,8 +12,9 @@ around two kernels (esc.py:168-227 is one jitted XLA program):
 2. the group-window encoding of the positions (``qg`` per 1024 slots,
    ``dm``) and the dual-source gather of B's columns and values (kernel
    13, ``esc_gather``);
-3. the products (``semiring.MULS``), int32 keys row * nc + col where
-   they fit, ``torch.sort`` (a library sort standing in for XLA's
+3. the products (the semiring's mul op at the output type, a torch
+   closure as the JAX package's is a traced one), int32 keys
+   row * nc + col where they fit, ``torch.sort`` (a library sort standing in for XLA's
    ``lax.sort``, which is not a Pallas kernel) and a fourth ``segfold``
    with the add monoid over the sorted products;
 4. the segment ends, found with ``torch.nonzero`` on the device; their
@@ -24,8 +25,10 @@ Every structural match gives an output entry, even where the value
 folds to zero.  Returns None where the JAX package's would (the caller
 then takes the host tiers, core/gustavson.py): the same caps (span,
 expansion, B's residency), with "the device is ``cuda``" where the JAX
-code asks for a TPU; on the card the values must be float32 or int32
-(the kernels' dtypes).
+code asks for a TPU; on the card the values must be of 4 bytes or less
+and the add monoid one that ``segfold`` folds (a user monoid takes the
+host tiers).  Values travel as 4-byte words (``_kernels.to_words``):
+float32 for FP32, int32 for the other types, BOOL among them.
 """
 
 import time
@@ -33,9 +36,9 @@ import time
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, types
 from .._device import as_tensor, resolve_device
-from ..semiring import MULS
+from ..semiring import ops_at
 from .scan import segfold
 from .spgemm import _pull, add_seconds
 
@@ -68,24 +71,41 @@ def _next_pow2(x):
 
 
 def esc_supported(semiring, out_dtype, va_dtype, vb_dtype, device):
-    """Static (pre-plan) support check.  Every semiring of the port has a
-    built-in, non-positional mul, and its add monoid an identity in any
-    numeric dtype; on the card no dtype may be wider than 4 bytes (as on
-    a TPU, esc.py:71-82) and the values must be float32 or int32."""
-    vdt = np.dtype(np.int32 if np.dtype(out_dtype) == np.bool_
-                   else out_dtype)
+    """Static (pre-plan) support check (esc.py:66-82): a non-positional
+    mul and an add monoid with an identity in the value dtype; on the
+    card no dtype wider than 4 bytes (as on a TPU) and an add monoid
+    ``segfold`` folds (``_kernels.fold_code``)."""
+    out_dtype = np.dtype(out_dtype)
+    typ = types._gb_from_dtype(out_dtype)
+    add, mul = ops_at(semiring, typ)
+    if mul.positional is not None:
+        return False
     try:
-        semiring.identity(vdt)
-    except (KeyError, ValueError):
+        add.identity(out_dtype if out_dtype != np.bool_ else np.int32)
+    except (KeyError, ValueError, TypeError, AttributeError):
         return False
     if device.type == "cuda":
         for dt in (out_dtype, va_dtype, vb_dtype):
             dt = np.dtype(dt)
             if dt != np.bool_ and dt.itemsize > 4:
                 return False
-        if vdt not in (np.float32, np.int32):
+        try:
+            _kernels.fold_code(add, typ, "segfold")
+        except TypeError:
             return False
     return True
+
+
+def _words(typ):
+    """The dtype ESC moves values of type `typ` in, and the PLUS monoid
+    that broadcasts them through a scan: 4-byte words (float32 for
+    FP32, int32 for the other types of 4 bytes or less), else the
+    type's own dtype (the CPU takes 8-byte types)."""
+    if typ.numpy_dtype.itemsize <= 4 and typ._kind != "c":
+        if typ.__name__ == "FP32":
+            return torch.float32, types.FP32.PLUS_MONOID
+        return torch.int32, types.INT32.PLUS_MONOID
+    return typ.torch_dtype, typ.PLUS_MONOID
 
 
 def _esc_gather_plain(cols2d, vals2d, qg, dm):
@@ -108,8 +128,11 @@ def esc_gather(cols2d, vals2d, qg, dm):
     name = "esc_gather"
     if dm.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dm.device}")
+    vals2d, back = _kernels.widen(vals2d.contiguous())
+    if vals2d.element_size() != 4:
+        raise TypeError(f"{name}: the kernel moves values of 4 bytes or "
+                        f"less, not {vals2d.dtype}")
     _kernels.cuda_args(name, cols2d, vals2d, qg, dm)
-    _kernels.dtype_code(vals2d, name)
     S = dm.shape[0]
     if (cols2d.dtype != torch.int32 or qg.dtype != torch.int32
             or dm.dtype != torch.int32 or dm.dim() != 2
@@ -128,16 +151,18 @@ def esc_gather(cols2d, vals2d, qg, dm):
         S * 128, _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out_c, out_v
+    return out_c, back(out_v)
 
 
-def _esc_device(ptr, sb_e, ri_e, va_e, cols2d, vals2d, F, nc, semiring,
+def _esc_device(ptr, sb_e, ri_e, va_e, cols2d, vals2d, F, nc, add, mul, typ,
                 F_pad, narrow):
     """The device pipeline (esc.py:168-227): scans -> gather -> products
-    -> sort -> segment fold -> segment ends.  Returns the output keys and
-    totals, compacted, on the device."""
+    -> sort -> segment fold -> segment ends.  Values arrive as words
+    (``_words``); products and the fold run at type `typ`.  Returns the
+    output keys and totals (of typ's held dtype), compacted, on the
+    device."""
     dev = cols2d.device
-    vdt = vals2d.dtype
+    vdt, scan_plus = _words(typ)
     # the seeds: only the true entries (the JAX package's pads point out
     # of bounds, where XLA's scatter drops them and torch's would raise)
     flags = torch.zeros(F_pad, dtype=torch.bool, device=dev)
@@ -149,9 +174,10 @@ def _esc_device(ptr, sb_e, ri_e, va_e, cols2d, vals2d, F, nc, semiring,
     avv = torch.zeros(F_pad, dtype=vdt, device=dev)
     avv[ptr] = va_e
 
-    bpos = segfold(stepb, flags, "PLUS")
-    ri = segfold(riv, flags, "PLUS")
-    av = segfold(avv, flags, "PLUS")
+    plus = types.INT32.PLUS_MONOID
+    bpos = segfold(stepb, flags, plus)
+    ri = segfold(riv, flags, plus)
+    av = segfold(avv, flags, scan_plus)
     del stepb, riv, avv, flags
 
     bpos[F:] = 0                        # dead slots read row 0, lane 0
@@ -161,7 +187,10 @@ def _esc_device(ptr, sb_e, ri_e, va_e, cols2d, vals2d, F, nc, semiring,
     del bpos, b2
     ci, bv = esc_gather(cols2d, vals2d, qg, dm)
     del dm
-    prod = MULS[semiring.mul][0](av, bv.reshape(F_pad)).to(vdt)
+    if vdt != typ.torch_dtype:
+        av = _kernels.from_words(av, typ)
+        bv = _kernels.from_words(bv, typ)
+    prod = mul.apply(av, bv.reshape(F_pad)).to(typ.torch_dtype)
     del av, bv
     ci = ci.reshape(F_pad)
     if narrow:
@@ -180,7 +209,7 @@ def _esc_device(ptr, sb_e, ri_e, va_e, cols2d, vals2d, F, nc, semiring,
     boundary = torch.empty(F_pad, dtype=torch.bool, device=dev)
     boundary[0] = True
     torch.ne(key_s[1:], key_s[:-1], out=boundary[1:])
-    tot = segfold(prod_s, boundary, semiring.add)
+    tot = segfold(prod_s, boundary, add)
     last = torch.empty_like(boundary)
     last[:-1] = boundary[1:]
     last[-1] = True
@@ -198,13 +227,14 @@ def esc_spgemm(ra, ca, va, rb, cb, vb, semiring, out_dtype, device=None):
     t0 = time.perf_counter()
     sec = stats["seconds"]
     out_dtype = np.dtype(out_dtype)
-    vdt = np.dtype(np.int32) if out_dtype == np.bool_ else out_dtype
+    typ = types._gb_from_dtype(out_dtype)
+    add, mul = ops_at(semiring, typ)
 
     def empty():
         e = np.empty(0, np.int64)
         return e, e.copy(), np.empty(0, out_dtype)
 
-    if not esc_supported(semiring, vdt, va.dtype, vb.dtype, dev):
+    if not esc_supported(semiring, out_dtype, va.dtype, vb.dtype, dev):
         return None
     if len(ra) == 0 or len(rb) == 0:
         return empty()
@@ -252,19 +282,23 @@ def esc_spgemm(ra, ca, va, rb, cb, vb, semiring, out_dtype, device=None):
     narrow = mc * nc < 2**31 and F_pad < 2**31
     rows_b = _next_pow2(rows_b)
 
-    def rows2d(arr, dt):
-        out = np.zeros(rows_b * 128, dt)
-        out[:len(arr)] = arr
-        return as_tensor(out.reshape(rows_b, 128), dev)
+    vdt, _ = _words(typ)
 
+    def words(arr):
+        return _kernels.to_words(typ.to_torch(arr, dev), typ).to(vdt)
+
+    cols2d = np.zeros(rows_b * 128, np.int32)
+    cols2d[:len(ci2)] = ci2
+    vals2d = torch.zeros(rows_b * 128, dtype=vdt, device=dev)
+    vals2d[:len(vb2)] = words(vb2)
     args = (as_tensor(ptr.astype(np.int64), dev),
             as_tensor(sb_e.astype(np.int32), dev),
-            as_tensor(ri_s.astype(np.int32), dev),
-            as_tensor(np.asarray(va_s).astype(vdt), dev),
-            rows2d(ci2, np.int32), rows2d(vb2.astype(vdt), vdt))
+            as_tensor(ri_s.astype(np.int32), dev), words(va_s),
+            as_tensor(cols2d.reshape(rows_b, 128), dev),
+            vals2d.reshape(rows_b, 128))
     stats["calls"] += 1
     t0 = add_seconds(sec, "relabel+plan", t0)
-    key_d, tot_d = _esc_device(*args, F, nc, semiring, F_pad, narrow)
+    key_d, tot_d = _esc_device(*args, F, nc, add, mul, typ, F_pad, narrow)
     del args
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -273,9 +307,7 @@ def esc_spgemm(ra, ca, va, rb, cb, vb, semiring, out_dtype, device=None):
     out_key = out_key.astype(np.int64)
     rr = out_key // nc
     cc = out_key - rr * nc
-    res = (ur[rr], uc[cc],
-           out_val.astype(out_dtype) if out_dtype != np.bool_
-           else (out_val != 0))
+    res = (ur[rr], uc[cc], out_val.view(out_dtype))
     add_seconds(sec, "pull+assemble", t0)
     return res
 

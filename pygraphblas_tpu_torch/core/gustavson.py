@@ -23,9 +23,10 @@ asks for a TPU.  Host arrays are numpy; the device work runs on
 import numpy as np
 import torch
 
+from .. import types
 from .._device import as_tensor, resolve_device
 from ..base import config
-from ..semiring import MULS
+from ..semiring import ops_at
 from . import coosem as cs
 from .spgemm import _pull
 
@@ -38,18 +39,24 @@ def _pow2(x, lo=8):
 
 
 def _dense_ok(semiring, out_dtype, kc, device):
-    """Algebras the dense tier may use: those core/dense.py lowers to one
-    matmul (gustavson.py:41-61; the port's semirings have no LOR or ANY
-    monoid, so its boolean algebras do not arise)."""
+    """Algebras the dense tier may use (gustavson.py:44-61): those
+    core/dense.py lowers to one matmul; the generic broadcast-reduce is
+    never a win over the sparse tiers, so it is not taken here."""
     from .dense import _matmul_ok
 
-    out_dtype = np.dtype(out_dtype)
-    if out_dtype == np.bool_ or semiring.add != "PLUS":
+    add = semiring.add_monoid.binaryop
+    mul = semiring.mul_op
+    if not (add.builtin and mul.builtin) or mul.positional is not None:
         return False
-    if semiring.mul == "PAIR":
+    out_dtype = np.dtype(out_dtype)
+    if add.op == "PLUS" and mul.op == "PAIR" and out_dtype != np.bool_:
         return device.type != "cuda" or kc <= (1 << 24)
-    if semiring.mul == "TIMES":
+    if add.op == "PLUS" and mul.op == "TIMES" and out_dtype != np.bool_:
         return _matmul_ok(out_dtype, device)
+    if (add.op in ("LOR", "ANY")
+            and mul.op in ("LAND", "PAIR", "FIRST", "SECOND", "TIMES")
+            and out_dtype == np.bool_):
+        return True
     return False
 
 
@@ -103,11 +110,12 @@ def dense_spgemm(ra, ca, va, rb, cb, vb, semiring, out_dtype, device=None):
             or not _dense_ok(semiring, out_dtype, kc, dev):
         return None
 
+    typ = types._gb_from_dtype(out_dtype)
+
     def scatter(m, k, rr, cc, vv):
         return _densify(as_tensor(np.asarray(rr, np.int64), dev),
                         as_tensor(np.asarray(cc, np.int64), dev),
-                        as_tensor(np.asarray(vv).astype(out_dtype), dev),
-                        m, k)
+                        typ.to_torch(vv, dev), m, k)
 
     av, am = scatter(mc, kc, ri, ka, va)
     bv, bm = scatter(kc, nc, kb, ci, vb)
@@ -118,7 +126,7 @@ def dense_spgemm(ra, ca, va, rb, cb, vb, semiring, out_dtype, device=None):
         e = np.empty(0, np.int64)
         return e, e.copy(), np.empty(0, out_dtype)
     rr, cc = pos // nc, pos % nc
-    return ur[rr], uc[cc], vals.astype(out_dtype)
+    return ur[rr], uc[cc], vals.view(out_dtype)
 
 
 def _relabel(ra, ca, rb, cb):
@@ -151,14 +159,6 @@ def pattern(ra, ca, rb, cb):
 
 _SCIPY_MULS = ("TIMES", "FIRST", "SECOND", "PAIR")
 
-_NP_DIAG_MULS = {
-    "TIMES": np.multiply, "PLUS": np.add, "MINUS": np.subtract,
-    "DIV": np.divide, "MIN": np.minimum, "MAX": np.maximum,
-    "FIRST": lambda a, d: a, "SECOND": lambda a, d: d,
-    "PAIR": lambda a, d: np.ones_like(a),
-}
-
-
 def spgemm(ra, ca, va, rb, cb, vb, semiring, out_dtype, dims=None,
            device=None):
     """C = A (+.x) B, unmasked, canonical COO in, canonical COO out.
@@ -178,21 +178,18 @@ def spgemm(ra, ca, va, rb, cb, vb, semiring, out_dtype, dims=None,
         return e, e.copy(), np.empty(0, out_dtype)
 
     engine = config.spgemm_engine
-    mul = semiring.mul
 
     # diagonal-B fast path: C = A with values mul(a_ij, d_j) on the
-    # columns where the diagonal is present (it overrides the engine)
-    if bool(np.all(rb == cb)):
+    # columns where the diagonal is present (it overrides the engine),
+    # the multiply at the output type
+    if not semiring.mul_op.positional and bool(np.all(rb == cb)):
+        typ = types._gb_from_dtype(out_dtype)
+        _, mul = ops_at(semiring, typ)
         pos = np.searchsorted(rb, ca)
         pos_c = np.minimum(pos, len(rb) - 1)
         hit = rb[pos_c] == ca
-        av = va[hit].astype(out_dtype)
-        dv = vb[pos_c[hit]].astype(out_dtype)
-        if mul in _NP_DIAG_MULS:
-            vals = _NP_DIAG_MULS[mul](av, dv)
-        else:
-            vals = MULS[mul][0](torch.from_numpy(av),
-                                torch.from_numpy(dv)).numpy()
+        vals = typ.to_numpy(mul.apply(typ.to_torch(va[hit]),
+                                      typ.to_torch(vb[pos_c[hit]])))
         return ra[hit], ca[hit], vals.astype(out_dtype)
 
     if engine in ("auto", "dense"):
@@ -208,8 +205,11 @@ def spgemm(ra, ca, va, rb, cb, vb, semiring, out_dtype, dims=None,
         if res is not None:
             return res
 
-    plus_family = (semiring.add == "PLUS" and mul in _SCIPY_MULS
+    add, mul = semiring.add_monoid.binaryop, semiring.mul_op
+    plus_family = (add.builtin and add.op == "PLUS" and mul.builtin
+                   and mul.positional is None and mul.op in _SCIPY_MULS
                    and out_dtype.kind in "fiu")
+    mul = mul.op
 
     # identity "relabel" pays an O(dim) scipy indptr per operand, so it
     # needs dims both int32-safe AND comparable to nnz (hypersparse

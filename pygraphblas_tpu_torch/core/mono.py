@@ -6,7 +6,8 @@ the same numpy code and gives the same arrays (``q0``, ``dm`` with -1 for
 invalid lanes, ``qg``, ``wva``, ``S``, ``blk``, ``stream``, ``xb``,
 ``xblk``).  ``MonoPlan.to(device)`` moves the arrays into torch tensors.
 
-Modes (op names from ``semiring.ADDS`` / ``semiring.MULS``):
+Modes (ops as objects of ``binaryop`` / ``monoid``, or their names at
+the type the source's dtype is read as: ``_kernels.value_type``):
   - plain:  out (S,128) = src[idx], with idx < 0 -> `fill`
   - fused multiply: mul(vals, gathered)
   - fold:   out (S/8,128) = lanewise fold of each 8-row slot group
@@ -34,7 +35,6 @@ import torch
 
 from .. import _kernels
 from .._device import as_tensor
-from ..semiring import ADDS, MULS
 
 # resident-source limit: keep the whole source in fast memory below
 # this (plan layout rule shared with the JAX package)
@@ -184,6 +184,8 @@ class MonoPlan:
 def _fill_scalar(fill, dtype):
     """`fill` as a Python scalar: torch.where takes it with no copy to
     the device (a copy would wait for the stream)."""
+    if dtype == torch.bool:
+        return bool(fill)
     return float(fill) if dtype.is_floating_point else int(fill)
 
 
@@ -225,6 +227,7 @@ def mono_gather_plain(plan, src, fill, vals=None, mul=None, fold=None):
     """Plain PyTorch version of the gather (both encodings), as the JAX
     package's non-TPU path (pygraphblas_tpu/core/mono.py:211-233)."""
     S = plan.S
+    typ = _kernels.value_type(src, fold, mul)
     dm = plan.dm.long()
     valid = dm >= 0
     if plan.wva:
@@ -239,11 +242,11 @@ def mono_gather_plain(plan, src, fill, vals=None, mul=None, fold=None):
     f = _fill_scalar(fill, src.dtype)
     g = torch.where(valid, g, f)
     if mul is not None:
-        mulf = MULS[mul][0]
+        mulf = _kernels.binaryop_of(mul, typ).apply
         g = torch.where(valid, mulf(vals.reshape(S, 128).to(src.dtype), g),
                         f)
     if fold is not None:
-        foldf = ADDS[fold][0]
+        foldf = _kernels.fold_fn(_kernels.monoid_of(fold, typ), typ)
         g = g.reshape(S // 8, 8, 128)
         out = g[:, 0, :]
         for k in range(1, 8):
@@ -254,20 +257,36 @@ def mono_gather_plain(plan, src, fill, vals=None, mul=None, fold=None):
 
 def _prepare(name, plan, src, vals, mul, fold, *index):
     """Checks and buffers shared by the gather kernels' wrappers: returns
-    (src, vals pointer, out, dtype code, mul code, fold code)."""
-    code = _kernels.dtype_code(src, name)
+    (source words, vals words pointer, output words, type, dtype code,
+    mul code, fold code)."""
+    typ = _kernels.value_type(src, fold, mul)
+    code = _kernels.dtype_code(typ, name)
+    mop = _kernels.mul_code(_kernels.binaryop_of(mul, typ), typ, name)
+    fop = _kernels.fold_code(_kernels.monoid_of(fold, typ), typ, name)
     S = plan.S
-    src = src.contiguous()
+    src = _kernels.to_words(src.contiguous(), typ)
     if mul is not None:
-        vals = vals.reshape(-1).to(src.dtype).contiguous()
+        vals = _kernels.to_words(vals.reshape(-1).to(typ.torch_dtype),
+                                 typ).contiguous()
         if vals.numel() < S * 128:
             raise ValueError(f"{name}: vals shorter than the plan")
     _kernels.cuda_args(name, src, vals, plan.dm, *index)
     out = torch.empty((S // 8 if fold is not None else S, 128),
                       dtype=src.dtype, device=src.device)
-    return (src, vals.data_ptr() if mul is not None else None, out, code,
-            MULS[mul][1] if mul is not None else -1,
-            ADDS[fold][1] if fold is not None else -1)
+    return (src, vals if mul is not None else None, out, typ, code, mop,
+            fop)
+
+
+# the folds of the per-row and cascade kernels: xspmv's (ANY folds as MAX)
+_XSPMV_FOLDS = (-1, 0, 1, 2, 3, 4)
+# over BOOL's 0/1 words LOR is MAX and LAND is MIN
+_BOOL_ARITH = {_kernels.FOLDS["LOR"]: _kernels.FOLDS["MAX"],
+               _kernels.FOLDS["LAND"]: _kernels.FOLDS["MIN"]}
+
+
+def _arith_fold(fop, typ):
+    """A fold code of the per-row and cascade kernels for `fop`."""
+    return _BOOL_ARITH.get(fop, fop) if typ.__name__ == "BOOL" else fop
 
 
 def mono_span(plan, src, fill, vals=None, mul=None, fold=None):
@@ -276,17 +295,18 @@ def mono_span(plan, src, fill, vals=None, mul=None, fold=None):
     name = "mono_span"
     if not _kernels.on_card(src, name):
         return mono_gather_plain(plan, src, fill, vals, mul, fold)
-    src, vp, out, code, mop, fop = _prepare(name, plan, src, vals, mul, fold,
-                                            plan.qg)
+    src, vw, out, typ, code, mop, fop = _prepare(name, plan, src, vals,
+                                                 mul, fold, plan.qg)
     if plan.wva == 0 or plan.stream or plan.dm.dtype != torch.int16:
         raise ValueError(f"{name}: needs a resident span-encoded plan")
     rc = _kernels.lib().pgb_mono_span(
         plan.qg.data_ptr(), plan.dm.data_ptr(), src.data_ptr(), src.numel(),
-        vp, out.data_ptr(), plan.S // 8, code, mop, fop,
-        _kernels.fill_bits(fill, src.dtype), _kernels.stream())
+        vw.data_ptr() if vw is not None else None, out.data_ptr(),
+        plan.S // 8, code, mop, fop, _kernels.fill_bits(fill, typ),
+        _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return _kernels.from_words(out, typ)
 
 
 def mono_rows(plan, src, fill, vals=None, mul=None, fold=None):
@@ -297,26 +317,29 @@ def mono_rows(plan, src, fill, vals=None, mul=None, fold=None):
     if not _kernels.on_card(src, name):
         return mono_gather_plain(plan, src, fill, vals, mul, fold)
     xblk = plan.xblk if plan.stream else None
-    src, vp, out, code, mop, fop = _prepare(name, plan, src, vals, mul, fold,
-                                            plan.q0, xblk)
+    src, vw, out, typ, code, mop, fop = _prepare(name, plan, src, vals,
+                                                 mul, fold, plan.q0, xblk)
     if plan.wva or not plan.ok:
         raise ValueError(f"{name}: needs a per-row plan with ok == True")
     if plan.dm.dtype not in (torch.int16, torch.int32):
         raise ValueError(f"{name}: dm must be int16 or int32")
+    fop = _arith_fold(fop, typ)
+    if fop not in _XSPMV_FOLDS:
+        raise ValueError(f"{name}: folds PLUS, MIN, MAX, TIMES or ANY")
     # the kernel reads dm and vals, and writes out, in 16-byte words
     if plan.dm.data_ptr() % 16:
         raise ValueError(f"{name}: the plan's dm is not 16-byte aligned")
-    if vp is not None and vp % 16:
-        vals = vals.reshape(-1).to(src.dtype).clone()
-        vp = vals.data_ptr()
+    if vw is not None and vw.data_ptr() % 16:
+        vw = vw.clone()
     rc = _kernels.lib().pgb_mono_rows(
         plan.q0.data_ptr(), plan.dm.data_ptr(), plan.dm.element_size(),
         xblk.data_ptr() if xblk is not None else None, plan.xb, plan.blk,
-        src.data_ptr(), src.numel(), vp, out.data_ptr(), plan.S // 8, code,
-        mop, fop, _kernels.fill_bits(fill, src.dtype), _kernels.stream())
+        src.data_ptr(), src.numel(), vw.data_ptr() if vw is not None
+        else None, out.data_ptr(), plan.S // 8, code, mop, fop,
+        _kernels.fill_bits(fill, typ), _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return _kernels.from_words(out, typ)
 
 
 # the TPU kernel's VMEM budget for the whole cascade (mono.py:384): kept
@@ -432,7 +455,8 @@ def cascade_table(counts, present, n_out, levels):
 
 
 def mono_cascade(levels, place, src, fill, fold):
-    """Every fold level (add-monoid name `fold`) and the final placement
+    """Every fold level (add monoid `fold`, an object or a name) and the
+    final placement
     in one launch.  Returns the placed (place.S, 128) tensor, or None
     where the JAX package's mono_cascade does not apply (no levels, a
     dtype wider than 4 bytes, a plan that is streamed, per-row or not
@@ -453,14 +477,19 @@ def mono_cascade(levels, place, src, fill, fold):
     name = "mono_cascade"
     if src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {src.device}")
-    code = _kernels.dtype_code(src, name)
+    typ = _kernels.value_type(src, fold)
+    code = _kernels.dtype_code(typ, name)
+    fop = _arith_fold(
+        _kernels.fold_code(_kernels.monoid_of(fold, typ), typ, name), typ)
+    if fop not in _XSPMV_FOLDS[1:]:
+        raise ValueError(f"{name}: folds PLUS, MIN, MAX, TIMES or ANY")
     runs = place.cascade
     if (runs is None or runs.levels != len(levels)
             or runs.cells != levels[0].src_n):
         raise ValueError(f"{name}: the placement plan carries no row table "
                          f"for these {len(levels)} levels: build the plans "
                          "with fold_plans")
-    src = src.reshape(-1).contiguous()
+    src = _kernels.to_words(src.reshape(-1).contiguous(), typ)
     if src.numel() < runs.cells:
         raise ValueError(f"{name}: the source has {src.numel()} cells, "
                          f"the plans read {runs.cells}")
@@ -468,8 +497,8 @@ def mono_cascade(levels, place, src, fill, fold):
     out = torch.empty((place.S, 128), dtype=src.dtype, device=src.device)
     rc = _kernels.lib().pgb_mono_cascade(
         src.data_ptr(), src.numel(), runs.start.data_ptr(), out.data_ptr(),
-        out.numel(), len(levels), code, ADDS[fold][1],
-        _kernels.fill_bits(fill, src.dtype), _kernels.stream())
+        out.numel(), len(levels), code, fop, _kernels.fill_bits(fill, typ),
+        _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return _kernels.from_words(out, typ)

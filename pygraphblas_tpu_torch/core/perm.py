@@ -38,7 +38,6 @@ import torch
 
 from .. import _kernels, _native
 from .._device import as_tensor
-from ..semiring import ADDS
 
 # Arbitrary-gather threshold: below this size a plain indexed gather
 # costs less than the fixed pass structure.
@@ -459,7 +458,8 @@ class PermPlan:
                              pad_value)
 
     def apply_fold8(self, x, pad_value, fold):
-        """Apply the permutation, then fold (add-monoid name `fold`) each
+        """Apply the permutation, then fold (add monoid `fold`, an object
+        or a name) each
         consecutive 8-row block of the (n//128, 128) output lanewise.
 
         When the plan's layout allows (K == 128 staged plan, n % 1024
@@ -477,7 +477,8 @@ class PermPlan:
             full = torch.cat([full, torch.full((pad,), pad_value,
                                                dtype=full.dtype,
                                                device=full.device)])
-        foldf = ADDS[fold][0]
+        typ = _kernels.value_type(full, fold)
+        foldf = _kernels.fold_fn(_kernels.monoid_of(fold, typ), typ)
         f3 = full.reshape(-1, 8, 128)
         out = f3[:, 0, :]
         for s in range(1, 8):
@@ -504,7 +505,8 @@ def _tasc_plain(x2d, idx8, g, r_l, fold8=None):
     y = _lane_gather_plain(t, idx8)
     if fold8 is None:
         return y
-    foldf = ADDS[fold8][0]
+    typ = _kernels.value_type(y, fold8)
+    foldf = _kernels.fold_fn(_kernels.monoid_of(fold8, typ), typ)
     y3 = y.reshape(g * r_l // 8, 8, 128)
     out = y3[:, 0, :]
     for s in range(1, 8):
@@ -536,9 +538,9 @@ def _inner3_plain(x2d, a_in, a_mid, ssel, c_mid, c_in, g, S):
 
 
 # ---------------------------------------------------------------------------
-# wrappers: the kernel where _kernels.on_card (a CUDA tensor of 4-byte
-# values), else the plain version (perm.py:524, 584-585, 650-651, 752,
-# 822 send 8-byte values to XLA)
+# wrappers: the kernel where _kernels.on_card (a CUDA tensor of 4 bytes or
+# less: 1- and 2-byte values move as int32 words), else the plain version
+# (perm.py:524, 584-585, 650-651, 752, 822 send 8-byte values to XLA)
 
 
 def _lane_gather(x2d, idx8):
@@ -551,16 +553,19 @@ def _lane_gather(x2d, idx8):
                          f"{tuple(idx8.shape)}")
     if idx8.dtype != torch.int8:
         raise ValueError(f"{name}: idx must be int8")
-    code = _kernels.dtype_code(x2d, name)
-    x2d = x2d.contiguous()
-    _kernels.cuda_args(name, x2d, idx8)
-    out = torch.empty_like(x2d)
+    w, back = _kernels.widen(x2d.contiguous())
+    _kernels.cuda_args(name, w, idx8)
+    out = torch.empty_like(w)
+    # the kernel's 16-byte loads and stores
+    if any(t.data_ptr() % 16 for t in (w, idx8, out)):
+        raise ValueError(f"{name}: the kernel's 16-byte loads need "
+                         "16-byte aligned tensors")
     rc = _kernels.lib().pgb_lane_gather(
-        x2d.data_ptr(), idx8.data_ptr(), out.data_ptr(), x2d.shape[0],
-        code, _kernels.stream())
+        w.data_ptr(), idx8.data_ptr(), out.data_ptr(), w.shape[0],
+        _kernels.word_code(w), _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return back(out)
 
 
 def _mid_pass(x3d, a8, ssel8, c8):
@@ -579,8 +584,7 @@ def _mid_pass(x3d, a8, ssel8, c8):
     if (S > 1) != (ssel8 is not None) or (
             ssel8 is not None and ssel8.numel() != x3d.numel()):
         raise ValueError(f"{name}: ssel does not match S={S}")
-    code = _kernels.dtype_code(x3d, name)
-    x3d = x3d.contiguous()
+    x3d, back = _kernels.widen(x3d.contiguous())
     _kernels.cuda_args(name, x3d, a8, ssel8, c8)
     out = torch.empty_like(x3d)
     if any(t.data_ptr() % 16 for t in (x3d, a8, ssel8, c8, out)
@@ -590,10 +594,10 @@ def _mid_pass(x3d, a8, ssel8, c8):
     rc = _kernels.lib().pgb_mid_pass(
         x3d.data_ptr(), a8.data_ptr(),
         ssel8.data_ptr() if ssel8 is not None else None, c8.data_ptr(),
-        out.data_ptr(), nsub, S, code, _kernels.stream())
+        out.data_ptr(), nsub, S, _kernels.word_code(x3d), _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return back(out)
 
 
 def _lane_gather_tdesc(x2d, idx8, g, r_l):
@@ -605,28 +609,37 @@ def _lane_gather_tdesc(x2d, idx8, g, r_l):
     if r_l % 128 or x2d.shape != (g * r_l, 128) or idx8.shape != x2d.shape:
         raise ValueError(f"{name}: bad shapes {tuple(x2d.shape)} g={g} "
                          f"r_l={r_l}")
-    code = _kernels.dtype_code(x2d, name)
+    x2d, back = _kernels.widen(x2d.contiguous())
     _kernels.cuda_args(name, x2d, idx8)
     out = torch.empty_like(x2d)
     rc = _kernels.lib().pgb_lane_gather_tdesc(
         x2d.data_ptr(), idx8.data_ptr(), out.data_ptr(), g, r_l // 128,
-        code, _kernels.stream())
+        _kernels.word_code(x2d), _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return back(out)
 
 
 def _lane_gather_tasc(x2d, idx8, g, r_l, fold8=None):
     """Ascend pass: per-tile inverse transpose + lane gather,
-    (g*128*(r_l//128), 128) -> (g*r_l, 128); with fold8 (an add-monoid
-    name) each 8-row block is folded lanewise -> (g*r_l//8, 128)."""
+    (g*128*(r_l//128), 128) -> (g*r_l, 128); with fold8 (an add monoid,
+    an object or a name) each 8-row block is folded lanewise ->
+    (g*r_l//8, 128)."""
     name = "lane_gather_tasc"
     if not _kernels.on_card(x2d, name):
         return _tasc_plain(x2d, idx8, g, r_l, fold8)
     if r_l % 128 or x2d.shape != (g * r_l, 128) or idx8.shape != x2d.shape:
         raise ValueError(f"{name}: bad shapes {tuple(x2d.shape)} g={g} "
                          f"r_l={r_l}")
-    code = _kernels.dtype_code(x2d, name)
+    if fold8 is not None:
+        typ = _kernels.value_type(x2d, fold8)
+        code = _kernels.dtype_code(typ, name)
+        fop = _kernels.fold_code(_kernels.monoid_of(fold8, typ), typ, name)
+        x2d = _kernels.to_words(x2d.contiguous(), typ)
+        back = lambda w: _kernels.from_words(w, typ)   # noqa: E731
+    else:
+        x2d, back = _kernels.widen(x2d.contiguous())
+        code, fop = _kernels.word_code(x2d), -1
     _kernels.cuda_args(name, x2d, idx8)
     rows = g * r_l // 8 if fold8 is not None else g * r_l
     out = torch.empty((rows, 128), dtype=x2d.dtype, device=x2d.device)
@@ -635,11 +648,10 @@ def _lane_gather_tasc(x2d, idx8, g, r_l, fold8=None):
                          "16-byte aligned tensors")
     rc = _kernels.lib().pgb_lane_gather_tasc(
         x2d.data_ptr(), idx8.data_ptr(), out.data_ptr(), g, r_l // 128,
-        code, ADDS[fold8][1] if fold8 is not None else -1,
-        _kernels.stream())
+        code, fop, _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return back(out)
 
 
 def _inner3(x2d, a_in, a_mid, ssel, c_mid, c_in, g, S):
@@ -658,7 +670,7 @@ def _inner3(x2d, a_in, a_mid, ssel, c_mid, c_in, g, S):
         raise ValueError(f"{name}: ssel does not match S={S}")
     if S > 24:
         raise ValueError(f"{name}: S={S} > 24 needs _mid_pass")
-    _kernels.dtype_code(x2d, name)        # float32 or int32: 4-byte words
+    x2d, back = _kernels.widen(x2d.contiguous())     # 4-byte words
     _kernels.cuda_args(name, x2d, a_in, a_mid, ssel, c_mid, c_in)
     out = torch.empty_like(x2d)
     if any(t.data_ptr() % 16 for t in (x2d, a_in, a_mid, ssel, c_mid, c_in,
@@ -674,7 +686,7 @@ def _inner3(x2d, a_in, a_mid, ssel, c_mid, c_in, g, S):
                            f"blocks with the S={S} slab in shared memory")
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return back(out)
 
 
 def _apply_staged(x, n, D, S, R0, K, a_stages, c_stages, ssel,

@@ -25,13 +25,13 @@ and MIN/MAX folds agree exactly; a float PLUS differs by fold order.
 import torch
 
 from .. import _kernels
-from ..semiring import ADDS
 
 
 def _segfold_plain(values, flags, add):
     """Plain version of kernel 12: log2(M) steps, each combining every
     element with the one `d` before it."""
-    fold = ADDS[add][0]
+    typ = _kernels.value_type(values, add)
+    fold = _kernels.fold_fn(_kernels.monoid_of(add, typ), typ)
     v, f = values, flags.to(torch.bool)
     d = 1
     while d < v.numel():
@@ -65,8 +65,10 @@ def _scan_state(device, tiles):
 
 def segfold(values, flags, add):
     """Kernel 12: the inclusive segmented scan of `values` (M,) with
-    segment-start `flags` (M,) bool under the add monoid `add` (a name of
-    ``semiring.ADDS``); M % 1024 == 0.  Float32 or int32 on the card."""
+    segment-start `flags` (M,) bool under the add monoid `add` (a Monoid,
+    or its name at the type values' dtype is read as); M % 1024 == 0.
+    Values of any type of 4 bytes or less on the card (ANY folds as
+    MAX there and in the plain version: any value of the segment)."""
     m = values.numel()
     if m % 1024:
         raise ValueError(f"segfold needs a 1024-multiple length, not {m}")
@@ -75,8 +77,11 @@ def segfold(values, flags, add):
     name = "segfold"
     if values.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {values.device}")
+    typ = _kernels.value_type(values, add)
+    code = _kernels.dtype_code(typ, name)
+    fop = _kernels.fold_code(_kernels.monoid_of(add, typ), typ, name)
+    values = _kernels.to_words(values, typ)
     _kernels.cuda_args(name, values, flags)
-    code = _kernels.dtype_code(values, name)
     if flags.dtype != torch.bool or flags.numel() != m or values.dim() != 1:
         raise TypeError(f"{name}: values (M,) and bool flags (M,)")
     if values.data_ptr() % 16 or flags.data_ptr() % 16:
@@ -87,9 +92,9 @@ def segfold(values, flags, add):
     status, ticket, epoch = _scan_state(values.device,
                                         lib.pgb_segfold_tiles(m))
     rc = lib.pgb_segfold(values.data_ptr(), flags.data_ptr(), out.data_ptr(),
-                         m, code, ADDS[add][1], status.data_ptr(),
-                         epoch, ticket.data_ptr(), _kernels.stream())
+                         m, code, fop, status.data_ptr(), epoch,
+                         ticket.data_ptr(), _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return out
+    return _kernels.from_words(out, typ)
 

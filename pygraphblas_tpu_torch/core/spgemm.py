@@ -27,8 +27,12 @@ torch ops here.
 The fused paths run where the JAX package's would on a TPU, with "the
 device is ``cuda``" (``_fast_paths``) in place of the TPU backend test.
 The TPU's 24 MB VMEM residency caps are kept as dispatch rules so that
-both packages take the same paths; the valued path also needs a 4-byte
-output dtype (the JAX package lets 8-byte ones into 4-byte slabs).
+both packages take the same paths; the valued path also needs an
+output of 4 bytes or less (the JAX package lets 8-byte ones into 4-byte
+slabs) and ops the kernel has codes for (built-in ones: the JAX
+package's kernel traces user closures too).  Products and folds run at
+the output's type (``semiring.ops_at``): 1- and 2-byte values reach the
+kernels as 4-byte words and come back narrowed (``_kernels.to_words``).
 """
 
 import os
@@ -37,9 +41,9 @@ import time
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, types
 from .._device import as_tensor, resolve_device
-from ..semiring import ADDS, MULS, identity
+from ..semiring import ops_at
 from .sparse import segment_fold_generic
 
 WIDTH_CAP = 32768
@@ -52,22 +56,6 @@ _RESIDENT_PAD = 2560
 _CHUNK_CELLS = 1 << 24
 # pad key base: pads sort after every key of a column id < 2^29
 _SENT = 1 << 30
-
-# host mul table for the heavy edges (pygraphblas_tpu/core/spmspv.py:23),
-# the ops of semiring.MULS whose numpy op equals the torch closure; the
-# others (DIV, RDIV, RMINUS) take the torch closure on host tensors
-_NP_MUL = {
-    "TIMES": np.multiply,
-    "PLUS": np.add,
-    "MINUS": np.subtract,
-    "MIN": np.minimum,
-    "MAX": np.maximum,
-    "FIRST": lambda a, x: a,
-    "SECOND": lambda a, x: x,
-    "PAIR": lambda a, x: np.ones_like(a),
-}
-_NP_ADD = {"PLUS": np.add, "MIN": np.minimum, "MAX": np.maximum,
-           "TIMES": np.multiply}
 
 # summed over masked_spgemm calls since reset_stats(): calls, heavy
 # edges and host seconds by phase
@@ -96,18 +84,13 @@ def _fast_paths(dev):
     return dev.type == "cuda"
 
 
-def _torch_dtype(dt):
-    return torch.from_numpy(np.zeros(0, dt)).dtype
-
-
-def _np_dtype(dt):
-    return torch.empty(0, dtype=dt).numpy().dtype
-
-
 def _scalar(x, dtype):
     """A Python scalar of numpy scalar x: torch.where takes it with no
     copy to the device."""
-    return float(x) if dtype.is_floating_point else int(x)
+    if dtype == torch.bool:
+        return bool(x)
+    return complex(x) if dtype.is_complex else (
+        float(x) if dtype.is_floating_point else int(x))
 
 
 def _csr_of(rows, cols, vals):
@@ -202,37 +185,62 @@ def _pair_count_plain(a_cols, b_cols, a_st, wa, b_st, wb, width):
                           width)
 
 
-def _masked_fold(add, match, prod, ident):
-    """Fold each row's products where `match` with add monoid `add`."""
-    if add == "PLUS":
-        return torch.where(match, prod, 0).sum(1, dtype=prod.dtype)
+def _tree_fold(foldf, x):
+    """Fold each row of x (E, n) with the closure `foldf`: log2(n)
+    passes of halves (every row holds at least one column)."""
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        top = foldf(x[:, :h], x[:, h:2 * h])
+        x = torch.cat([top, x[:, 2 * h:]], 1) if x.shape[1] % 2 else top
+    return x[:, 0]
+
+
+def _masked_fold(add, typ, match, prod, ident):
+    """Fold each row's products where `match` with add monoid `add` over
+    type `typ` (`ident` the fill of the other lanes): torch's reductions
+    where they equal the monoid's fold, else a tree of its closure; ANY
+    as MAX, as the kernels fold it."""
+    nm = add.binaryop.op if add.binaryop.builtin else None
+    if nm == "ANY":
+        # any product: the largest (an edge with no match is dropped)
+        add = typ.LOR_MONOID if typ._kind == "b" else typ.MAX_MONOID
+        ident = _kernels.fold_fill(add, typ)
+        nm = add.binaryop.op
     f = _scalar(ident, prod.dtype)
     x = torch.where(match, prod, f)
-    if add == "MIN":
+    plain = not typ._view and typ._kind in "iuf"
+    if nm == "PLUS" and typ._kind != "b":
+        return x.sum(1, dtype=prod.dtype)
+    if nm == "MIN" and plain:
         return x.amin(1)
-    if add == "MAX":
+    if nm == "MAX" and plain:
         return x.amax(1)
-    return x.prod(1, dtype=prod.dtype)
+    if nm == "TIMES" and typ._kind != "b":
+        return x.prod(1, dtype=prod.dtype)
+    return _tree_fold(add.apply, x)
 
 
 def _pair_fold_plain(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb,
                      width, mul, add):
     """Plain version of kernel 11 (``pair_fold``): keys and values,
     sorted together (the values follow the sort's indices), products at
-    the matches, a masked fold per row."""
-    ident = identity(add, _np_dtype(a_vals.dtype))
+    the matches, a masked fold per row (ANY as the kernel folds it)."""
+    typ = _kernels.value_type(a_vals, add, mul)
+    mul = _kernels.binaryop_of(mul, typ)
+    add = _kernels.monoid_of(add, typ)
+    ident = _kernels.fold_fill(add, typ)
     cnts = [torch.zeros(0, dtype=torch.int32, device=a_cols.device)]
     vals = [torch.zeros(0, dtype=a_vals.dtype, device=a_cols.device)]
     for lo, hi in _chunks(a_st.numel(), width):
         keys, v = _fill_plain(a_cols, b_cols, a_st[lo:hi], wa[lo:hi],
                               b_st[lo:hi], wb[lo:hi], width, a_vals, b_vals,
-                              ident)
+                              typ.scalar(ident))
         ks, order = torch.sort(keys, dim=1)
         v = torch.gather(v, 1, order)
         match = _match(ks)
-        prod = MULS[mul][0](v[:, :-1], v[:, 1:])
+        prod = mul.apply(v[:, :-1], v[:, 1:])
         cnts.append(match.sum(1, dtype=torch.int32))
-        vals.append(_masked_fold(add, match, prod, ident))
+        vals.append(_masked_fold(add, typ, match, prod, typ.scalar(ident)))
     return torch.cat(cnts), torch.cat(vals)
 
 
@@ -317,36 +325,45 @@ def pair_fold(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb, width,
               mul, add):
     """Kernel 11: per mask edge, the match count (int32) and the fold
     with add monoid `add` of ``mul(a_val, b_val)`` over the matches (the
-    monoid's identity where none); values float32 or int32, op names of
-    ``semiring.MULS`` / ``ADDS``.  `width` (the bucket's, >= wa + wb)
-    shapes the plain version's key rows; with the edge count it picks
-    the kernel (``fold_path``) and its lanes per edge."""
+    fill of ``_kernels.fold_fill`` where none: ANY folds as MAX); values
+    of any type of 4 bytes or less (held dtype), ops as objects or names
+    at the type the values' dtype is read as.  `width` (the bucket's,
+    >= wa + wb) shapes the plain version's key rows; with the edge count
+    it picks the kernel (``fold_path``) and its lanes per edge; a mul or
+    fold the algebra added (ISEQ .. ISLE, LOR, LAND, LXOR; the logical
+    and bitwise folds) takes the first port's warp kernel at every
+    width (csrc/spgemm.cu)."""
     if a_cols.device.type == "cpu":
         return _pair_fold_plain(a_cols, a_vals, b_cols, b_vals, a_st, wa,
                                 b_st, wb, width, mul, add)
     name = "pair_fold"
-    _check_intersect(name, a_cols, b_cols, a_st, wa, b_st, wb, a_vals,
-                     b_vals)
-    code = _kernels.dtype_code(a_vals, name)
+    typ = _kernels.value_type(a_vals, add, mul)
+    mul = _kernels.binaryop_of(mul, typ)
+    add = _kernels.monoid_of(add, typ)
+    code = _kernels.dtype_code(typ, name)
+    mop = _kernels.mul_code(mul, typ, name)
+    fop = _kernels.fold_code(add, typ, name)
     if b_vals.dtype != a_vals.dtype:
         raise TypeError(f"{name}: values of two dtypes")
-    ident = identity(add, _np_dtype(a_vals.dtype))
+    a_w = _kernels.to_words(a_vals, typ)
+    b_w = _kernels.to_words(b_vals, typ)
+    _check_intersect(name, a_cols, b_cols, a_st, wa, b_st, wb, a_w, b_w)
     E = a_st.numel()
     cnt = torch.empty(E, dtype=torch.int32, device=a_cols.device)
-    vals = torch.empty(E, dtype=a_vals.dtype, device=a_cols.device)
-    if a_vals.numel() != a_cols.numel() or b_vals.numel() != b_cols.numel():
+    vals = torch.empty(E, dtype=a_w.dtype, device=a_cols.device)
+    if a_w.numel() != a_cols.numel() or b_w.numel() != b_cols.numel():
         raise ValueError(f"{name}: values and column ids of unequal lengths")
     rc = _kernels.lib().pgb_pair_fold(
-        a_cols.data_ptr(), a_vals.data_ptr(), a_cols.numel(),
-        b_cols.data_ptr(), b_vals.data_ptr(), b_cols.numel(), a_st.data_ptr(),
+        a_cols.data_ptr(), a_w.data_ptr(), a_cols.numel(),
+        b_cols.data_ptr(), b_w.data_ptr(), b_cols.numel(), a_st.data_ptr(),
         wa.data_ptr(), b_st.data_ptr(), wb.data_ptr(), cnt.data_ptr(),
         vals.data_ptr(), E, int(width), int(fold_path(width, E) == "runs"),
-        code, MULS[mul][1], ADDS[add][1],
-        _kernels.fill_bits(ident, a_vals.dtype),
+        code, mop, fop,
+        _kernels.fill_bits(_kernels.fold_fill(add, typ), typ),
         _kernels.stream())
     _kernels.check(rc, name)
     _kernels.count(name)
-    return cnt, vals
+    return cnt, _kernels.from_words(vals, typ)
 
 
 def _pair_count_chain(a_cols, b_cols, a_st, wa, b_st, wb, width):
@@ -362,11 +379,13 @@ def _pair_count_chain(a_cols, b_cols, a_st, wa, b_st, wb, width):
 
 
 def _generic_intersect(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb,
-                       semiring, out_dt, width, narrow):
+                       mi, mj, add, mul, typ, width, narrow):
     """One chunk of one width bucket (spgemm.py:684-771): lanes [0, wa)
     hold A's entries, [wa, wa+wb) B's, the rest distinct pad sentinels;
-    one sort along each row, adjacent matches, products, masked fold.
-    Returns (values in out_dt, int32 counts)."""
+    one sort along each row, adjacent matches, products (a positional
+    mul reads the matched column and the mask edge's row `mi` and
+    column `mj`), masked fold, all at type `typ`.  Returns (values,
+    int32 counts)."""
     lane = torch.arange(width, device=a_cols.device)
     wa_ = wa.long()[:, None]
     in_a = lane < wa_
@@ -379,21 +398,30 @@ def _generic_intersect(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb,
     keys = torch.where(in_a, a_cols[src_a].to(kt) * 2,
                        torch.where(in_b, b_cols[src_b].to(kt) * 2 + 1,
                                    sent + 2 * lane.to(kt)))
-    ident = semiring.identity(_np_dtype(out_dt))
-    if semiring.mul == "PAIR":
+    ident = typ.scalar(add.identity(typ.numpy_dtype))
+    out_dt = typ.torch_dtype
+    if mul.builtin and mul.positional is None and mul.op == "PAIR":
         # PAIR never reads the values: sort the keys alone
         ks = torch.sort(keys, dim=1).values
         match = _match(ks)
         prod = torch.ones(match.shape, dtype=out_dt, device=keys.device)
+    elif mul.positional is not None:
+        ks = torch.sort(keys, dim=1).values
+        match = _match(ks)
+        kk = (ks[:, :-1] >> 1).long()
+        pos = dict(i0=mi.long()[:, None], j0=kk, i1=kk, j1=mj.long()[:, None])
+        prod = torch.broadcast_to(mul.apply(None, None, pos).to(out_dt),
+                                  match.shape)
     else:
-        va = torch.where(in_a, a_vals[src_a].to(out_dt), 0)
-        vb = torch.where(in_b, b_vals[src_b].to(out_dt), 0)
+        zero = torch.zeros((), dtype=out_dt, device=keys.device)
+        va = torch.where(in_a, a_vals[src_a], zero)
+        vb = torch.where(in_b, b_vals[src_b], zero)
         ks, order = torch.sort(keys, dim=1)
         va = torch.gather(va, 1, order)
         vb = torch.gather(vb, 1, order)
         match = _match(ks)
-        prod = MULS[semiring.mul][0](va[:, :-1], vb[:, 1:])
-    return (_masked_fold(semiring.add, match, prod, ident),
+        prod = mul.apply(va[:, :-1], vb[:, 1:]).to(out_dt)
+    return (_masked_fold(add, typ, match, prod, ident),
             match.sum(1, dtype=torch.int32))
 
 
@@ -439,10 +467,11 @@ def _buckets(total, min_width):
 
 
 def _heavy(a_cols, a_vals, bt_cols, bt_vals, a_st, wa, b_st, wb, heavy,
-           semiring, out_dtype, out_vals, out_cnt):
+           m_rows, m_cols, add, mul, typ, out_vals, out_cnt):
     """Edges whose lists exceed WIDTH_CAP: host-side sorted intersections,
-    products and one generic segment fold (spgemm.py:809-848)."""
-    vas, vbs, eids = [], [], []
+    products and one generic segment fold (spgemm.py:809-848), with the
+    ops' torch closures at type `typ`."""
+    vas, vbs, coms, eids = [], [], [], []
     for e in np.nonzero(heavy)[0]:
         ka = a_cols[a_st[e]:a_st[e] + wa[e]]
         kb = bt_cols[b_st[e]:b_st[e] + wb[e]]
@@ -451,20 +480,25 @@ def _heavy(a_cols, a_vals, bt_cols, bt_vals, a_st, wa, b_st, wb, heavy,
         if len(common):
             vas.append(a_vals[a_st[e] + ia])
             vbs.append(bt_vals[b_st[e] + ib])
+            coms.append(common)
             eids.append(np.full(len(common), e, np.int64))
             out_cnt[e] = len(common)
     if not eids:
         return
     eid = np.concatenate(eids)
-    va = np.concatenate(vas).astype(out_dtype)
-    vb = np.concatenate(vbs).astype(out_dtype)
-    mul = semiring.mul
-    if mul in _NP_MUL:
-        prods = _NP_MUL[mul](va, vb).astype(out_dtype)
+    if mul.positional is not None:
+        key, off = mul.positional
+        com = np.concatenate(coms)
+        src = dict(i0=m_rows[eid], j0=com, i1=com, j1=m_cols[eid])
+        prods = (src[key] + off).astype(typ.numpy_dtype)
     else:
-        prods = MULS[mul][0](torch.from_numpy(va),
-                             torch.from_numpy(vb)).numpy().astype(out_dtype)
-    ue, red = segment_fold_generic(eid, prods, _NP_ADD[semiring.add])
+        prods = typ.to_numpy(mul.apply(typ.to_torch(np.concatenate(vas)),
+                                       typ.to_torch(np.concatenate(vbs))))
+
+    def fold(x, y):
+        return typ.to_numpy(add.apply(typ.to_torch(x), typ.to_torch(y)))
+
+    ue, red = segment_fold_generic(eid, prods, fold)
     out_vals[ue] = red
 
 
@@ -482,6 +516,8 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
     stats["calls"] += 1
     sec = stats["seconds"]
     out_dtype = np.dtype(out_dtype)
+    typ = types._gb_from_dtype(out_dtype)
+    add, mul = ops_at(semiring, typ)
     nmask = len(m_rows)
     if nmask == 0:
         return (np.empty(0, np.int64), np.empty(0, np.int64),
@@ -497,8 +533,9 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
     heavy = total > WIDTH_CAP
     if heavy.any():
         stats["heavy_edges"] += int(heavy.sum())
-        _heavy(a_cols, a_vals, bt_cols, bt_vals, a_st, wa, b_st, wb, heavy,
-               semiring, out_dtype, out_vals, out_cnt)
+        _heavy(a_cols, np.asarray(a_vals).astype(out_dtype), bt_cols,
+               np.asarray(bt_vals).astype(out_dtype), a_st, wa, b_st, wb,
+               heavy, m_rows, m_cols, add, mul, typ, out_vals, out_cnt)
     t0 = add_seconds(sec, "heavy", t0)
 
     maxcol = max(int(a_cols.max()) if len(a_cols) else 0,
@@ -508,20 +545,31 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
     def fits(n, itemsize):
         return (n + _RESIDENT_PAD) * itemsize <= _RESIDENT_CAP
 
-    add, mul = semiring.add, semiring.mul
     card = _fast_paths(dev)
-    # PAIR products are all 1: PLUS folds to the match count, and MIN,
-    # MAX and TIMES (idempotent over ones) to 1 wherever a match exists
-    pair_fast = (narrow and mul == "PAIR" and card
+    add_name = add.binaryop.op if add.binaryop.builtin else None
+    # PAIR products are all 1: PLUS folds to the match count, and the
+    # idempotent monoids to 1 wherever a match exists (spgemm.py:886-906;
+    # BXOR, BXNOR, LXOR, EQ and user monoids take the generic intersect)
+    add_is_plus = add_name == "PLUS"
+    add_is_one = add_name in ("MIN", "MAX", "TIMES", "ANY", "LOR", "LAND",
+                              "BOR", "BAND")
+    builtin_mul = mul.builtin and mul.positional is None
+    pair_fast = (narrow and builtin_mul and mul.op == "PAIR"
+                 and (add_is_plus or add_is_one) and card
                  and fits(len(a_cols), 4) and fits(len(bt_cols), 4))
-    val_fast = (not pair_fast and narrow and out_dtype.kind in "fi"
-                and out_dtype.itemsize == 4 and card
+    # the valued path (spgemm.py:907-913): a non-positional, non-UDT
+    # semiring with an int or float output of 4 bytes or less, whose ops
+    # the kernel has codes for
+    val_fast = (not pair_fast and narrow and mul.positional is None
+                and mul.udt is None and out_dtype.kind in "fi"
+                and out_dtype.itemsize <= 4 and card
+                and builtin_mul and mul.op in _kernels.MULS
+                and add_name in _kernels.FOLDS
                 and fits(len(a_cols), 8) and fits(len(bt_cols), 8)
                 and os.environ.get("PYGB_VAL_FUSED", "1") != "0")
     # the fused paths take whole 128-lane rows
     buckets = _buckets(total, 128 if pair_fast or val_fast else 8)
 
-    torch_dt = _torch_dtype(out_dtype)
     parts = []          # (edge ids, int32 counts, values or None)
     if pair_fast or val_fast:
         def cols(c):
@@ -534,8 +582,8 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
         meta = as_tensor(np.stack([a_st[order], wa[order], b_st[order],
                                    wb[order]]).astype(np.int32), dev)
         if val_fast:
-            a_v, b_v = (as_tensor(np.asarray(v if len(v) else [0], out_dtype),
-                                  dev) for v in (a_vals, bt_vals))
+            a_v, b_v = (typ.to_torch(v if len(v) else np.zeros(1, out_dtype),
+                                     dev) for v in (a_vals, bt_vals))
         fused = os.environ.get("PYGB_PAIR_FUSED", "1") != "0"
         t0 = add_seconds(sec, "plan", t0)
         off = 0
@@ -550,24 +598,26 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
             else:
                 parts.append((sel, _pair_count_chain(a_c, b_c, *m, w), None))
     else:
-        # generic operands as int64 columns and out_dtype values
+        # generic operands as int64 columns and values of the out type
         def ops(c, v):
             c = c if len(c) else np.zeros(1, np.int64)
             v = v if len(v) else np.zeros(1, out_dtype)
             return (as_tensor(np.asarray(c, np.int64), dev),
-                    as_tensor(np.asarray(v, out_dtype), dev))
+                    typ.to_torch(v, dev))
 
         a_c, a_v = ops(a_cols, a_vals)
         b_c, b_v = ops(bt_cols, bt_vals)
         meta = [as_tensor(x.astype(np.int32), dev)
                 for x in (a_st, wa, b_st, wb)]
+        mi_mj = [as_tensor(np.asarray(x, np.int64), dev)
+                 for x in (m_rows, m_cols)]
         t0 = add_seconds(sec, "plan", t0)
         for w, sel in buckets:
             sel_t = as_tensor(sel, dev)
             for lo, hi in _chunks(len(sel), w):
-                m = [x[sel_t[lo:hi]] for x in meta]
-                c, cnt = _generic_intersect(a_c, a_v, b_c, b_v, *m, semiring,
-                                            torch_dt, w, narrow)
+                m = [x[sel_t[lo:hi]] for x in meta + mi_mj]
+                c, cnt = _generic_intersect(a_c, a_v, b_c, b_v, *m, add, mul,
+                                            typ, w, narrow)
                 parts.append((sel[lo:hi], cnt, c))
     t0 = add_seconds(sec, "dispatch", t0)
 
@@ -582,9 +632,10 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
             cnt_h = cnt_all[off:off + len(sel)]
             off += len(sel)
             if v is not None:
-                out_vals[sel] = pulled[0][voff:voff + len(sel)]
+                out_vals[sel] = pulled[0][voff:voff + len(sel)].view(
+                    out_dtype)
                 voff += len(sel)
-            elif add == "PLUS":
+            elif add_is_plus:
                 out_vals[sel] = cnt_h.astype(out_dtype)
             else:   # an idempotent monoid over all-1 products
                 out_vals[sel] = (cnt_h > 0).astype(out_dtype)

@@ -30,8 +30,8 @@ import torch
 from .._device import as_tensor
 from .mono import MonoPlan, fold_plans, mono_cascade, mono_gather
 from .perm import PermPlan, _choose_shape
-from ..semiring import FLIPPED
-from ..types import torch_dtype
+from .. import types
+from ..semiring import FLIPPED, ops_at
 
 # build cost is significant (seconds): only worth it on the hot path
 MIN_NNZ = 1 << 15
@@ -46,10 +46,23 @@ PLAN_CACHE_DIR = os.environ.get(
 _PLAN_VERSION = 2
 
 
+# the engine's folds and multiplies (xspmv.py:49-78)
+_ADDS = ("PLUS", "MIN", "MAX", "TIMES")
+_MULS = ("TIMES", "PLUS", "MINUS", "RMINUS", "DIV", "RDIV", "FIRST",
+         "SECOND", "PAIR", "MIN", "MAX")
+
+
 def supported(semiring, dtype, nnz):
+    """The JAX package's rule (xspmv.py:71-78): built-in ops of the
+    engine's tables over an int, uint or float dtype, and enough
+    entries to pay for the plan."""
     if nnz < MIN_NNZ:
         return False
-    return np.dtype(dtype).kind in "fiu"
+    add = semiring.add_monoid.binaryop
+    mul = semiring.mul_op
+    return (add.builtin and mul.builtin and add.op in _ADDS
+            and mul.op in _MULS and mul.positional is None
+            and np.dtype(dtype).kind in "fiu")
 
 
 class XSpmvPlan:
@@ -264,18 +277,22 @@ def xspmv(plan, x, semiring, out_dtype, flip_mul=False):
     flip_mul: the multiply's operand roles are (x, A) instead of (A, x)
     -- required by vxm with non-commutative muls."""
     out_dtype = np.dtype(out_dtype)
-    tdt = torch_dtype(out_dtype)
-    addop = semiring.add
-    fill = semiring.identity(out_dtype)
+    typ = types._gb_from_dtype(out_dtype)
+    tdt = typ.torch_dtype
+    addop, mulop = ops_at(semiring, typ)
+    fill = typ.scalar(addop.identity(out_dtype))
 
     xx = x.to(tdt)
     # effective mul under flipped operand roles: vxm passes
-    # flip_mul=True, where FIRST selects the vector element
-    mul_name = semiring.mul
+    # flip_mul=True, where FIRST selects the vector element; integer DIV
+    # truncates with the SuiteSparse zero rule (the JAX package's xspmv
+    # divides truly here: ROADMAP.md Queue C)
+    mul_name = mulop.op
     if flip_mul:
         mul_name = FLIPPED.get(mul_name, mul_name)
+        mulop = getattr(typ, mul_name)
     vals_col = plan.vals_col.to(tdt)
-    if mul_name == "FIRST" and addop == "PLUS":
+    if mul_name == "FIRST" and addop.op == "PLUS":
         # product = matrix value: the column-order values ARE the
         # products (PLUS only: vals_col pads are zeros = the identity)
         prod = vals_col
@@ -286,7 +303,7 @@ def xspmv(plan, x, semiring, out_dtype, flip_mul=False):
     else:
         xc = mono_gather(plan.pre, xx, fill)
         prod = mono_gather(plan.decode, xc.reshape(-1), fill,
-                           vals=vals_col, mul=mul_name)
+                           vals=vals_col, mul=mulop)
     # the permutation pads the tail with the fold identity; the level-0
     # 8-ary fold is fused into its final ascend pass
     acc1, _ = plan.perm.apply_fold8(prod.reshape(-1), fill, addop)

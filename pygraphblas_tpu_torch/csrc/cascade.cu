@@ -330,15 +330,17 @@ static int launch_cascade(int fold_op, const void* src, int64_t src_len,
                          int64_t, int, uint32_t, cudaStream_t);
   static const Launch by_op[] = {
       launch_cascade_op<T, FOLD_PLUS>, launch_cascade_op<T, FOLD_MIN>,
-      launch_cascade_op<T, FOLD_MAX>, launch_cascade_op<T, FOLD_TIMES>};
-  if (fold_op < FOLD_PLUS || fold_op > FOLD_TIMES) return -1;
+      launch_cascade_op<T, FOLD_MAX>, launch_cascade_op<T, FOLD_TIMES>,
+      launch_cascade_op<T, FOLD_MAX>};      // ANY folds as MAX
+  if (fold_op < FOLD_PLUS || fold_op > FOLD_ANY) return -1;
   return by_op[fold_op](src, src_len, start, out, n_rows, levels, fill_bits,
                         st);
 }
 
 // src: the level-0 source (src_len elements, at least the table's last
 // entry); start: n_rows + 1 int32, non-decreasing from 0; out: n_rows
-// elements; 1 <= levels <= 32.
+// elements; 1 <= levels <= 32; fold_op one of the xspmv folds (PLUS,
+// MIN, MAX, TIMES; ANY folds as MAX).
 extern "C" int pgb_mono_cascade(const void* src, int64_t src_len,
                                 const void* start, void* out,
                                 int64_t n_rows, int levels, int dtype,
@@ -347,11 +349,6 @@ extern "C" int pgb_mono_cascade(const void* src, int64_t src_len,
   if (levels < 1 || levels > cascade::MAX_LEVELS || n_rows < 0) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t* s = (const int32_t*)start;
-  if (dtype == DT_F32)
-    return launch_cascade<float>(fold_op, src, src_len, s, out, n_rows,
-                                 levels, fill_bits, st);
-  if (dtype == DT_I32)
-    return launch_cascade<int32_t>(fold_op, src, src_len, s, out, n_rows,
-                                   levels, fill_bits, st);
-  return -1;
+  PGB_DISPATCH_WORD(dtype, launch_cascade<T>(fold_op, src, src_len, s, out,
+                                             n_rows, levels, fill_bits, st));
 }

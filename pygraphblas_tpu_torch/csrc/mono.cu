@@ -22,13 +22,14 @@
 
 #include "ops.cuh"
 
-template <typename T>
+// EXT: the mul or fold is one the algebra added (ops.cuh)
+template <typename T, bool EXT>
 __global__ void mono_span_kernel(const int32_t* __restrict__ qg,
                                  const int16_t* __restrict__ dm,
                                  const T* __restrict__ src, int64_t src_len,
                                  const T* __restrict__ vals,
                                  T* __restrict__ out, int64_t n_groups,
-                                 int mul_op, int fold_op, T fill) {
+                                 int mul_op, int fold_op, T fill, int nt) {
   int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_groups * 128) return;
   int64_t g = t >> 7;
@@ -45,12 +46,12 @@ __global__ void mono_span_kernel(const int32_t* __restrict__ qg,
       // the clip of the plain version (mono.py:221)
       i = i < 0 ? 0 : (i >= src_len ? src_len - 1 : i);
       v = src[i];
-      if (mul_op >= 0) v = apply_mul<T>(mul_op, vals[cell], v);
+      if (mul_op >= 0) v = apply_mul<T, EXT>(mul_op, vals[cell], v, nt);
     }
     if (fold_op < 0)
       out[cell] = v;
     else
-      acc = s == 0 ? v : apply_fold<T>(fold_op, acc, v);
+      acc = s == 0 ? v : apply_fold<T, EXT>(fold_op, acc, v);
   }
   if (fold_op >= 0) out[g * 128 + l] = acc;
 }
@@ -59,15 +60,19 @@ template <typename T>
 static int launch_span(const int32_t* qg, const int16_t* dm, const void* src,
                        int64_t src_len, const void* vals, void* out,
                        int64_t n_groups, int mul_op, int fold_op,
-                       uint32_t fill_bits, cudaStream_t stream) {
+                       uint32_t fill_bits, int nt, cudaStream_t stream) {
   T fill;
   memcpy(&fill, &fill_bits, sizeof(T));
   const int threads = 256;
   int64_t blocks = (n_groups * 128 + threads - 1) / threads;
-  if (blocks > 0)
-    mono_span_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+  if (blocks > 0 && (mul_ext_code(mul_op) || fold_ext_code(fold_op)))
+    mono_span_kernel<T, true><<<(unsigned)blocks, threads, 0, stream>>>(
         qg, dm, (const T*)src, src_len, (const T*)vals, (T*)out, n_groups,
-        mul_op, fold_op, fill);
+        mul_op, fold_op, fill, nt);
+  else if (blocks > 0)
+    mono_span_kernel<T, false><<<(unsigned)blocks, threads, 0, stream>>>(
+        qg, dm, (const T*)src, src_len, (const T*)vals, (T*)out, n_groups,
+        mul_op, fold_op, fill, nt);
   return (int)cudaGetLastError();
 }
 
@@ -76,15 +81,13 @@ extern "C" int pgb_mono_span(const void* qg, const void* dm, const void* src,
                              int64_t n_groups, int dtype, int mul_op,
                              int fold_op, uint32_t fill_bits, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DT_F32)
-    return launch_span<float>((const int32_t*)qg, (const int16_t*)dm, src,
-                              src_len, vals, out, n_groups, mul_op, fold_op,
-                              fill_bits, st);
-  if (dtype == DT_I32)
-    return launch_span<int32_t>((const int32_t*)qg, (const int16_t*)dm, src,
-                                src_len, vals, out, n_groups, mul_op,
-                                fold_op, fill_bits, st);
-  return -1;
+  if (fold_op >= 0 && !(dtype == DT_F32 ? fold_ok<float>(fold_op)
+                                        : fold_ok<int32_t>(fold_op)))
+    return -1;
+  PGB_DISPATCH_WORD(dtype, launch_span<T>((const int32_t*)qg,
+                                          (const int16_t*)dm, src, src_len,
+                                          vals, out, n_groups, mul_op,
+                                          fold_op, fill_bits, dtype, st));
 }
 
 // mono_rows, the per-row encoding (mono.py:_mono_pallas):
@@ -136,6 +139,7 @@ __device__ __forceinline__ void load_dm4(const int32_t* p, int d[4]) {
 
 __device__ __forceinline__ int as_bits(float x) { return __float_as_int(x); }
 __device__ __forceinline__ int as_bits(int32_t x) { return x; }
+__device__ __forceinline__ int as_bits(uint32_t x) { return (int)x; }
 template <typename T>
 __device__ __forceinline__ T from_bits(int x);
 template <>
@@ -144,6 +148,10 @@ __device__ __forceinline__ float from_bits<float>(int x) {
 }
 template <>
 __device__ __forceinline__ int32_t from_bits<int32_t>(int x) { return x; }
+template <>
+__device__ __forceinline__ uint32_t from_bits<uint32_t>(int x) {
+  return (uint32_t)x;
+}
 
 template <typename T>
 __device__ __forceinline__ void store4(T* p, const T v[4]) {
@@ -167,7 +175,7 @@ mono_rows_kernel(const int32_t* __restrict__ q0, const D* __restrict__ dm,
                  const int32_t* __restrict__ xblk, int64_t xb,
                  int blk_shift, const T* __restrict__ src, int64_t src_len,
                  const T* __restrict__ vals, T* __restrict__ out,
-                 int64_t n_groups, int mul_op, T fill) {
+                 int64_t n_groups, int mul_op, T fill, int nt) {
   const int lane = threadIdx.x & 31;
   const int64_t g = (int64_t)blockIdx.x * kRowsWarps + (threadIdx.x >> 5);
   if (g >= n_groups) return;               // warp-uniform
@@ -202,7 +210,7 @@ mono_rows_kernel(const int32_t* __restrict__ q0, const D* __restrict__ dm,
       load4(vals + cell, w);
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        if (d[u] >= 0) v[u] = apply_mul<T>(mul_op, w[u], v[u]);
+        if (d[u] >= 0) v[u] = apply_mul<T>(mul_op, w[u], v[u], nt);
     }
     if constexpr (FOLD < 0) {
       store4(out + cell, v);
@@ -220,7 +228,7 @@ static int launch_rows(const int32_t* q0, const void* dm, const int32_t* xblk,
                        int64_t xb, int blk_shift, const void* src,
                        int64_t src_len, const void* vals, void* out,
                        int64_t n_groups, int mul_op, uint32_t fill_bits,
-                       cudaStream_t stream) {
+                       int nt, cudaStream_t stream) {
   T fill;
   memcpy(&fill, &fill_bits, sizeof(T));
   const int64_t blocks = (n_groups + kRowsWarps - 1) / kRowsWarps;
@@ -228,7 +236,7 @@ static int launch_rows(const int32_t* q0, const void* dm, const int32_t* xblk,
     mono_rows_kernel<T, D, FOLD><<<(unsigned)blocks, kRowsWarps * 32, 0,
                                    stream>>>(
         q0, (const D*)dm, xblk, xb, blk_shift, (const T*)src, src_len,
-        (const T*)vals, (T*)out, n_groups, mul_op, fill);
+        (const T*)vals, (T*)out, n_groups, mul_op, fill, nt);
   return (int)cudaGetLastError();
 }
 
@@ -237,34 +245,25 @@ static int launch_rows_fold(int fold_op, const int32_t* q0, const void* dm,
                             const int32_t* xblk, int64_t xb, int blk_shift,
                             const void* src, int64_t src_len,
                             const void* vals, void* out, int64_t n_groups,
-                            int mul_op, uint32_t fill_bits,
+                            int mul_op, uint32_t fill_bits, int nt,
                             cudaStream_t st) {
+#define PGB_ROWS(F)                                                         \
+  launch_rows<T, D, F>(q0, dm, xblk, xb, blk_shift, src, src_len, vals, out, \
+                       n_groups, mul_op, fill_bits, nt, st)
   switch (fold_op) {
-    case -1:
-      return launch_rows<T, D, -1>(q0, dm, xblk, xb, blk_shift, src, src_len,
-                                   vals, out, n_groups, mul_op, fill_bits, st);
-    case FOLD_PLUS:
-      return launch_rows<T, D, FOLD_PLUS>(q0, dm, xblk, xb, blk_shift, src,
-                                          src_len, vals, out, n_groups,
-                                          mul_op, fill_bits, st);
-    case FOLD_MIN:
-      return launch_rows<T, D, FOLD_MIN>(q0, dm, xblk, xb, blk_shift, src,
-                                         src_len, vals, out, n_groups, mul_op,
-                                         fill_bits, st);
-    case FOLD_MAX:
-      return launch_rows<T, D, FOLD_MAX>(q0, dm, xblk, xb, blk_shift, src,
-                                         src_len, vals, out, n_groups, mul_op,
-                                         fill_bits, st);
-    case FOLD_TIMES:
-      return launch_rows<T, D, FOLD_TIMES>(q0, dm, xblk, xb, blk_shift, src,
-                                           src_len, vals, out, n_groups,
-                                           mul_op, fill_bits, st);
+    case -1: return PGB_ROWS(-1);
+    case FOLD_PLUS: return PGB_ROWS(FOLD_PLUS);
+    case FOLD_MIN: return PGB_ROWS(FOLD_MIN);
+    case FOLD_MAX: case FOLD_ANY: return PGB_ROWS(FOLD_MAX);
+    case FOLD_TIMES: return PGB_ROWS(FOLD_TIMES);
   }
+#undef PGB_ROWS
   return -1;
 }
 
 // dm_bytes: 2 (int16) or 4 (int32); xblk may be null (resident plan);
-// blk a power of two; dm, vals and out 16-byte aligned
+// blk a power of two; dm, vals and out 16-byte aligned; fold_op one of
+// the xspmv folds (PLUS, MIN, MAX, TIMES; ANY folds as MAX) or -1
 extern "C" int pgb_mono_rows(const void* q0, const void* dm, int dm_bytes,
                              const void* xblk, int64_t xb, int64_t blk,
                              const void* src, int64_t src_len,
@@ -277,23 +276,15 @@ extern "C" int pgb_mono_rows(const void* q0, const void* dm, int dm_bytes,
   if ((uintptr_t)dm % 16 || (uintptr_t)vals % 16 || (uintptr_t)out % 16)
     return -1;
   const int shift = __builtin_ctzll((unsigned long long)blk);
-  if (dtype == DT_F32 && dm_bytes == 2)
-    return launch_rows_fold<float, int16_t>(fold_op, q, dm, xk, xb, shift,
-                                            src, src_len, vals, out,
-                                            n_groups, mul_op, fill_bits, st);
-  if (dtype == DT_F32 && dm_bytes == 4)
-    return launch_rows_fold<float, int32_t>(fold_op, q, dm, xk, xb, shift,
-                                            src, src_len, vals, out,
-                                            n_groups, mul_op, fill_bits, st);
-  if (dtype == DT_I32 && dm_bytes == 2)
-    return launch_rows_fold<int32_t, int16_t>(fold_op, q, dm, xk, xb, shift,
-                                              src, src_len, vals, out,
-                                              n_groups, mul_op, fill_bits,
-                                              st);
-  if (dtype == DT_I32 && dm_bytes == 4)
-    return launch_rows_fold<int32_t, int32_t>(fold_op, q, dm, xk, xb, shift,
-                                              src, src_len, vals, out,
-                                              n_groups, mul_op, fill_bits,
-                                              st);
+  if (dm_bytes == 2)
+    PGB_DISPATCH_WORD(dtype, (launch_rows_fold<T, int16_t>(
+                                 fold_op, q, dm, xk, xb, shift, src, src_len,
+                                 vals, out, n_groups, mul_op, fill_bits,
+                                 dtype, st)));
+  if (dm_bytes == 4)
+    PGB_DISPATCH_WORD(dtype, (launch_rows_fold<T, int32_t>(
+                                 fold_op, q, dm, xk, xb, shift, src, src_len,
+                                 vals, out, n_groups, mul_op, fill_bits,
+                                 dtype, st)));
   return -1;
 }

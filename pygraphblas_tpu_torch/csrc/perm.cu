@@ -403,16 +403,63 @@ inner3_kernel(const uint32_t* __restrict__ x, const int8_t* __restrict__ ai,
   cluster.sync();           // no CTA leaves while others read its slab
 }
 
-// per-row lane gather (perm.py:_lane_gather): out[r, l] = x[r, idx[r, l]]
-// over (rows, 128).  One thread a cell; a warp reads 32 idx bytes and
-// one 512 B source row, so every access coalesces.
-template <typename T>
-__global__ void lane_gather_kernel(const T* __restrict__ x,
-                                   const int8_t* __restrict__ idx,
-                                   T* __restrict__ out, int64_t n) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  out[t] = x[(t & ~(int64_t)127) + (idx[t] & 127)];
+// per-row lane gather (replaces perm.py:_lane_gather):
+//   out[r, l] = x[r, idx[r, l] & 127] over (rows, 128)
+// (the & 127 keeps a bad index inside its row; the plans give 0..127).
+//
+// Bound: bytes, 9 a cell (x and out 4 each, idx 1): 0.0169 ms at
+// (49152, 128) on an H100 at 3.35 TB/s.  The first port (one thread a
+// cell, a 4-byte load and store and a 1-byte index load each: 0.0338
+// ms there, chip_smoke on an H100 80GB HBM3 at 700 W) issued four
+// memory instructions for every 9 bytes.  Here a warp takes whole rows:
+// one 16-byte load a lane brings in the 512-byte source row, one 4-byte
+// load a lane its four indices, the row goes to a per-warp row of
+// shared memory, and each lane gathers its four cells from it and
+// stores them as one 16-byte word.  A warp keeps ROWS rows in flight
+// (all their loads issued before the first is staged), and persistent
+// blocks, as many as the card holds at once, stride over the row
+// groups.
+namespace lg {
+constexpr int T = 256;              // threads a block
+constexpr int WARPS = T / 32;
+constexpr int ROWS = 4;             // rows a warp keeps in flight
+}  // namespace lg
+
+__global__ void __launch_bounds__(lg::T)
+lane_gather_kernel(const uint32_t* __restrict__ x,
+                   const int8_t* __restrict__ idx,
+                   uint32_t* __restrict__ out, int64_t rows) {
+  using namespace lg;
+  __shared__ uint4 buf[WARPS][ROWS][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t step = (int64_t)gridDim.x * WARPS * ROWS;
+  for (int64_t r0 = ((int64_t)blockIdx.x * WARPS + w) * ROWS; r0 < rows;
+       r0 += step) {
+    uint4 v[ROWS];
+    uint32_t ix[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      if (r0 + k < rows) {
+        v[k] = __ldcs((const uint4*)(x + (r0 + k) * 128) + lane);
+        ix[k] = __ldcs((const uint32_t*)(idx + (r0 + k) * 128) + lane);
+      }
+    }
+    __syncwarp();               // the rows before are gathered
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k)
+      if (r0 + k < rows) buf[w][k][lane] = v[k];
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      if (r0 + k < rows) {
+        const uint32_t* row = (const uint32_t*)buf[w][k];
+        const uint32_t i = ix[k];
+        __stcs((uint4*)(out + (r0 + k) * 128) + lane,
+               make_uint4(row[i & 127], row[(i >> 8) & 127],
+                          row[(i >> 16) & 127], row[(i >> 24) & 127]));
+      }
+    }
+  }
 }
 
 // bottom Benes level (perm.py:_mid_pass) over (nsub, S, 128) tiles:
@@ -519,13 +566,29 @@ mid_pass_kernel(const uint32_t* __restrict__ x, const int8_t* __restrict__ a,
   }
 }
 
-template <typename T>
+// x, idx and out 16-byte aligned; persistent blocks, as many as the
+// card holds at once (queried once)
 static int launch_lane_gather(const void* x, const int8_t* idx, void* out,
                               int64_t rows, cudaStream_t st) {
-  const int64_t n = rows * 128;
-  if (n > 0)
-    lane_gather_kernel<T><<<(unsigned)((n + THREADS - 1) / THREADS), THREADS,
-                            0, st>>>((const T*)x, idx, (T*)out, n);
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, lane_gather_kernel, lg::T, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return -1;
+    blocks = per_sm * sms;
+  }
+  const int64_t groups = (rows + lg::WARPS * lg::ROWS - 1) /
+                         (lg::WARPS * lg::ROWS);
+  if (groups > 0)
+    lane_gather_kernel<<<(unsigned)(groups < blocks ? groups : blocks), lg::T,
+                         0, st>>>((const uint32_t*)x, idx, (uint32_t*)out,
+                                  rows);
   return (int)cudaGetLastError();
 }
 
@@ -652,51 +715,51 @@ static int launch_inner3(const uint32_t* x, const int8_t* ai,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// the pure moves take any word dtype code: they move 32-bit words
+static bool word_dtype(int dtype) { return dtype >= DT_F32 && dtype <= DT_BOOL; }
+
 extern "C" int pgb_lane_gather_tdesc(const void* x, const void* idx,
                                      void* out, int64_t g, int64_t rb,
                                      int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DT_F32)
-    return launch_tdesc<float>(x, (const int8_t*)idx, out, g, rb, st);
-  if (dtype == DT_I32)
-    return launch_tdesc<int32_t>(x, (const int8_t*)idx, out, g, rb, st);
-  return -1;
+  if (!word_dtype(dtype)) return -1;
+  return launch_tdesc<uint32_t>(x, (const int8_t*)idx, out, g, rb,
+                                (cudaStream_t)stream);
 }
 
+// fold_op: -1, or any fold code the word type takes (ops.cuh fold_ok)
 extern "C" int pgb_lane_gather_tasc(const void* x, const void* idx, void* out,
                                     int64_t g, int64_t rb, int dtype,
                                     int fold_op, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DT_F32)
-    return launch_tasc<float>(x, (const int8_t*)idx, out, g, rb, fold_op, st);
-  if (dtype == DT_I32)
-    return launch_tasc<int32_t>(x, (const int8_t*)idx, out, g, rb, fold_op,
-                                st);
-  return -1;
+  if (fold_op >= 0 && !(dtype == DT_F32 ? fold_ok<float>(fold_op)
+                                        : fold_ok<int32_t>(fold_op)))
+    return -1;
+  PGB_DISPATCH_WORD(dtype, launch_tasc<T>(x, (const int8_t*)idx, out, g, rb,
+                                          fold_op, st));
 }
 
+// x, idx and out 16-byte aligned
 extern "C" int pgb_lane_gather(const void* x, const void* idx, void* out,
                                int64_t rows, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DT_F32)
-    return launch_lane_gather<float>(x, (const int8_t*)idx, out, rows, st);
-  if (dtype == DT_I32)
-    return launch_lane_gather<int32_t>(x, (const int8_t*)idx, out, rows, st);
-  return -1;
+  if (!word_dtype(dtype)) return -1;
+  if ((uintptr_t)x % 16 || (uintptr_t)idx % 16 || (uintptr_t)out % 16)
+    return -1;
+  return launch_lane_gather(x, (const int8_t*)idx, out, rows,
+                            (cudaStream_t)stream);
 }
 
-// ss null when S == 1; x and out float32 or int32 (the kernel moves
-// 4-byte words); every pointer 16-byte aligned
+// ss null when S == 1; x and out 4-byte words of any dtype code (the
+// kernel moves them); every pointer 16-byte aligned
 extern "C" int pgb_mid_pass(const void* x, const void* a, const void* ss,
                             const void* c, void* out, int64_t nsub, int S,
                             int dtype, void* stream) {
-  if (dtype != DT_F32 && dtype != DT_I32) return -1;
+  if (!word_dtype(dtype)) return -1;
   return launch_mid_pass(x, (const int8_t*)a, (const int8_t*)ss,
                          (const int8_t*)c, out, nsub, S,
                          (cudaStream_t)stream);
 }
 
-// x and out: 4-byte words (float32 or int32: the kernel only moves
+// x and out: 4-byte words of any dtype code (the kernel only moves
 // them); every pointer 16-byte aligned; ss null when S == 1
 extern "C" int pgb_inner3(const void* x, const void* ai, const void* am,
                           const void* ss, const void* cm, const void* ci,

@@ -35,6 +35,9 @@
 // number of the call (`epoch`, a caller-kept counter, as the cascade's
 // flags in csrc/cascade.cu), so the status buffer is never cleared.
 // One launch of this kernel is the whole scan: `segfold` counts one.
+// It folds with any monoid of ops.cuh (the op a template argument): the
+// arithmetic ones, ANY, the logical ones over 0/1 words and the bitwise
+// ones, over float, int32 or uint32 words.
 //
 // Bound: bytes.  Each value and flag is read once and each result
 // written once (9 bytes an element); the statuses are 8 bytes a tile:
@@ -78,12 +81,15 @@ __device__ __forceinline__ Seg<T> combine(Seg<T> a, Seg<T> b) {
 
 __device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
 __device__ __forceinline__ uint32_t bits_of(int32_t v) { return (uint32_t)v; }
+__device__ __forceinline__ uint32_t bits_of(uint32_t v) { return v; }
 template <typename T>
 __device__ __forceinline__ T from_bits(uint32_t b);
 template <>
 __device__ __forceinline__ float from_bits<float>(uint32_t b) { return __uint_as_float(b); }
 template <>
 __device__ __forceinline__ int32_t from_bits<int32_t>(uint32_t b) { return (int32_t)b; }
+template <>
+__device__ __forceinline__ uint32_t from_bits<uint32_t>(uint32_t b) { return b; }
 
 template <typename T>
 __device__ __forceinline__ Seg<T> unpack(uint32_t v, uint32_t fh) {
@@ -306,23 +312,33 @@ int launch_op(const void* vals, const void* flags, void* out, int64_t n,
   return (int)cudaGetLastError();
 }
 
+// the instantiations: floats fold arithmetically (and ANY); uint32 words
+// only where order matters (MIN, MAX, ANY: the others take the int32
+// ones, the same bits)
+template <typename T>
+constexpr bool seg_inst(int op) {
+  if (std::is_same<T, uint32_t>::value)
+    return op == FOLD_MIN || op == FOLD_MAX || op == FOLD_ANY;
+  return fold_ok<T>(op);
+}
+
 template <typename T>
 int launch(const void* vals, const void* flags, void* out, int64_t n, int op,
            void* status, uint32_t epoch, void* ticket, cudaStream_t st) {
+#define PGB_SEG(OP)                                                       \
+  case OP:                                                                \
+    if constexpr (seg_inst<T>(OP))                                        \
+      return launch_op<T, OP>(vals, flags, out, n, status, epoch, ticket, \
+                              st);                                        \
+    return -1;
   switch (op) {
-    case FOLD_PLUS:
-      return launch_op<T, FOLD_PLUS>(vals, flags, out, n, status, epoch,
-                                     ticket, st);
-    case FOLD_MIN:
-      return launch_op<T, FOLD_MIN>(vals, flags, out, n, status, epoch,
-                                    ticket, st);
-    case FOLD_MAX:
-      return launch_op<T, FOLD_MAX>(vals, flags, out, n, status, epoch,
-                                    ticket, st);
-    case FOLD_TIMES:
-      return launch_op<T, FOLD_TIMES>(vals, flags, out, n, status, epoch,
-                                      ticket, st);
+    PGB_SEG(FOLD_PLUS) PGB_SEG(FOLD_MIN) PGB_SEG(FOLD_MAX)
+    PGB_SEG(FOLD_TIMES) PGB_SEG(FOLD_ANY) PGB_SEG(FOLD_LOR)
+    PGB_SEG(FOLD_LAND) PGB_SEG(FOLD_LXOR) PGB_SEG(FOLD_LXNOR)
+    PGB_SEG(FOLD_BOR) PGB_SEG(FOLD_BAND) PGB_SEG(FOLD_BXOR)
+    PGB_SEG(FOLD_BXNOR)
   }
+#undef PGB_SEG
   return -1;
 }
 
@@ -332,8 +348,9 @@ extern "C" int64_t pgb_segfold_tiles(int64_t n) {
   return (n + kTile - 1) / kTile;
 }
 
-// values (n,) float32 or int32, flags (n,) bool, n % 1024 == 0, below
-// 2^31 tiles; values and out 16-byte aligned, flags 16-byte aligned;
+// values (n,) 4-byte words of dtype code `dtype`, flags (n,) bool,
+// n % 1024 == 0, below 2^31 tiles; values and out 16-byte aligned, flags
+// 16-byte aligned; op: a fold code the word type takes (ops.cuh);
 // status: pgb_segfold_tiles(n) 8-byte words; ticket: one int, 0 between
 // calls; epoch: nonzero, below 2^29, new for each call on this status
 // buffer
@@ -343,9 +360,7 @@ extern "C" int pgb_segfold(const void* vals, const void* flags, void* out,
   if (n <= 0) return 0;
   if (n % 1024 || epoch == 0 || epoch >= (1u << 29)) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DT_F32)
-    return launch<float>(vals, flags, out, n, op, status, epoch, ticket, st);
-  if (dtype == DT_I32)
-    return launch<int32_t>(vals, flags, out, n, op, status, epoch, ticket, st);
-  return -1;
+  if (dtype == DT_U32 && !seg_inst<uint32_t>(op)) dtype = DT_I32;
+  PGB_DISPATCH_WORD(dtype, launch<T>(vals, flags, out, n, op, status, epoch,
+                                     ticket, st));
 }

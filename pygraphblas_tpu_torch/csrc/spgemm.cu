@@ -21,7 +21,11 @@
 // pair_count: the same bytes, against one probe per id of each edge's
 // shorter list.  fill_keys: the E x W int32 keys it writes.
 //
-// The ops of pair_fold are those of ops.cuh (no FMA contraction).  Its
+// The ops of pair_fold are those of ops.cuh (no FMA contraction), at any
+// 4-byte word type; a launch whose mul or fold the algebra added (ISEQ
+// .. ISLE, LOR, LAND, LXOR; the logical and bitwise folds) takes the
+// warp kernel's EXT instantiation at every width, so the arithmetic
+// codes keep small loops in all three kernels.  Its
 // fold order (per lane in list order, then a shuffle tree across the
 // lanes of an edge, then across bitmap windows) differs from the TPU's
 // log-roll: integer folds and MIN/MAX are exact, float PLUS and TIMES
@@ -382,14 +386,15 @@ template <typename T>
 __device__ __forceinline__ void take(int* c, T* acc, int mul_op, int fold_op,
                                      T x_a, T x_b) {
   ++*c;
-  *acc = apply_fold<T>(fold_op, *acc, apply_mul<T>(mul_op, x_a, x_b));
+  *acc = apply_fold<T, false>(fold_op, *acc,
+                              apply_mul_packed<T, false>(mul_op, x_a, x_b));
 }
 
 // fold over the aligned groups of `group` lanes
 template <typename T>
 __device__ __forceinline__ T group_fold(T v, int group, int fold_op) {
   for (int off = group >> 1; off; off >>= 1)
-    v = apply_fold<T>(fold_op, v, __shfl_xor_sync(kFull, v, off));
+    v = apply_fold<T, false>(fold_op, v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
@@ -511,10 +516,10 @@ pair_fold_search_kernel(const int32_t* __restrict__ a,
   }
 }
 
-// the first port's kernel, unchanged: one warp an edge, each lane
-// binary-searching the longer list for its ids of the shorter (the
-// search kernel at 32 lanes an edge measured slower than it)
-template <typename T>
+// the first port's kernel: one warp an edge, each lane binary-searching
+// the longer list for its ids of the shorter (the search kernel at 32
+// lanes an edge measured slower than it); EXT: the algebra's added codes
+template <typename T, bool EXT>
 __global__ void pair_fold_warp_kernel(const int32_t* __restrict__ a,
                                       const T* __restrict__ av,
                                       int64_t a_len,
@@ -547,15 +552,15 @@ __global__ void pair_fold_warp_kernel(const int32_t* __restrict__ a,
     from = lower_bound(l, from, nl, key);
     if (from < nl && __ldg(l + from) == key) {
       ++c;
-      T x = walk_a ? apply_mul<T>(mul_op, vs[p], vl[from])
-                   : apply_mul<T>(mul_op, vl[from], vs[p]);
-      acc = apply_fold<T>(fold_op, acc, x);
+      T x = walk_a ? apply_mul_packed<T, EXT>(mul_op, vs[p], vl[from])
+                   : apply_mul_packed<T, EXT>(mul_op, vl[from], vs[p]);
+      acc = apply_fold<T, EXT>(fold_op, acc, x);
     }
   }
   c = __reduce_add_sync(kFull, c);
 #pragma unroll
   for (int off = 16; off; off >>= 1)
-    acc = apply_fold<T>(fold_op, acc, __shfl_xor_sync(kFull, acc, off));
+    acc = apply_fold<T, EXT>(fold_op, acc, __shfl_xor_sync(kFull, acc, off));
   if (lane == 0) {
     cnt[e] = c;
     out[e] = acc;
@@ -707,7 +712,7 @@ pair_fold_kernel(const int32_t* __restrict__ a, const T* __restrict__ av,
         acc = group_fold(acc, kRunLanes, fold_op);
         if (k < re && gl == 0) {
           cnt[k] += c;
-          val[k] = apply_fold<T>(fold_op, val[k], acc);
+          val[k] = apply_fold<T, false>(fold_op, val[k], acc);
         }
       }
       __syncthreads();
@@ -741,7 +746,7 @@ void launch_search(const int32_t* a, const T* av, int64_t a_len,
 // runs: whether the bucket takes the runs kernel (the wrapper's rule,
 // core/spgemm.py:fold_path); else the search kernel, its lanes an edge
 // by the width
-template <typename T>
+template <typename T, bool EXT>
 int launch_fold(const int32_t* a, const void* av_, int64_t a_len,
                 const int32_t* b, const void* bv_, int64_t b_len,
                 const int32_t* ast, const int32_t* wa, const int32_t* bst,
@@ -752,6 +757,16 @@ int launch_fold(const int32_t* a, const void* av_, int64_t a_len,
   memcpy(&ident, &ident_bits, sizeof(T));
   const T *av = (const T*)av_, *bv = (const T*)bv_;
   T* out = (T*)out_;
+  if constexpr (EXT) {
+    // the algebra's added codes take the warp kernel at every width: one
+    // instantiation a word type (the search and runs kernels with every
+    // code inlined made the build take 170 s)
+    pair_fold_warp_kernel<T, true>
+        <<<(unsigned)((n_edges * 32 + kThreads - 1) / kThreads), kThreads,
+           0, st>>>(a, av, a_len, b, bv, b_len, ast, wa, bst, wb, cnt, out,
+                    n_edges, mul_op, fold_op, ident);
+    return (int)cudaGetLastError();
+  }
   if (!runs) {
     // lanes an edge: the shorter list holds at most width / 2 ids
     if (width <= 128)
@@ -764,7 +779,7 @@ int launch_fold(const int32_t* a, const void* av_, int64_t a_len,
       launch_search<T, 16>(a, av, a_len, b, bv, b_len, ast, wa, bst, wb, cnt,
                            out, n_edges, mul_op, fold_op, ident, st);
     else
-      pair_fold_warp_kernel<T>
+      pair_fold_warp_kernel<T, false>
           <<<(unsigned)((n_edges * 32 + kThreads - 1) / kThreads), kThreads,
              0, st>>>(a, av, a_len, b, bv, b_len, ast, wa, bst, wb, cnt, out,
                       n_edges, mul_op, fold_op, ident);
@@ -844,7 +859,8 @@ extern "C" int pgb_fill_keys(const void* a, int64_t a_len, const void* b,
 }
 
 // width: the bucket's (>= wa + wb): it picks the search kernel's lanes
-// an edge; runs: 1 for the runs kernel, 0 for the search kernel
+// an edge; runs: 1 for the runs kernel, 0 for the search kernel; values
+// 4-byte words of dtype code `dtype`
 extern "C" int pgb_pair_fold(const void* a, const void* av, int64_t a_len,
                              const void* b, const void* bv, int64_t b_len,
                              const void* ast, const void* wa, const void* bst,
@@ -857,13 +873,20 @@ extern "C" int pgb_pair_fold(const void* a, const void* av, int64_t a_len,
   const int32_t *ia = (const int32_t*)a, *ib = (const int32_t*)b;
   const int32_t *as = (const int32_t*)ast, *na = (const int32_t*)wa;
   const int32_t *bs = (const int32_t*)bst, *nb = (const int32_t*)wb;
-  if (dtype == DT_F32)
-    return launch_fold<float>(ia, av, a_len, ib, bv, b_len, as, na, bs, nb,
-                              (int32_t*)cnt, out, n_edges, width, runs != 0,
-                              mul_op, fold_op, ident_bits, st);
-  if (dtype == DT_I32)
-    return launch_fold<int32_t>(ia, av, a_len, ib, bv, b_len, as, na, bs, nb,
-                                (int32_t*)cnt, out, n_edges, width,
-                                runs != 0, mul_op, fold_op, ident_bits, st);
-  return -1;
+  // the kernels read the dtype code beside the mul code (ops.cuh:
+  // apply_mul_packed), for narrowing and the division's saturation
+  const int mul_nt = mul_op < 0 ? mul_op : mul_op | (dtype << 8);
+  if (fold_op < 0 || !(dtype == DT_F32 ? fold_ok<float>(fold_op)
+                                       : fold_ok<int32_t>(fold_op)))
+    return -1;
+  if (mul_ext_code(mul_op) || fold_ext_code(fold_op))
+    PGB_DISPATCH_WORD(dtype, (launch_fold<T, true>(
+                                 ia, av, a_len, ib, bv, b_len, as, na, bs,
+                                 nb, (int32_t*)cnt, out, n_edges, width,
+                                 runs != 0, mul_nt, fold_op, ident_bits,
+                                 st)));
+  PGB_DISPATCH_WORD(dtype, (launch_fold<T, false>(
+                               ia, av, a_len, ib, bv, b_len, as, na, bs, nb,
+                               (int32_t*)cnt, out, n_edges, width, runs != 0,
+                               mul_nt, fold_op, ident_bits, st)));
 }

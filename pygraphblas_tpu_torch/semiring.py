@@ -1,82 +1,114 @@
-"""Semirings for the xspmv engine: an add monoid (fold op + identity)
-and a mul op, both named as in ``pygraphblas_tpu/core/xspmv.py``
-(``_ADDS`` / ``_MULS``).
+"""Semirings: an additive monoid paired with a multiplicative binary op.
 
-Each op has a plain PyTorch closure (the kernels' plain versions use
-these) and an op code (the CUDA kernels switch on it; the codes must
-match ``csrc/ops.cuh``)."""
+Every built-in semiring is generated from the family tables in
+``ops/table.py`` (the JAX package's ``semiring.py``): a Semiring is a
+lightweight pair (``add_monoid``, ``mul_op``), named
+``{pls}_{mul}_{type}`` and attached to its type (``FP32.PLUS_TIMES``).
+The CUDA kernels switch on op codes derived from the ops' names
+(``_kernels.fold_code``, ``_kernels.mul_code``).  ``Semiring(A, B)``
+(a matrix product) needs the containers: Queue A item 8 of ROADMAP.md.
+"""
 
-import numpy as np
-import torch
+import contextvars
+import sys
 
-# add monoids: name -> (fold closure, kernel op code)
-ADDS = {
-    "PLUS": (lambda a, b: a + b, 0),
-    "MIN": (torch.minimum, 1),
-    "MAX": (torch.maximum, 2),
-    "TIMES": (lambda a, b: a * b, 3),
-}
+from . import binaryop as binaryop_module
+from . import monoid as monoid_module
+from . import types
+from .binaryop import _needs_containers
+from .ops import table
 
+current_semiring = contextvars.ContextVar("current_semiring")
 
-def _div(a, b):
-    if a.dtype.is_floating_point:
-        return a / b
-    # integer division truncates toward zero; x / 0 -> 0
-    z = b == 0
-    return torch.where(z, torch.zeros_like(a),
-                       torch.div(a, torch.where(z, torch.ones_like(b), b),
-                                 rounding_mode="trunc"))
+__all__ = ["Semiring", "current_semiring"]
 
-
-# mul ops: name -> (closure mul(a=matrix value, b=x value), op code)
-MULS = {
-    "TIMES": (lambda a, b: a * b, 0),
-    "PLUS": (lambda a, b: a + b, 1),
-    "MINUS": (lambda a, b: a - b, 2),
-    "RMINUS": (lambda a, b: b - a, 3),
-    "DIV": (_div, 4),
-    "RDIV": (lambda a, b: _div(b, a), 5),
-    "FIRST": (lambda a, b: a, 6),
-    "SECOND": (lambda a, b: b, 7),
-    "PAIR": (lambda a, b: torch.ones_like(a), 8),
-    "MIN": (torch.minimum, 9),
-    "MAX": (torch.maximum, 10),
-}
-
-# the same op with its operands swapped (vxm's flip_mul)
+# the same op with its operands swapped (vxm's flip of the multiply)
 FLIPPED = {"MINUS": "RMINUS", "RMINUS": "MINUS", "DIV": "RDIV",
            "RDIV": "DIV", "FIRST": "SECOND", "SECOND": "FIRST"}
 
 
-def identity(add, dtype):
-    """Identity of the add monoid `add` as a numpy scalar of `dtype`."""
-    dt = np.dtype(dtype)
-    if add == "PLUS":
-        return dt.type(0)
-    if add == "TIMES":
-        return dt.type(1)
-    big = np.inf if dt.kind == "f" else np.iinfo(dt).max
-    small = -np.inf if dt.kind == "f" else np.iinfo(dt).min
-    if add == "MIN":
-        return dt.type(big)
-    if add == "MAX":
-        return dt.type(small)
-    raise KeyError(add)
-
-
 class Semiring:
-    """``add`` names the add monoid, ``mul`` the multiply."""
+    """A GraphBLAS semiring."""
 
-    __slots__ = ("add", "mul", "name")
+    __slots__ = ("name", "pls", "mul", "type", "type_cls", "add_monoid",
+                 "mul_op", "_ztype_rule", "token")
 
-    def __init__(self, add, mul):
-        if add not in ADDS or mul not in MULS:
-            raise KeyError(f"{add}_{mul}")
-        self.add, self.mul = add, mul
-        self.name = f"{add}_{mul}"
-
-    def identity(self, dtype):
-        return identity(self.add, dtype)
+    def __init__(self, pls, mul, typ, add=None, mul_op=None, ztype="T",
+                 attach=True, type_cls=None):
+        self.pls = pls
+        self.mul = mul
+        self.type = typ
+        self.type_cls = type_cls if type_cls is not None else \
+            getattr(types, typ, None)
+        self.name = "_".join((pls, mul, typ))
+        self.token = None
+        self._ztype_rule = ztype
+        if add is None:
+            z = "BOOL" if ztype == "BOOL" else typ
+            add = getattr(monoid_module, "_".join((pls, z, "monoid")))
+        self.add_monoid = add
+        if mul_op is None:
+            mul_op = getattr(binaryop_module, "_".join((mul, typ)))
+        self.mul_op = mul_op
+        if attach:
+            cls = getattr(types, typ, None)
+            if cls is not None:
+                nm = pls + "_" + mul
+                setattr(cls, nm, self)
+                setattr(cls, nm.lower(), self)
 
     def __repr__(self):
-        return f"Semiring({self.name})"
+        return f"<Semiring {self.name}>"
+
+    def __call__(self, A, B, *args, **kwargs):
+        raise _needs_containers(f"{self.name}(A, B)")
+
+    def __enter__(self):
+        self.token = current_semiring.set(self)
+        return self
+
+    def __exit__(self, exception_type, exception_value, traceback):
+        current_semiring.reset(self.token)
+        return False
+
+    def get_op(self):
+        return self
+
+    @property
+    def ztype(self):
+        """Result Type of this semiring (via the mul op's output domain)."""
+        if self._ztype_rule == "BOOL":
+            return types.BOOL
+        return self.mul_op.ztype(self.type_cls)
+
+
+def ops_at(semiring, typ):
+    """The semiring's (add monoid, mul op) at Type `typ`: the built-in
+    ops of the same names on `typ`, as the JAX package's closures take
+    the dtype of the values they are given (an engine computes products
+    at its output type); a user op, a positional one, or a name `typ`
+    lacks, stays as it is."""
+    mul = semiring.mul_op
+    if mul.builtin and mul.positional is None:
+        mul = getattr(binaryop_module, f"{mul.op}_{typ.__name__}", mul)
+    add = semiring.add_monoid
+    if add.binaryop.builtin:
+        add = getattr(monoid_module, f"{add.op}_{typ.__name__}_monoid", add)
+    return add, mul
+
+
+def build_semirings(__pdoc__=None):
+    this = sys.modules[__name__]
+    for fam in table.SEMIRING_FAMILIES:
+        for typ in fam["types"]:
+            for pls in fam["adds"]:
+                for mul in fam["muls"]:
+                    # positional ops exist only as INT32/INT64 operators
+                    bin_name = "_".join((mul, typ))
+                    if not hasattr(binaryop_module, bin_name):
+                        continue
+                    r = Semiring(pls, mul, typ, ztype=fam["ztype"])
+                    setattr(this, r.name, r)
+                    if __pdoc__ is not None:
+                        __pdoc__[f"{typ}.{pls}_{mul}"] = \
+                            f"Semiring {typ}.{pls}_{mul}"

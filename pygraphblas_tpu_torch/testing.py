@@ -236,3 +236,197 @@ def take_source(x, fill=0):
     """x flattened, with the pad cell `fill` appended (see take_index)."""
     return torch.cat([x.reshape(-1),
                       torch.full((1,), fill, dtype=x.dtype, device=x.device)])
+
+
+# The algebra's SpGEMM cases: (semiring, type) and the values each takes
+# (tests/test_torch_{esc,spgemm,gustavson}.py and chip_smoke's sr14)
+SR_CASES = [("LOR_LAND", "BOOL"), ("MIN_PLUS", "UINT8"),
+            ("PLUS_TIMES", "INT16"), ("BOR_BAND", "UINT32"),
+            ("ANY_PAIR", "INT8"), ("PLUS_ISLT", "FP32")]
+
+
+def sr_values(typ, n, seed):
+    """n values of GraphBLAS type name `typ` for the SR_CASES, from a
+    seed: BOOL mostly true, INT8 -100..99, INT16 1..4 (its sums stay in
+    range at kron-14), UINT8 1..100, UINT32 any 32 bits, INT32 0..4 (zero
+    divisors for PLUS_DIV), FP32 in [-2, 2)."""
+    rng = np.random.RandomState(seed)
+    if typ == "BOOL":
+        return rng.rand(n) < 0.8
+    if typ == "FP32":
+        return (rng.rand(n) * 4 - 2).astype(np.float32)
+    lo, hi, dt = {"INT8": (-100, 100, np.int8), "INT16": (1, 5, np.int16),
+                  "UINT8": (1, 101, np.uint8),
+                  "UINT32": (0, 1 << 32, np.uint32),
+                  "INT32": (0, 5, np.int32)}[typ]
+    return rng.randint(lo, hi, n, dtype=np.int64).astype(dt)
+
+
+def typed_values(rng, T, *shape):
+    """Values of GraphBLAS type T (its held dtype, on the CPU) over the
+    type's whole range, so about half have the top bit set."""
+    dt = T.numpy_dtype
+    if dt == np.bool_:
+        return T.to_torch(rng.rand(*shape) < 0.5)
+    if dt.kind == "f":
+        return T.to_torch(rng.rand(*shape) * 8 - 4)
+    info = np.iinfo(dt)
+    return T.to_torch(rng.randint(int(info.min), int(info.max) + 1, shape,
+                                  dtype=np.int64).astype(dt))
+
+
+def wrapper_cases(typ, device, seed=0):
+    """Every kernel wrapper at GraphBLAS type name `typ` (INT8, UINT16,
+    UINT32, BOOL ...) on small inputs on `device`: [(kernel name, case,
+    call)], where call(wrapper or its plain version) runs one of them
+    (``typed_plains`` maps each wrapper to its plain version).  Folds
+    MIN and MAX (LAND and LOR over BOOL) in the type's own order, a mul,
+    the permutations, segfold, esc_gather and pair_fold (PLUS_TIMES; LOR
+    _LAND over BOOL), and the cascade."""
+    from . import types
+    from .core import esc, mono, scan, spgemm
+
+    T = getattr(types, typ)
+    rng = np.random.RandomState(seed + len(typ))
+    lo = T.LAND_MONOID if typ == "BOOL" else T.MIN_MONOID
+    hi = T.LOR_MONOID if typ == "BOOL" else T.MAX_MONOID
+    ident = T.scalar(lo.identity(T.numpy_dtype))
+    mul = T.LAND if typ == "BOOL" else T.PLUS
+
+    def vals(*shape):
+        return typed_values(rng, T, *shape).to(device)
+
+    def lanes(*shape):
+        return torch.from_numpy(rng.randint(0, 128, shape)
+                                .astype(np.int8)).to(device)
+
+    idx = np.sort(rng.randint(0, 9000, 64 * 128))
+    idx[::11] = -1
+    idx = np.concatenate([np.sort(idx[idx >= 0]),
+                          np.full((idx < 0).sum(), -1)])
+    span = mono.MonoPlan.build(idx, 9000).to(device)
+    saved = mono._SPAN_MAX_WVA
+    mono._SPAN_MAX_WVA = 0
+    try:
+        rows = mono.MonoPlan.build(np.sort(rng.randint(0, 9000, 64 * 128)),
+                                   9000).to(device)
+    finally:
+        mono._SPAN_MAX_WVA = saved
+    src, sv = vals(9000), vals(64 * 128)
+    g, S = 2, 3
+    r_l = S * 128
+    x = vals(g * r_l, 128)
+    ix = [lanes(g * r_l, 128) for _ in range(4)]
+    ssel = torch.from_numpy(rng.randint(0, S, (g * 128, S, 128))
+                            .astype(np.int8)).to(device)
+    x3 = x.reshape(g * 128, S, 128)
+    inner = (ix[0], ix[1], ssel, ix[2], ix[3], g, S)
+    flags = torch.from_numpy(rng.rand(8192) < 0.05).to(device)
+    flags[0] = True
+    seg = vals(8192)
+    nrows, present, counts = cascade_runs_case()
+    levels, place = mono.fold_plans(counts, nrows, present)
+    levels = [lp.to(device) for lp in levels]
+    place = place.to(device)
+    cur = vals(int(np.sum(counts)))
+    cols2d = torch.from_numpy(rng.randint(0, 1 << 20, (64, 128))
+                              .astype(np.int32)).to(device)
+    v2d = vals(64, 128)
+    qg = torch.from_numpy(rng.randint(0, 32, 4).astype(np.int32)).to(device)
+    dm = torch.from_numpy(rng.randint(0, 4 * 128, (32, 128))
+                          .astype(np.int32)).to(device)
+    a, _, b, _, ast, wa, bst, wb, W = pair_fold_case("run_across_blocks",
+                                                     np.int32)
+    a, b, ast, wa, bst, wb = (torch.from_numpy(v).to(device)
+                              for v in (a, b, ast, wa, bst, wb))
+    av, bv = vals(a.numel()), vals(b.numel())
+    fmul = T.LAND if typ == "BOOL" else T.TIMES
+    fadd = T.LOR_MONOID if typ == "BOOL" else T.PLUS_MONOID
+
+    def cascade(f):
+        if f is mono.mono_cascade:
+            return f(levels, place, cur, ident, lo)
+        c2 = cur
+        for lp in levels:
+            c2 = mono.mono_gather_plain(lp, c2.reshape(-1), ident,
+                                        fold=lo).reshape(-1)
+        return mono.mono_gather_plain(place, c2, ident)
+
+    return [
+        ("mono_span", f"{typ} fold {lo.name}",
+         lambda f: f(span, src, ident, fold=lo)),
+        ("mono_span", f"{typ} mul {mul.name} fold {hi.name}",
+         lambda f: f(span, src, ident, vals=sv, mul=mul, fold=hi)),
+        ("mono_rows", f"{typ} fold {lo.name}",
+         lambda f: f(rows, src, ident, fold=lo)),
+        ("mono_rows", f"{typ} mul {mul.name}",
+         lambda f: f(rows, src, ident, vals=sv, mul=mul)),
+        ("mono_cascade", f"{typ} runs 1..5000 {lo.name}", cascade),
+        ("lane_gather", f"{typ} (768, 128)", lambda f: f(x, ix[0])),
+        ("lane_gather_tdesc", f"{typ} g=2 r_l=384",
+         lambda f: f(x, ix[0], g, r_l)),
+        ("lane_gather_tasc", f"{typ} g=2 r_l=384 fold {hi.name}",
+         lambda f: f(x, ix[1], g, r_l, hi)),
+        ("lane_gather_tasc", f"{typ} g=2 r_l=384",
+         lambda f: f(x, ix[1], g, r_l)),
+        ("inner3", f"{typ} g=2 S=3", lambda f: f(x, *inner)),
+        ("mid_pass", f"{typ} nsub=256 S=3",
+         lambda f: f(x3, ix[2], ssel, ix[3])),
+        ("segfold", f"{typ} {lo.name} M=8192", lambda f: f(seg, flags, lo)),
+        ("esc_gather", f"{typ} S=32", lambda f: f(cols2d, v2d, qg, dm)),
+        ("pair_fold", f"{typ} {fadd.op}_{fmul.op} W={W}",
+         lambda f: f(a, av, b, bv, ast, wa, bst, wb, W, fmul, fadd)),
+    ]
+
+
+def typed_plains():
+    """Each kernel wrapper -> its plain version (wrapper_cases' calls
+    take either)."""
+    from .core import esc, mono, perm, scan, spgemm
+
+    return {mono.mono_span: mono.mono_gather_plain,
+            mono.mono_rows: mono.mono_gather_plain,
+            mono.mono_cascade: None,
+            perm._lane_gather: perm._lane_gather_plain,
+            perm._lane_gather_tdesc: perm._tdesc_plain,
+            perm._lane_gather_tasc: perm._tasc_plain,
+            perm._inner3: perm._inner3_plain,
+            perm._mid_pass: perm._mid_pass_plain,
+            scan.segfold: scan._segfold_plain,
+            esc.esc_gather: esc._esc_gather_plain,
+            spgemm.pair_fold: spgemm._pair_fold_plain}
+
+
+def typed_wrappers():
+    """Kernel name -> its wrapper, for wrapper_cases' calls."""
+    from .core import esc, mono, perm, scan, spgemm
+
+    return {"mono_span": mono.mono_span, "mono_rows": mono.mono_rows,
+            "mono_cascade": mono.mono_cascade,
+            "lane_gather": perm._lane_gather,
+            "lane_gather_tdesc": perm._lane_gather_tdesc,
+            "lane_gather_tasc": perm._lane_gather_tasc,
+            "inner3": perm._inner3, "mid_pass": perm._mid_pass,
+            "segfold": scan.segfold, "esc_gather": esc.esc_gather,
+            "pair_fold": spgemm.pair_fold}
+
+
+# segfold's fold codes the algebra adds, at the types of its paths
+SEGFOLD_CODES = [("LOR", "BOOL"), ("LAND", "BOOL"), ("LXOR", "BOOL"),
+                 ("EQ", "BOOL"), ("ANY", "BOOL"), ("ANY", "INT8"),
+                 ("ANY", "FP32"), ("ANY", "UINT32"), ("BOR", "UINT32"),
+                 ("BAND", "UINT32"), ("BXOR", "UINT16"), ("BXNOR", "UINT8"),
+                 ("MIN", "UINT32"), ("MAX", "UINT32"), ("MIN", "UINT16"),
+                 ("MAX", "INT16"), ("MIN", "INT8"), ("TIMES", "INT8"),
+                 ("PLUS", "UINT16"), ("PLUS", "INT16"), ("MAX", "UINT8")]
+
+# pair_fold's mul codes the algebra adds (and DIV at narrow types, whose
+# x / 0 saturates there) and the ANY fold, as (add, mul, type)
+PAIR_FOLD_CODES = [(add, mul, typ)
+                   for mul in ("ISEQ", "ISNE", "ISGT", "ISLT", "ISGE",
+                               "ISLE", "LOR", "LAND", "LXOR", "DIV", "RDIV")
+                   for add, typ in (("PLUS", "INT16"), ("MAX", "INT8"),
+                                    ("MIN", "FP32"))] + [
+    ("ANY", "TIMES", "INT32"), ("ANY", "PLUS", "FP32"),
+    ("ANY", "MINUS", "INT8"), ("MIN", "DIV", "UINT32"),
+    ("MAX", "TIMES", "UINT16"), ("PLUS", "TIMES", "UINT8")]

@@ -15,7 +15,10 @@ from pygraphblas_tpu_torch.core import (esc, gustavson, mono, perm, scan,
                                         spgemm, xspmv)
 from pygraphblas_tpu_torch.testing import (MONO_ROWS_CASES, PAIR_COUNT_CASES,
                                            cascade_runs_case, mono_rows_case,
-                                           pair_count_case, pair_fold_case)
+                                           pair_count_case, pair_fold_case,
+                                           PAIR_FOLD_CODES, SEGFOLD_CODES,
+                                           typed_plains, typed_values,
+                                           typed_wrappers, wrapper_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -55,16 +58,19 @@ def test_mono_span_kernel(card, kw, dtype):
 
 def test_mono_span_rejects_int64(card):
     """int64 values take the plain version on the card (the JAX
-    package's XLA rule), with no launch; a 2-byte dtype still raises."""
+    package's XLA rule), with no launch; a 2-byte dtype is widened to
+    4-byte words and launches the kernel (as the TPU takes it)."""
     plan, rng = _span_plan(card)
     src = torch.from_numpy(rng.randint(-2 ** 40, 2 ** 40, 9000)).to(card)
     _kernels.reset_launches()
     got = mono.mono_span(plan, src, 0, fold="MAX")
     assert torch.equal(got, mono.mono_gather_plain(plan, src, 0, fold="MAX"))
     assert sum(_kernels.launches.values()) == 0
-    with pytest.raises(TypeError):
-        mono.mono_span(plan, torch.zeros(9000, dtype=torch.int16,
-                                         device=card), 0)
+    small = src.to(torch.int16)
+    got = mono.mono_span(plan, small, 0, fold="MAX")
+    assert got.dtype == torch.int16 and _kernels.launches["mono_span"] == 1
+    assert torch.equal(got, mono.mono_gather_plain(plan, small, 0,
+                                                   fold="MAX"))
 
 
 def test_mono_gather_plan_not_ok(card):
@@ -781,3 +787,100 @@ def test_scan_and_gather_wrappers_raise(card):
     c = torch.zeros((4, 128), dtype=torch.int32, device=card)
     with pytest.raises(TypeError):
         esc.esc_gather(c, c.double(), c[0, :1], c[:8].contiguous())
+
+
+# -- the algebra on the card: the types of 4 bytes or less, the new codes,
+# -- and the redesigned lane_gather ------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [1, 7, 49152])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_lane_gather_redesigned(card, rows, dtype):
+    """The redesigned lane_gather (a warp a row, 16-byte loads and
+    stores) against its plain version, bit for bit: indices 0..127 and
+    values with the top bit set (negative floats and ints); one launch."""
+    rng = np.random.RandomState(rows)
+    bits = rng.randint(-2 ** 31, 2 ** 31, (rows, 128), dtype=np.int64)
+    x = torch.from_numpy(bits.astype(np.int32)).to(card)
+    if dtype == torch.float32:
+        x = x.view(torch.float32)
+    idx = torch.from_numpy(rng.randint(0, 128, (rows, 128))
+                           .astype(np.int8)).to(card)
+    _kernels.reset_launches()
+    got = perm._lane_gather(x, idx)
+    torch.cuda.synchronize()
+    assert _kernels.launches["lane_gather"] == 1
+    assert torch.equal(got.view(torch.int32),
+                       perm._lane_gather_plain(x, idx).view(torch.int32))
+
+
+@pytest.mark.parametrize("typ", ["INT8", "UINT16", "UINT32", "BOOL"])
+def test_every_wrapper_at_narrow_and_unsigned_types(card, typ):
+    """Every kernel wrapper at INT8, UINT16, UINT32 (and BOOL), on
+    testing.wrapper_cases: the kernel launches once (1- and 2-byte values
+    as 4-byte words, UINT32 words with the unsigned code) and equals its
+    plain version bit for bit, folds in the type's own order (MIN, MAX)."""
+    wrappers, plains = typed_wrappers(), typed_plains()
+    for name, case, call in wrapper_cases(typ, card):
+        kfn = wrappers[name]
+        _kernels.reset_launches()
+        got = call(kfn)
+        torch.cuda.synchronize()
+        assert _kernels.launches[name] == 1, case
+        want = call(plains[kfn])
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), case
+
+
+@pytest.mark.parametrize("add,typ", SEGFOLD_CODES)
+def test_segfold_kernel_new_folds(card, add, typ):
+    """segfold at every fold code the algebra adds and at the types of
+    the algebra's paths, 2^16 values in about 1000 segments across many
+    tiles: one launch, equal to its plain version bit for bit."""
+    T = getattr(types, typ)
+    m = getattr(T, add + "_MONOID")
+    rng = np.random.RandomState(len(add) + len(typ))
+    v = typed_values(rng, T, 1 << 16).to(card)
+    f = torch.from_numpy(rng.rand(1 << 16) < 0.015).to(card)
+    f[5000:40000] = False         # a segment over several tiles
+    _kernels.reset_launches()
+    got = scan.segfold(v, f, m)
+    torch.cuda.synchronize()
+    assert _kernels.launches["segfold"] == 1
+    assert got.dtype == v.dtype
+    assert torch.equal(got, scan._segfold_plain(v, f, m))
+
+
+@pytest.mark.parametrize("add,mul,typ", PAIR_FOLD_CODES)
+@pytest.mark.parametrize("path", ["search", "runs"])
+def test_pair_fold_new_codes(card, add, mul, typ, path, monkeypatch):
+    """pair_fold at the mul codes the algebra adds (ISEQ .. ISLE, LOR,
+    LAND, LXOR: the warp kernel at every width; DIV with zero divisors
+    saturating at the narrow type) and the ANY fold, at 1-, 2- and
+    4-byte types, through each kernel: one launch, counts and values
+    equal to the plain version (ANY folds as MAX in both)."""
+    monkeypatch.setattr(spgemm, "_RUNS_WIDTH", 0 if path == "runs" else 1)
+    monkeypatch.setattr(spgemm, "_RUNS_EDGES", 0 if path == "runs"
+                        else 1 << 40)
+    T = getattr(types, typ)
+    a, av, b, bv, ast, wa, bst, wb, W = pair_fold_case("run_across_blocks",
+                                                       np.int32)
+    av, bv = (T.to_torch(x.astype(T.numpy_dtype)).to(card) for x in (av, bv))
+    a, b, ast, wa, bst, wb = (torch.from_numpy(x).to(card)
+                              for x in (a, b, ast, wa, bst, wb))
+    mop, fop = getattr(T, mul), getattr(T, add + "_MONOID")
+    _kernels.reset_launches()
+    cnt, vals = spgemm.pair_fold(a, av, b, bv, ast, wa, bst, wb, W, mop, fop)
+    torch.cuda.synchronize()
+    assert _kernels.launches["pair_fold"] == 1
+    wcnt, wvals = spgemm._pair_fold_plain(a, av, b, bv, ast, wa, bst, wb, W,
+                                          mop, fop)
+    assert torch.equal(cnt, wcnt) and vals.dtype == T.torch_dtype
+    if typ == "FP32":
+        # 0 / 0 is NaN; PLUS within rtol 1e-5 (another fold order)
+        assert torch.allclose(vals, wvals, rtol=1e-5 if add == "PLUS" else 0,
+                              atol=0, equal_nan=True)
+    else:
+        assert torch.equal(vals, wvals)

@@ -20,8 +20,10 @@ import torch
 
 from pygraphblas_tpu import types as jtypes
 from pygraphblas_tpu.core import esc as jesc
-from pygraphblas_tpu_torch import generators, types
+from pygraphblas_tpu_torch import (binaryop, convert, generators, monoid,
+                                   semiring, types)
 from pygraphblas_tpu_torch.core import esc
+from pygraphblas_tpu_torch.testing import SR_CASES, sr_values
 
 CPU = torch.device("cpu")
 
@@ -160,7 +162,8 @@ def test_esc_falls_back_where_jax_does(cap, monkeypatch):
 
 def test_esc_supported_dtype_rules():
     """8-byte dtypes are refused on the card (as on a TPU) and taken on
-    the CPU; on the card the values must be float32 or int32."""
+    the CPU; on the card every dtype of 4 bytes or less is taken (as on
+    a TPU), and an add monoid segfold does not fold is refused."""
     sem = types.INT64.PLUS_TIMES
     card = torch.device("cuda")
     for dt in (np.int64, np.float64):
@@ -168,8 +171,15 @@ def test_esc_supported_dtype_rules():
         assert not esc.esc_supported(sem, dt, dt, dt, card)
     assert esc.esc_supported(sem, np.float32, np.int32, np.bool_, card)
     assert esc.esc_supported(sem, np.bool_, np.bool_, np.bool_, card)
-    assert not esc.esc_supported(sem, np.int16, np.int16, np.int16, card)
+    for dt in (np.int8, np.int16, np.uint8, np.uint16, np.uint32):
+        assert esc.esc_supported(sem, dt, dt, dt, card)
     assert not esc.esc_supported(sem, np.float32, np.int64, np.int32, card)
+    user = monoid.Monoid("PLUS", "INT32", op_obj=binaryop.binary_op(
+        types.INT32)(lambda x, y: x + y), identity=0, attach=False)
+    usr = semiring.Semiring("PLUS", "TIMES", "INT32", add=user,
+                            attach=False)
+    assert esc.esc_supported(usr, np.int32, np.int32, np.int32, CPU)
+    assert not esc.esc_supported(usr, np.int32, np.int32, np.int32, card)
 
 
 def test_esc_empty_operands():
@@ -178,3 +188,41 @@ def test_esc_empty_operands():
                          np.array([2]), np.ones(1, np.float32),
                          types.FP32.PLUS_TIMES, np.float32, device=CPU)
     assert all(len(x) == 0 for x in got) and got[2].dtype == np.float32
+
+
+def _same_any(got, want, products):
+    """ANY: the pattern as the JAX package's, each value one of its
+    cell's products (`products`: the set of all of them, here all 1)."""
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    assert got[2].dtype == np.asarray(want[2]).dtype
+    assert np.isin(got[2], products).all()
+
+
+@pytest.mark.parametrize("sem,typ", SR_CASES)
+def test_esc_algebra_matches_jax(sem, typ):
+    """A @ A at kron-8 under each of the algebra's cases (semirings
+    carried across by name): ESC on the CPU gives the JAX package's
+    product (its generic tier: scipy's pattern, then the masked SpGEMM;
+    one XLA compile a case, where its ESC takes two), the same pattern
+    and values (exact; ANY: one of the cell's products)."""
+    from pygraphblas_tpu.base import options_set as joptions
+    from pygraphblas_tpu.core import gustavson as jg
+
+    r, c, _ = _kron(8)
+    v = sr_values(typ, len(r), 8)
+    jsem = getattr(getattr(jtypes, typ), sem)
+    dt = v.dtype
+    joptions(spgemm_engine="scipy")
+    try:
+        want = jg.spgemm(r, c, v, r, c, v, jsem, dt)
+    finally:
+        joptions(spgemm_engine="auto")
+    got = esc.esc_spgemm(r, c, v, r, c, v,
+                         convert.semiring_from_name(jsem.name), dt,
+                         device=CPU)
+    assert len(want[0]) > 1000
+    if sem.startswith("ANY"):
+        _same_any(got, want, [1])
+    else:
+        _same(got, want)

@@ -22,6 +22,7 @@ from pygraphblas_tpu.base import options_set as joptions
 from pygraphblas_tpu.core import coosem as jcs, gustavson as jg
 from pygraphblas_tpu_torch import base, options_set, types
 from pygraphblas_tpu_torch.core import coosem, dense, gustavson
+from pygraphblas_tpu_torch.testing import SR_CASES, sr_values
 
 CPU = torch.device("cpu")
 
@@ -227,3 +228,45 @@ def test_default_device_needs_cuda():
     ops = _operands(np.float32, n=50, nnz=200)
     with pytest.raises(RuntimeError, match="CUDA"):
         gustavson.spgemm(*ops, types.FP32.PLUS_TIMES, np.float32)
+
+
+@pytest.mark.parametrize("sem,typ", SR_CASES + [("MAX_MINUS", "INT32")])
+def test_dense_mxm_algebra_matches_jax(sem, typ):
+    """core/dense.py's mxm on 16 x 16 operands, half their cells present:
+    LOR_LAND over BOOL lowers to a matmul, the rest take the generic
+    k-blocked broadcast-reduce (first present product initialises); the
+    values and the pattern equal the JAX package's exactly."""
+    from pygraphblas_tpu.core import dense as jdense
+    from pygraphblas_tpu_torch import convert
+
+    rng = np.random.RandomState(len(sem))
+    T = convert.type_from_name(typ)
+    dt = T.numpy_dtype
+    vals = sr_values(typ, 512, 4) if typ != "INT32" else \
+        rng.randint(-50, 50, 512).astype(np.int32)
+    av, bv = vals[:256].reshape(16, 16), vals[256:].reshape(16, 16)
+    am, bm = rng.rand(16, 16) < 0.5, rng.rand(16, 16) < 0.5
+    jsem = getattr(getattr(jtypes, typ), sem)
+    wv, wm = jdense.mxm(av, am, bv, bm, jsem, dt)
+    gv, gm = dense.mxm(T.to_torch(av), torch.from_numpy(am),
+                       T.to_torch(bv), torch.from_numpy(bm),
+                       convert.semiring_from_name(jsem.name), dt)
+    assert np.array_equal(gm.numpy(), np.asarray(wm))
+    m = np.asarray(wm)
+    assert np.array_equal(T.to_numpy(gv)[m], np.asarray(wv)[m])
+
+
+def test_dense_tier_takes_lor_land_over_bool(engine):
+    """gustavson._dense_ok admits LOR/ANY with LAND, PAIR, FIRST, SECOND
+    or TIMES into BOOL (gustavson.py:44-61): the dense tier runs BOOL
+    LOR_LAND as a matmul in both packages."""
+    ops = list(_operands(np.int32))
+    ops[2] = ops[2] % 3 != 0
+    ops[5] = ops[5] % 3 != 0
+    assert gustavson._dense_ok(types.BOOL.LOR_LAND, np.bool_, 512, CPU)
+    assert not gustavson._dense_ok(types.INT8.ANY_PAIR, np.int8, 512, CPU)
+    engine("dense")
+    want = jg.spgemm(*ops, jtypes.BOOL.LOR_LAND, np.bool_)
+    got = gustavson.spgemm(*ops, types.BOOL.LOR_LAND, np.bool_, device=CPU)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, np.asarray(w))

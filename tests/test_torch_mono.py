@@ -17,7 +17,7 @@ import torch
 from pygraphblas_tpu.core import mono as jmono
 from pygraphblas_tpu_torch import _kernels
 from pygraphblas_tpu_torch.core import mono as tmono
-from pygraphblas_tpu_torch.semiring import ADDS
+from pygraphblas_tpu_torch import types as gbtypes
 from pygraphblas_tpu_torch.testing import (MONO_ROWS_CASES, cascade_runs_case,
                                            mono_rows_case)
 
@@ -326,7 +326,7 @@ def _emulate_cascade(runs, src, fold, fill):
     8q .. 8q + 7), a longer one by the block in 2048-cell rounds (8 warps'
     steps, then level-3 cells by 8 lanes), then level by level with one
     pending group a level, the last partial groups filled at the end."""
-    f = ADDS[fold][0]
+    f = getattr(gbtypes.from_torch_dtype(src.dtype), fold + "_MONOID").apply
     start = np.asarray(runs.start, np.int64)
     L = runs.levels
     n = np.diff(start)

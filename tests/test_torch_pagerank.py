@@ -128,7 +128,12 @@ def test_port_never_imports_jax():
             "pygraphblas_tpu_torch.core.esc, pygraphblas_tpu_torch.core.scan, "
             "pygraphblas_tpu_torch.core.dense, "
             "pygraphblas_tpu_torch.core.coosem, "
-            "pygraphblas_tpu_torch.testing;"
+            "pygraphblas_tpu_torch.testing, pygraphblas_tpu_torch.ops.table, "
+            "pygraphblas_tpu_torch.types, pygraphblas_tpu_torch.binaryop, "
+            "pygraphblas_tpu_torch.unaryop, pygraphblas_tpu_torch.monoid, "
+            "pygraphblas_tpu_torch.semiring, pygraphblas_tpu_torch.selectop, "
+            "pygraphblas_tpu_torch.descriptor, pygraphblas_tpu_torch.scalar, "
+            "pygraphblas_tpu_torch.base;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pygraphblas_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

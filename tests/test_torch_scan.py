@@ -109,3 +109,45 @@ def test_segfold_needs_1024_multiple():
     with pytest.raises(ValueError, match="1024"):
         scan.segfold(torch.zeros(1000, dtype=torch.int32),
                      torch.zeros(1000, dtype=torch.bool), "PLUS")
+
+
+# the folds the algebra adds (logical, bitwise, ANY) and the narrow and
+# unsigned types, each at one type
+NEW_FOLDS = [("LOR", "BOOL"), ("LAND", "BOOL"), ("LXOR", "BOOL"),
+             ("EQ", "BOOL"), ("ANY", "INT8"), ("BOR", "UINT32"),
+             ("BAND", "UINT32"), ("BXOR", "UINT16"), ("BXNOR", "UINT8"),
+             ("MIN", "UINT32"), ("MAX", "INT16"), ("TIMES", "INT8"),
+             ("PLUS", "UINT16")]
+
+
+@pytest.mark.parametrize("add,typ", NEW_FOLDS)
+def test_segfold_new_folds_match_jax_monoid(add, typ):
+    """segfold on CPU tensors with the port's monoid == the segmented
+    fold, element by element, of the JAX monoid of the same name (its
+    closure on scalars); ANY (the kernels fold it as MAX, the JAX package
+    as SECOND) gives a value of the segment so far."""
+    from pygraphblas_tpu import monoid as jmonoid
+    from pygraphblas_tpu_torch import convert
+
+    name = f"{add}_{typ}_monoid"
+    jm, tm = getattr(jmonoid, name), convert.monoid_from_name(name)
+    T = convert.type_from_name(typ)
+    dt = T.numpy_dtype
+    rng = np.random.RandomState(len(name))
+    v = (rng.rand(1024) < 0.6 if dt == np.bool_ else
+         rng.randint(0, 1 << 62, 1024, dtype=np.int64).astype(dt))
+    f = rng.rand(1024) < 0.05
+    f[0] = True
+    got = T.to_numpy(scan.segfold(T.to_torch(v), torch.from_numpy(f), tm))
+    assert got.dtype == dt
+    if add == "ANY":
+        start = np.maximum.accumulate(np.where(f, np.arange(1024), 0))
+        assert all(got[i] in v[start[i]:i + 1] for i in range(1024))
+        return
+    want = np.empty_like(v)
+    acc = None
+    with np.errstate(over="ignore"):      # the integer folds wrap
+        for i in range(1024):
+            acc = v[i] if f[i] else np.asarray(jm.binaryop.apply(acc, v[i]))
+            want[i] = acc
+    assert np.array_equal(got, want)

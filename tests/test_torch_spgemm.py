@@ -19,8 +19,8 @@ from pygraphblas_tpu import types as jtypes
 from pygraphblas_tpu.core import coosparse as jcoo, sparse as jsparse
 from pygraphblas_tpu.core import spgemm as jsg
 from pygraphblas_tpu_torch import types
+from pygraphblas_tpu_torch.testing import SR_CASES, sr_values
 from pygraphblas_tpu_torch.core import coosparse, sparse, spgemm
-from pygraphblas_tpu_torch.semiring import ADDS, MULS
 from pygraphblas_tpu_torch.testing import (PAIR_COUNT_CASES, pair_count_case,
                                            pair_fold_case)
 
@@ -137,8 +137,8 @@ def test_pair_fold_plain_matches_pallas(sem, dt, monkeypatch):
         jnp.asarray(b.reshape(-1, 128)), jnp.asarray(bv.reshape(-1, 128)),
         *[jnp.asarray(x) for x in edges], W, jsem.mul_op.apply,
         jsem.add_monoid.binaryop.apply, jsem.add_monoid.identity(dt), dt)
-    cnt, vals = spgemm.pair_fold(*_t(a, av, b, bv, *edges), W, tsem.mul,
-                                 tsem.add)
+    cnt, vals = spgemm.pair_fold(*_t(a, av, b, bv, *edges), W,
+                                 tsem.mul_op, tsem.add_monoid)
     assert np.array_equal(cnt.numpy(), np.asarray(jc))
     assert vals.dtype == torch.from_numpy(np.zeros(0, dt)).dtype
     if dt == np.float32:
@@ -150,8 +150,9 @@ def test_pair_fold_plain_matches_pallas(sem, dt, monkeypatch):
 def _fold_oracle(a, av, b, bv, ast, wa, bst, wb, mul, add, dt):
     """Per edge: np.intersect1d with indices, mul(A's value, B's value) at
     the common ids, folded in id order from the monoid's identity."""
-    mulf, foldf = MULS[mul][0], ADDS[add][0]
-    ident = spgemm.identity(add, np.dtype(dt))
+    typ = types._gb_from_dtype(dt)
+    mulf, foldf = getattr(typ, mul).apply, getattr(typ, add + "_MONOID").apply
+    ident = getattr(typ, add + "_MONOID").identity(np.dtype(dt))
     cnt, out = [], []
     for s, n, t, m in zip(ast, wa, bst, wb):
         _, ia, ib = np.intersect1d(a[s:s + n], b[t:t + m],
@@ -260,3 +261,43 @@ def test_segment_fold_generic_equals_jax():
                                         jtypes.INT64.MIN_MONOID)
     for g, w in zip(got, want):
         assert np.array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("sem,typ", SR_CASES)
+def test_masked_algebra_matches_jax(sem, typ, monkeypatch):
+    """C<A> = A @ A at kron-8 under each of the algebra's cases: the port
+    as on the CPU (the generic intersect) and with the fused paths' rule
+    made true (their kernels' plain versions through the full dispatch)
+    equal the JAX package's (exact; ANY: one of the cell's products), and
+    the route is the JAX package's (spgemm.py:886-913): pair_count for
+    PAIR with an idempotent monoid, pair_fold for an int or float
+    output, neither for BOOL and the unsigned types."""
+    from pygraphblas_tpu_torch import convert
+    from pygraphblas_tpu_torch.generators import rmat_edges
+    from pygraphblas_tpu_torch.core import coosparse
+
+    r, c, _ = rmat_edges(8, 8)
+    v = sr_values(typ, len(r), 9)
+    bt = coosparse.build(c, r, v, v.dtype)
+    jsem = getattr(getattr(jtypes, typ), sem)
+    tsem = convert.semiring_from_name(jsem.name)
+    want = jsg.masked_spgemm(r, c, v, *bt, r, c, jsem, v.dtype)
+    calls = []
+    for k in ("pair_count", "pair_fold"):
+        monkeypatch.setattr(spgemm, k, functools.partial(
+            lambda f, k, *a: calls.append(k) or f(*a), getattr(spgemm, k),
+            k))
+    got = spgemm.masked_spgemm(r, c, v, *bt, r, c, tsem, v.dtype,
+                               device="cpu")
+    assert not calls
+    monkeypatch.setattr(spgemm, "_fast_paths", lambda dev: True)
+    fused = spgemm.masked_spgemm(r, c, v, *bt, r, c, tsem, v.dtype,
+                                 device="cpu")
+    route = {"ANY_PAIR": "pair_count", "PLUS_TIMES": "pair_fold",
+             "PLUS_ISLT": "pair_fold"}.get(sem)
+    assert set(calls) == ({route} if route else set())
+    assert len(want[0]) > 500
+    for g in (got, fused):
+        for x, y in zip(g, want):
+            assert x.dtype == np.asarray(y).dtype
+            assert np.array_equal(x, np.asarray(y))
