@@ -3,8 +3,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit);
-  2. the build: the CUDA kernels (nvcc, sm_90a) and the native Benes
-     routing (g++), from the sources in this checkout;
+  2. the build: the CUDA kernels (nvcc, sm_90a, one process a source,
+     each source's seconds logged) and the native Benes routing (g++),
+     from the sources in this checkout;
   3. the paths, each on its own graph (RMAT kron, generated from seed
      42) and its xspmv plans, each driven through the entry point a user
      calls, with the launch counters set to 0 just before and read just
@@ -61,11 +62,33 @@ Phases, in order; any failure exits non-zero:
               launches pair_count, INT16 PLUS_TIMES pair_fold, BOOL
               LOR_LAND and UINT32 BXOR_PAIR neither (the generic
               intersect); each equal to scipy;
+       then the container API (Matrix and Vector) over the earlier
+       paths' graphs, matrices and xspmv plans (no new xspmv plan):
+       gpr20  algorithms.pagerank (Matrix.mxv, desc=T0, accum=PLUS) on
+              pr20's matrix under spmv_engine="xspmv": 5 iterations
+              within 1e-3 x the largest rank of fused.pagerank's, 2
+              mono_span, 1 tdesc, 1 inner3, 1 tasc and 1 cascade an
+              iteration, timed an iteration as (25-iteration call -
+              5-iteration call) / 20 beside pr20's fused loop; then 5
+              through spmv_engine="csr8" (torch ops, no kernel; its
+              plan's host build timed) within 1e-5 x the largest rank;
+       gsp18  algorithms.sssp on sssp18's matrix from its source and
+              algorithms.bfs_level_vxm on bfs18's from vertex 0 (which
+              has no out-edge) and from that source (vxm: SpMSpV, then
+              the csr8 plan; no kernel), each equal to its fused loop
+              exactly (after sssp18);
+       gtc16  triangle_count "cohen" and "sandia_dot" on tc16's graph
+              (tril, triu, a masked Matrix.mxm: pair_count once a width
+              bucket, each launch held against its plain version),
+              each equal to tc16's count (after tc16);
+       gesc14 Matrix.mxm(A, PLUS_TIMES) on esc14's graph as a Matrix (the
+              COO tier: ESC, 4 segfold and 1 esc_gather), equal to
+              esc14's product exactly (after esc14);
      before each path, every kernel it runs is held against its plain
      PyTorch version on the card at the path's own shapes (bit-exact,
      but pair_fold's float32 PLUS within rtol 1e-5: another fold order),
      at every width bucket of its call (pair_count at every launch of
-     kt14's and kt16's first run too, segfold on each of a call's four
+     kt14's and kt16's first run and of gtc16's runs too, segfold on each of a call's four
      scans, esc_gather at every slot; before sr14, segfold at every fold
      code the algebra adds and pair_fold at its new mul and fold codes,
      testing.SEGFOLD_CODES and PAIR_FOLD_CODES), and timed at the shapes of the
@@ -234,6 +257,14 @@ EXPECTED = {
                "mid_pass": 1, "lane_gather_tasc": 2},
     "bc16": {"mono_span": 2, "mono_cascade": 1, "lane_gather_tdesc": 1,
              "mid_pass": 1, "lane_gather_tasc": 1},
+    # the container API (algorithms.pagerank: one Matrix.mxv an
+    # iteration) over pr20's plan
+    "gpr20": {"mono_span": 2, "mono_cascade": 1, "lane_gather_tdesc": 1,
+              "inner3": 1, "lane_gather_tasc": 1},
+    # the same through the csr8 engine, and gsp18's vxm loops (csr8 and
+    # SpMSpV): torch ops on the card, no kernel of the port
+    "gpr20_csr8": {},
+    "gsp18": {},
 }
 # masked-SpGEMM paths: the kernel each masked_spgemm call of the path
 # launches, once per width bucket of its light edges ("bucket"), or once
@@ -245,6 +276,8 @@ EXPECTED_SPGEMM = {
     "kt16": ("pair_count", "bucket"), "kt16_chain": ("fill_keys", "chunk"),
     "val16": ("pair_fold", "bucket"),
     "sr16 LOR_PAIR": ("pair_count", "bucket"),
+    "gtc16 cohen": ("pair_count", "bucket"),
+    "gtc16 sandia_dot": ("pair_count", "bucket"),
     "sr16 PLUS_TIMES": ("pair_fold", "bucket"),
 }
 # the algebra's masked calls that the JAX package's rule sends to its
@@ -255,7 +288,8 @@ GENERIC_SPGEMM = ("sr16 LOR_LAND", "sr16 BXOR_PAIR")
 # scan, four scans a call)
 EXPECTED_ESC = {"esc14": {"segfold": 4, "esc_gather": 1},
                 "esc13": {"segfold": 4, "esc_gather": 1},
-                "sr14": {"segfold": 4, "esc_gather": 1}}
+                "sr14": {"segfold": 4, "esc_gather": 1},
+                "gesc14": {"segfold": 4, "esc_gather": 1}}
 
 # kernel symbol prefix in a profile -> kernel name
 _SYMBOLS = {"mono_span_kernel": "mono_span",
@@ -1974,6 +2008,7 @@ def esc14_path(torch, ck, drv, card):
         return out
 
     got = drv.drive_esc("esc14", best_of_3)
+    drv.results["esc14"] = (rows, cols, n, w, got)
     t = time.perf_counter()
     A = sp.csr_matrix((w.astype(np.float64), (rows, cols)), (n, n))
     want = csr_coo(A @ A)
@@ -2338,6 +2373,194 @@ def sr16_path(torch, ck, drv, card, L):
     return dict(seconds=secs, checks=checks, present=len(want[0]))
 
 
+# ---------------------------------------------------------------------------
+# the container API (Matrix and Vector, slice 10) over the earlier paths'
+# graphs, matrices and xspmv plans: no new xspmv plan is built
+# ---------------------------------------------------------------------------
+
+def gpr20_path(torch, drv, card, A, n, fused_ms):
+    """algorithms.pagerank (the GAP formulation: Matrix.mxv with desc=T0
+    and accum=PLUS) on pr20's matrix, spmv_engine="xspmv": 5 iterations
+    within 1e-3 x the largest rank of fused.pagerank's, then timed an
+    iteration (pagerank_ms: calls of 5 and 25 iterations); then 5
+    iterations through the csr8 engine (torch ops on the card, its plan's
+    host build timed), within 1e-5 x the largest rank of the xspmv run,
+    and timed the same way (calls of 5 and 10)."""
+    from pygraphblas_tpu_torch import algorithms, fused, options_set
+
+    options_set(spmv_engine="xspmv")
+    try:
+        r5 = drv.drive("gpr20", lambda: algorithms.pagerank(
+            A, itermax=5, tol=-1.0), EXPECTED["gpr20"])
+        ref = fused.pagerank(A, itermax=5, tol=-1.0)._vals
+        gap = float((r5._vals - ref).abs().max())
+        top = float(ref.abs().max())
+        log(f"gpr20: algorithms.pagerank through Matrix.mxv on pr20's "
+            f"matrix, 5 iterations: max |container - fused| = {gap:.3e} "
+            f"(max rank {top:.3e}, limit {1e-3 * top:.3e})")
+        if not gap <= 1e-3 * top or r5._vals.shape != (n,):
+            raise AssertionError("gpr20: container PageRank differs from "
+                                 "fused.pagerank")
+        ms, setup_ms, calls = pagerank_ms(torch, algorithms, A, 5, 25)
+    finally:
+        options_set(spmv_engine="auto")
+    log(f"  gpr20: {ms:.4f} ms/iteration (xspmv; (best 25-iteration call "
+        f"- best 5-iteration call) / 20, calls {calls} s), set-up "
+        f"{setup_ms:.4f} ms a call; pr20's fused loop {fused_ms:.4f} "
+        f"ms/iteration in this call: the container layer's host cost "
+        f"{ms - fused_ms:.4f} ms an iteration; card {card}")
+    options_set(spmv_engine="csr8")
+    try:
+        t0 = time.perf_counter()
+        A._spmv_plan(True, "cuda")
+        plan_s = time.perf_counter() - t0
+        rc = drv.drive("gpr20_csr8", lambda: algorithms.pagerank(
+            A, itermax=5, tol=-1.0), EXPECTED["gpr20_csr8"])
+        csr8_ms, csr8_setup_ms, calls8 = pagerank_ms(torch, algorithms, A,
+                                                     5, 10)
+    finally:
+        options_set(spmv_engine="auto")
+    gap8 = float((rc._vals - r5._vals).abs().max())
+    top5 = float(r5._vals.abs().max())
+    log(f"  gpr20 csr8: plan {plan_s:.1f} s (host), {csr8_ms:.4f} "
+        f"ms/iteration ((best 10-iteration call - best 5-iteration call) "
+        f"/ 5, calls {calls8} s), set-up {csr8_setup_ms:.4f} ms a call; "
+        f"max |csr8 - xspmv| = {gap8:.3e} (limit {1e-5 * top5:.3e}); "
+        f"card {card}")
+    if not gap8 <= 1e-5 * top5:
+        raise AssertionError("gpr20: the csr8 engine differs from xspmv")
+    return dict(ms_per_iteration=ms, setup_ms=setup_ms, calls_s=calls,
+                fused_ms_per_iteration=fused_ms,
+                max_abs_gap_vs_fused=gap, csr8_ms_per_iteration=csr8_ms,
+                csr8_setup_ms=csr8_setup_ms, csr8_calls_s=calls8,
+                csr8_plan_s=plan_s, max_abs_gap_csr8=gap8)
+
+
+def pagerank_ms(torch, algorithms, A, short, long, best_of=2):
+    """ms an iteration of algorithms.pagerank(A): the best wall time of a
+    `long`-iteration call less that of a `short`-iteration one, over
+    their difference in iterations, so that a call's set-up (the degree
+    pass, the first rank vector) is not spread over its iterations; and
+    that set-up's ms (the short call less its iterations).  Also returns
+    every call's seconds by length."""
+    secs = {short: [], long: []}
+    for _ in range(best_of):
+        for k in (short, long):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            algorithms.pagerank(A, itermax=k, tol=-1.0)
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t0)
+    ts, tl = min(secs[short]), min(secs[long])
+    ms = (tl - ts) / (long - short) * 1e3
+    return ms, ts * 1e3 - short * ms, secs
+
+
+def gsp18_path(torch, drv, card, A, Aw, s0):
+    """algorithms.sssp (MIN_PLUS vxm with a MIN accumulator) on sssp18's
+    matrix from its source, and algorithms.bfs_level_vxm (LOR_LAND vxm
+    under a complemented mask) on bfs18's, from vertex 0 and from the
+    same source: vxm on the
+    COO tier, so SpMSpV while the frontier is small and the csr8 plan
+    after (torch ops on the card, no kernel of the port); each equal to
+    its fused loop's result exactly."""
+    from pygraphblas_tpu_torch import algorithms, fused
+
+    t0 = time.perf_counter()
+    Aw._spmv_plan(True, "cuda")
+    A._spmv_plan(True, "cuda")
+    plan_s = time.perf_counter() - t0
+    secs = {}
+
+    def run():
+        out = []
+        for name, call in (("sssp", lambda: algorithms.sssp(Aw, s0)),
+                           ("bfs0", lambda: algorithms.bfs_level_vxm(A, 0)),
+                           ("bfs_s0",
+                            lambda: algorithms.bfs_level_vxm(A, s0))):
+            t = time.perf_counter()
+            out.append(call())
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+        return out
+
+    dv, lv0, lvs = drv.drive("gsp18", run, EXPECTED["gsp18"])
+    if dv.to_lists() != fused.sssp(Aw, s0).to_lists():
+        raise AssertionError("gsp18: algorithms.sssp differs from "
+                             "fused.sssp")
+    for lv, src in ((lv0, 0), (lvs, s0)):
+        if lv.to_lists() != fused.bfs_level(A, src).to_lists():
+            raise AssertionError("gsp18: algorithms.bfs_level_vxm from "
+                                 f"{src} differs from fused.bfs_level")
+    # vertex 0 has no out-edge in kron-18, so the BFS from the SSSP
+    # source is the one that walks the graph
+    log(f"gsp18: algorithms.sssp from {s0} ({dv.nvals} reached) "
+        f"{secs['sssp']:.4f} s; bfs_level_vxm from 0 ({lv0.nvals} "
+        f"reached) {secs['bfs0']:.4f} s, from {s0} ({lvs.nvals} reached, "
+        f"depth {int(lvs.reduce_int(lvs.type.MAX_MONOID))}) "
+        f"{secs['bfs_s0']:.4f} s; each equal to its fused loop exactly; "
+        f"csr8 plans {plan_s:.1f} s (host); card {card}")
+    return dict(source=s0, sssp_s=secs["sssp"], bfs0_s=secs["bfs0"],
+                bfs_s0_s=secs["bfs_s0"], csr8_plans_s=plan_s,
+                sssp_reached=dv.nvals, bfs0_reached=lv0.nvals,
+                bfs_s0_reached=lvs.nvals)
+
+
+def gtc16_path(torch, ck, drv, card, rows, cols, n, want):
+    """algorithms.triangle_count methods "cohen" ((L @ U)<A>) and
+    "sandia_dot" ((L @ U^T)<L>) through the containers (tril, triu and a
+    masked Matrix.mxm: the masked SpGEMM, pair_count on the card) on
+    tc16's graph; each equal to the "sandia" count, which tc16 held to
+    scipy's.  pair_count is held against its plain version on every
+    launch of each method's run: its own width buckets (cohen's mask is
+    the whole of A, not tc16's L)."""
+    from pygraphblas_tpu_torch import algorithms, types
+    from pygraphblas_tpu_torch.generators import to_matrix
+
+    A = to_matrix(rows, cols, n, types.INT64)
+    res = {}
+    for method in ("cohen", "sandia_dot"):
+        path = f"gtc16 {method}"
+        t = time.perf_counter()
+        got, calls = record_pair_count(lambda: drv.drive_spgemm(
+            path, lambda: algorithms.triangle_count(A, method=method)))
+        el = time.perf_counter() - t
+        log(f"  {path}: {len(calls)} pair_count launches recorded")
+        check_recorded_pair_count(ck, path, calls)
+        del calls
+        if got != want or drv.counts[path]["counts"]["pair_count"] == 0:
+            raise AssertionError(f"{path}: {got} triangles, sandia and "
+                                 f"scipy {want}")
+        res[method] = dict(triangles=got, seconds=el,
+                           host_s=drv.counts[path]["host_s"])
+        log(f"  {path}: {got} triangles = sandia's = scipy's, {el:.4f} s "
+            f"(first call); card {card}")
+    return res
+
+
+def gesc14_path(torch, drv, card):
+    """Matrix.mxm(A, semiring=FP32.PLUS_TIMES) on esc14's graph as a
+    Matrix (the COO tier: gustavson.spgemm, ESC on the card, 4 segfold
+    launches and 1 esc_gather), equal to esc14's product exactly."""
+    from pygraphblas_tpu_torch import types
+    from pygraphblas_tpu_torch.generators import to_matrix
+
+    rows, cols, n, w, want = drv.results["esc14"]
+    A = to_matrix(rows, cols, n, types.FP32, vals=w)
+    t = time.perf_counter()
+    C = drv.drive_esc("gesc14", lambda: A.mxm(
+        A, semiring=types.FP32.PLUS_TIMES))
+    el = time.perf_counter() - t
+    got = C._coo()
+    if C._fmt != "coo" or not (esc_same(got[:2], want[:2])
+                               and np.array_equal(got[2], want[2])):
+        raise AssertionError("gesc14: Matrix.mxm differs from esc14's "
+                             "product")
+    log(f"gesc14: A.mxm(A) through the Matrix, {C.nvals} entries equal to "
+        f"esc14's product exactly; {el:.4f} s; card {card}")
+    return dict(seconds=el, nnz_out=C.nvals)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200,
@@ -2376,7 +2599,10 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(_kernels.build_log)
     log(f"build: CUDA kernels {t_nvcc:.1f} s (nvcc sm_90a, one process a "
-        f"source), benes routing {t_gxx:.1f} s (g++)")
+        f"source), benes routing {t_gxx:.1f} s (g++); card {card}")
+    log("  seconds a source: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(_kernels.build_seconds.items(),
+                                          key=lambda kv: -kv[1])))
     for line in _kernels.build_log.splitlines():
         if "registers" in line or "stack" in line or line.startswith("=="):
             log("  " + line.strip())
@@ -2467,8 +2693,15 @@ def main():
         f"torch CSR SpMV (A^T w) {lib_spmv_ms:.4f} ms")
     e2e["pr20"].update(coo_ms_per_iteration=coo_ms,
                        torch_csr_spmv_ms=lib_spmv_ms)
-    del A, At, rows_d, cols_d, rows, cols
+    del At, rows_d, cols_d, rows, cols
     phase_s["pr20"] = time.perf_counter() - t0
+
+    # 3a'. the container API's PageRank on pr20's matrix and plan
+    t0 = time.perf_counter()
+    e2e["gpr20"] = gpr20_path(torch, drv, card, A, n,
+                              e2e["pr20"]["ms_per_iteration"])
+    del A
+    phase_s["gpr20"] = time.perf_counter() - t0
 
     # 3b. PageRank at kron-21: level 1 streams, mono_rows, no cascade
     t0 = time.perf_counter()
@@ -2561,9 +2794,15 @@ def main():
         f"{nnz * s_calls / t_sssp:.6e} nnz/s; distances equal scipy's "
         f"exactly; card {card}")
     ab("sssp18", lambda: fused.sssp(Aw, s0))
-    del A, Aw, G, Gw, plan, planw
+    del G, Gw, plan, planw
     kron18 = (rows, cols, n)
     phase_s["bfs18+sssp18"] = time.perf_counter() - t0
+
+    # 3d'. the container API's SSSP and BFS (vxm) on the same matrices
+    t0 = time.perf_counter()
+    e2e["gsp18"] = gsp18_path(torch, drv, card, A, Aw, s0)
+    del A, Aw
+    phase_s["gsp18"] = time.perf_counter() - t0
 
     # 3e. BC4 at kron-16 symmetrised (bench.py:285-299, 386-401)
     t0 = time.perf_counter()
@@ -2603,6 +2842,8 @@ def main():
     for path, run in (
             ("tc16", lambda: tc_path(torch, ck, drv, card, "tc16", *kron16s,
                                      chain=True, per_edge=False)),
+            ("gtc16", lambda: gtc16_path(torch, ck, drv, card, *kron16s,
+                                         e2e["tc16"]["triangles"])),
             ("tc18", lambda: tc_path(torch, ck, drv, card, "tc18",
                                      *symmetrise(*kron18), chain=False,
                                      per_edge=True)),
@@ -2614,6 +2855,7 @@ def main():
             ("val16", lambda: val_path(torch, ck, drv, card,
                                        degree_lower(*kron16s))),
             ("esc14", lambda: esc14_path(torch, ck, drv, card)),
+            ("gesc14", lambda: gesc14_path(torch, drv, card)),
             ("esc13", lambda: esc13_path(torch, ck, drv, card)),
             ("sr14", lambda: sr14_path(torch, ck, drv, card)),
             ("sr16", lambda: sr16_path(torch, ck, drv, card,
@@ -2714,7 +2956,8 @@ def main():
                        cascade_vs_chain=ck.cascade_vs_chain,
                        redesigned_vs_perf_md={
                            f"{k} {p}": v for (k, p), v in redesigned.items()},
-                       phase_s=phase_s), f, indent=1)
+                       phase_s=phase_s,
+                       build_seconds=_kernels.build_seconds), f, indent=1)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     log("end to end: " + json.dumps(e2e))

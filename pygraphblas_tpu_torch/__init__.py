@@ -1,19 +1,27 @@
 """pygraphblas_tpu_torch: the PyTorch/CUDA port of pygraphblas_tpu.
 
-Ported so far: the algebra (``types``, ``binaryop``, ``unaryop``,
+Ported so far: the GraphBLAS containers ``Matrix`` and ``Vector``
+(bitmap, COO and iso formats, masks, accumulators, descriptors; the
+element-wise, apply, select, reduce, mxv/vxm and mxm families) with
+their XLA-only tiers in plain torch (``core/dense.py``, ``csr8.py``,
+``spmspv.py``, ``sparse.py``, ``dewise.py``, ``coosem.py``,
+``coosparse.py``); the algebra (``types``, ``binaryop``, ``unaryop``,
 ``monoid``, ``semiring``, ``selectop``, ``descriptor``, ``scalar`` and
 ``base``, from the tables of ``ops/table.py``: every type, operator,
 monoid and semiring name of the JAX package); the gather-free semiring
 SpMV (``core/xspmv.py``) and the fused loops over it
 (``fused.pagerank``, ``bfs_level``, ``bfs_batch``, ``sssp``, ``bc``);
-the masked SpGEMM (``core/spgemm.py``) with
-``algorithms.triangle_count`` and ``k_truss``; and the unmasked SpGEMM
+the masked SpGEMM (``core/spgemm.py``) with the container algorithms
+(``algorithms.pagerank``, ``sssp``, ``bfs_level_vxm``,
+``bfs_parents_vxm``, ``triangle_count``, ``triangle_centrality``,
+``betweenness_centrality``, ``k_truss``); and the unmasked SpGEMM
 (``core/gustavson.py``, with the expand/sort/compact engine
 ``core/esc.py`` and the dense tier ``core/dense.py``).  Thirteen
 hand-written CUDA kernels for Hopper (``csrc/*.cu``), one for each
 Pallas kernel of the JAX package, carry them.  Entry points run on the
-CUDA card unless the caller passes ``device="cpu"``, which runs each
-kernel's plain PyTorch version.
+CUDA card unless the caller passes ``device="cpu"`` (a container's
+constructors take ``device=``), which runs each kernel's plain PyTorch
+version.
 
 Imports torch, numpy and scipy only: nothing of JAX or of
 pygraphblas_tpu.
@@ -27,6 +35,7 @@ from .base import (
     config,
     options_get,
     options_set,
+    perf_report,
     GraphBLASException,
     NoValue,
     UninitializedObject,
@@ -98,4 +107,5 @@ __all__ = [
     "INT32", "INT16", "INT8", "UINT64", "UINT32", "UINT16", "UINT8",
     "descriptor", "selectop", "binary_op", "unary_op", "select_op",
     "options_set", "options_get", "types", "config", "resolve_device",
+    "perf_report",
 ]

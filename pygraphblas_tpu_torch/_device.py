@@ -17,14 +17,17 @@ def requires_cuda(what="this entry point"):
 
 
 def resolve_device(device=None):
-    """``None`` -> ``cuda`` (raising when absent); anything else is
-    passed to ``torch.device``."""
+    """``None`` -> the current CUDA card (raising when absent); anything
+    else is passed to ``torch.device``.  A CUDA device always carries
+    its index (``cuda`` -> ``cuda:0``), as a tensor's device does, so
+    that devices compare equal by name."""
     if device is None:
-        requires_cuda()
-        return torch.device("cuda")
+        device = "cuda"
     dev = torch.device(device)
     if dev.type == "cuda":
         requires_cuda()
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -36,3 +39,24 @@ def as_tensor(a, device):
     if not a.flags.writeable:      # e.g. a view of another package's buffer
         a = a.copy()
     return torch.from_numpy(a).to(device)
+
+
+def common_device(*objs):
+    """The device an operation on the containers `objs` runs on (None
+    entries are skipped): the one device the containers that hold one
+    share (ValueError when they differ), else the default (the card,
+    raising when there is none).  A container that holds no device yet
+    adopts it, so its first device work lands there."""
+    devs = {}
+    for o in objs:
+        d = getattr(o, "_dev", None)
+        if d is not None:
+            devs[str(d)] = d
+    if len(devs) > 1:
+        raise ValueError("operands sit on different devices: "
+                         + ", ".join(sorted(devs)))
+    dev = next(iter(devs.values())) if devs else resolve_device(None)
+    for o in objs:
+        if o is not None and hasattr(o, "_dev") and o._dev is None:
+            o._dev = dev
+    return dev

@@ -1,8 +1,11 @@
 """Build, load and count the port's CUDA kernels (``csrc/*.cu``).
 
 Every ``.cu`` source is compiled by its own ``nvcc`` process, all started
-together, for ``sm_90a``; the objects are linked into one shared library
-with a plain C interface, loaded with ctypes.  The build lands in
+together, for ``sm_90a`` (a source whose instantiations take long is split
+into translation units of its own: ``csrc/mono_*.cu``; ``build_seconds``
+holds each source's seconds, ``build_phases`` nvcc's own time for each
+of its phases); the objects are linked into one shared
+library with a plain C interface, loaded with ctypes.  The build lands in
 ``_build/`` (listed in ``.gitignore``) under a name carrying a hash of
 the sources, at first use: importing this module compiles nothing.
 
@@ -11,6 +14,7 @@ exactly where it launches its kernel, so a run can show which kernels
 its path went through (``reset_launches`` before, read after).
 """
 
+import csv
 import ctypes
 import glob
 import hashlib
@@ -18,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -35,6 +40,13 @@ launches = {"mono_span": 0, "mono_cascade": 0, "mono_rows": 0,
 
 _lib = None
 build_log = ""
+# source file name -> seconds from the build's start to its nvcc's end
+# (the last build of this process; empty when a finished build was
+# reused)
+build_seconds = {}
+# source file name -> {nvcc phase (cicc, ptxas, ...): seconds}, from
+# nvcc --time, for the same build
+build_phases = {}
 
 # GraphBLAS type name -> csrc/ops.cuh dtype code: the value type of the
 # 4-byte words a kernel reads (DT_F32 float, DT_U32 uint32, the others
@@ -84,11 +96,28 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _phases(path):
+    """nvcc --time's CSV -> {phase: seconds}, summed over its rows."""
+    out = {}
+    if not os.path.exists(path):
+        return out
+    with open(path) as f:
+        for row in csv.reader(f):
+            # source, phase, inputs, output, arch, tool, milliseconds, unit
+            if len(row) < 8 or row[-1].strip() != "ms":
+                continue
+            name = row[1].strip()
+            out[name] = round(out.get(name, 0.0) + float(row[-2]) / 1e3, 3)
+    return out
+
+
 def build():
     """Compile the kernels (one nvcc per source, in parallel) and link
     them into one library; returns its path.  Reuses a finished build of
     the same sources."""
     global build_log
+    build_seconds.clear()
+    build_phases.clear()
     h = hashlib.sha1()
     for p in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(p, "rb") as f:
@@ -101,18 +130,33 @@ def build():
     work = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
         procs = []
+        t0 = time.perf_counter()
         for src in _sources():
             obj = os.path.join(work, os.path.basename(src) + ".o")
             cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-                   "-Xcompiler", "-fPIC", "-c", src, "-o", obj]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+                   "-Xcompiler", "-fPIC", "--time", obj + ".csv", "-c", src,
+                   "-o", obj]
+            # the compiler's output to a file: a pipe nobody reads while
+            # the others run would fill and stall it
+            with open(obj + ".log", "w") as log:
+                procs.append((src, obj, subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT)))
+        pending = {src: p for src, _, p in procs}
+        while pending:
+            for src, p in list(pending.items()):
+                if p.poll() is not None:
+                    build_seconds[os.path.basename(src)] = \
+                        time.perf_counter() - t0
+                    del pending[src]
+            time.sleep(0.05)
         logs = []
         failed = []
         for src, obj, p in procs:
-            text, _ = p.communicate()
-            logs.append(f"== {os.path.basename(src)}\n{text}")
+            name = os.path.basename(src)
+            build_phases[name] = _phases(obj + ".csv")
+            with open(obj + ".log") as f:
+                logs.append(f"== {name} ({build_seconds[name]:.1f} s; "
+                            f"{build_phases[name]})\n{f.read()}")
             if p.returncode:
                 failed.append(src)
         build_log = "\n".join(logs)

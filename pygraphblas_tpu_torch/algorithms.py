@@ -1,60 +1,232 @@
-"""Graph algorithms over the masked SpGEMM, at the size the port needs
-so far: triangle counting (method "sandia") and k-truss.
+"""Graph algorithms over the GraphBLAS containers and the masked SpGEMM.
 
-Counterparts of ``pygraphblas_tpu/algorithms.py:193-234``
-(``triangle_count``) and ``296-328`` (``k_truss``): both run on
-canonical host COO arrays feeding ``core/spgemm.py:masked_spgemm``
-directly, with INT64 PLUS_PAIR.  Each runs on `device` (default
-``cuda``; with no card and no device named it raises)."""
+Counterpart of ``pygraphblas_tpu/algorithms.py``: the user-level codes
+written, as the JAX package writes them, as masked semiring mxv/vxm/mxm
+loops over :class:`Matrix` and :class:`Vector` (``bfs_level_vxm``,
+``bfs_parents_vxm``, ``pagerank``, ``sssp``, ``betweenness_centrality``,
+``triangle_centrality``, and ``triangle_count`` methods "cohen" and
+"sandia_dot"), and the two that run on canonical host COO arrays feeding
+``core/spgemm.py:masked_spgemm`` directly with INT64 PLUS_PAIR
+(``triangle_count`` method "sandia", ``k_truss``).
+
+Each runs on `device` (default: the matrix's own device, else the CUDA
+card; with no card and no device named it raises).  A matrix that holds
+no device yet takes the one named."""
 
 import time
 
 import numpy as np
 
-from . import types
+from . import descriptor, types
 from ._device import resolve_device
 from .core import spgemm as gk
 from .core.coosparse import build as _cbuild
 from .matrix import Matrix
+from .vector import Vector
+
+__all__ = ["bfs_level_vxm", "bfs_parents_vxm", "pagerank", "sssp",
+           "triangle_count", "betweenness_centrality", "k_truss",
+           "triangle_centrality"]
 
 # host seconds by phase ("relabel+build") summed over calls since
 # seconds.clear(); core/spgemm.stats holds masked_spgemm's own phases
 seconds = {}
 
 
+def _device_of(A, device):
+    """The device an algorithm on A runs on: `device` if named (A takes
+    it if it holds none; ValueError if it holds another), else A's own,
+    else the card."""
+    if device is not None:
+        dev = resolve_device(device)
+        if A._dev is not None and str(A._dev) != str(dev):
+            raise ValueError(f"the matrix is on {A._dev}, not {dev}")
+        A._dev = dev
+        return dev
+    return A._device()
+
+
+def bfs_level_vxm(A, start, device=None):
+    """The masked-vxm BFS loop: a vector of 1-based levels."""
+    dev = _device_of(A, device)
+    n = A.nrows
+    v = Vector.sparse(types.INT64, n, device=dev)
+    q = Vector.sparse(types.BOOL, n, device=dev)
+    q[start] = True
+    level = 1
+    while q.reduce_bool() and level <= n:
+        v.assign_scalar(level, mask=q)
+        q = q.vxm(A, semiring=types.BOOL.lor_land, mask=v,
+                  desc=descriptor.RC)
+        level += 1
+    return v
+
+
+def bfs_parents_vxm(A, start, device=None):
+    """BFS parent tree via the ANY_SECONDI semiring: 0-based parent ids
+    (the start's parent is itself)."""
+    dev = _device_of(A, device)
+    n = A.nrows
+    pi = Vector.sparse(types.INT64, n, device=dev)
+    q = Vector.sparse(types.INT64, n, device=dev)
+    q[start] = start
+    pi[start] = start
+    while q.nvals > 0:
+        # SECONDI: the matrix entry's row index k == the parent id
+        q = q.vxm(A, semiring=types.INT64.any_secondi, mask=pi,
+                  desc=descriptor.RSC)
+        if q.nvals == 0:
+            break
+        pi.assign(q, mask=q, desc=descriptor.S)
+    return pi
+
+
+def pagerank(A, damping=0.85, itermax=100, tol=1e-4, d=None, device=None):
+    """PageRank, the GAP formulation: a transposed PLUS_SECOND mxv with
+    degree-normalized ranks, accumulated with PLUS into the teleport
+    term (``A.mxv(w, accum=PLUS, desc=T0)``)."""
+    dev = _device_of(A, device)
+    n = A.nrows
+    if d is None:
+        d = A.reduce_vector(types.FP32.PLUS_MONOID, cast=types.FP32)
+        d = d.eadd(Vector.dense(types.FP32, n, fill=0.0, device=dev),
+                   types.FP32.FIRST)
+    r = Vector.sparse(types.FP32, n, device=dev)
+    t = Vector.sparse(types.FP32, n, device=dev)
+    d = d.apply_second(types.FP32.DIV, damping)
+    r[:] = 1.0 / n
+    teleport = (1 - damping) / n
+    rdiff = 1.0
+    for _ in range(itermax):
+        if rdiff <= tol:
+            break
+        temp = t
+        t = r
+        r = temp
+        w = t.emult(d, types.FP32.DIV)
+        r.assign_scalar(teleport)
+        A.mxv(w, out=r, accum=types.FP32.PLUS,
+              semiring=types.FP32.plus_second, desc=descriptor.T0)
+        t -= r
+        t.apply(types.FP32.ABS, out=t)
+        rdiff = t.reduce_float()
+    return r
+
+
+def sssp(A, start, device=None):
+    """Single-source shortest paths: MIN_PLUS vxm with a MIN
+    accumulator, until the distances stop changing."""
+    dev = _device_of(A, device)
+    n = A.nrows
+    v = Vector.sparse(A.type, n, device=dev)
+    v[start] = 0
+    for _ in range(n):
+        w = v.dup()
+        v = v.vxm(A, semiring=getattr(A.type, "MIN_PLUS"),
+                  accum=getattr(A.type, "MIN"), out=v)
+        if w.iseq(v):
+            break
+    return v
+
+
+def _relabel_by_degree(r, c, n):
+    """Vertex ranks by ascending degree (the GAP ordering)."""
+    deg = np.bincount(r, minlength=n)
+    perm = np.argsort(deg, kind="stable")
+    rank = np.empty_like(perm)
+    rank[perm] = np.arange(len(perm))
+    return rank[r], rank[c]
+
+
 def triangle_count(A, method="sandia", order_by_degree=True, device=None):
-    """Count triangles in the undirected graph A (boolean-symmetric):
-    the sum of (L @ L)<L> with INT64 PLUS_PAIR, L the strict lower
-    triangle.
+    """Count triangles in the undirected graph A (boolean-symmetric).
+
+    Methods:
+    - "sandia":     (L @ L)<L> INT64 PLUS_PAIR, summed: relabel, tril and
+                    canonicalize in one host pass into masked_spgemm;
+    - "cohen":      (L @ U)<A> PLUS_PAIR through the containers, total / 2;
+    - "sandia_dot": (L @ U.T)<L> through the containers (the T1
+                    descriptor).
 
     `order_by_degree` relabels vertices by ascending degree first (the
     GAP ordering): with power-law hubs the lower-triangle lists stay
     short, which bounds the per-edge intersection.  The count does not
     depend on the labels."""
-    if method in ("cohen", "sandia_dot"):
-        raise NotImplementedError(
-            f"triangle_count method {method!r} needs Matrix.tril, triu and "
-            "mxm: ROADMAP Queue A item 8")
-    if method != "sandia":
+    if method not in ("sandia", "cohen", "sandia_dot"):
         raise ValueError(f"unknown method {method}")
-    dev = resolve_device(device)
-    t0 = time.perf_counter()
-    r, c, _ = A._coo()
+    sr = types.INT64.PLUS_PAIR
+    if method == "sandia":
+        dev = resolve_device(device) if device is not None \
+            else (A._dev or resolve_device(None))
+        t0 = time.perf_counter()
+        r, c, _ = A._coo()
+        if order_by_degree:
+            r, c = _relabel_by_degree(r, c, max(A.nrows, A.ncols))
+        keep = r > c
+        lr, lc = r[keep], c[keep]
+        ones = np.ones(len(lr), np.int64)
+        lr, lc, ones = _cbuild(lr, lc, ones, np.int64)
+        btr, btc, _ = _cbuild(lc, lr, ones, np.int64)
+        gk.add_seconds(seconds, "relabel+build", t0)
+        _, _, vv = gk.masked_spgemm(lr, lc, ones, btr, btc, ones, lr, lc,
+                                    sr, np.int64, device=dev)
+        return int(vv.sum())
+
+    dev = _device_of(A, device)
     if order_by_degree:
-        deg = np.bincount(r, minlength=max(A.nrows, A.ncols))
-        perm = np.argsort(deg, kind="stable")
-        rank = np.empty_like(perm)
-        rank[perm] = np.arange(len(perm))
-        r, c = rank[r], rank[c]
-    keep = r > c
-    lr, lc = r[keep], c[keep]
-    ones = np.ones(len(lr), np.int64)
-    lr, lc, ones = _cbuild(lr, lc, ones, np.int64)
-    btr, btc, _ = _cbuild(lc, lr, ones, np.int64)
-    gk.add_seconds(seconds, "relabel+build", t0)
-    _, _, vv = gk.masked_spgemm(lr, lc, ones, btr, btc, ones, lr, lc,
-                                types.INT64.PLUS_PAIR, np.int64, device=dev)
-    return int(vv.sum())
+        t0 = time.perf_counter()
+        r, c, v = A._coo()
+        rr, rc = _relabel_by_degree(r, c, max(A.nrows, A.ncols))
+        relabeled = Matrix.sparse(A.type, A.nrows, A.ncols, device=dev)
+        relabeled._build(rr, rc, np.asarray(v))
+        A = relabeled
+        gk.add_seconds(seconds, "relabel+build", t0)
+    L = A.tril(-1)
+    if method == "cohen":
+        C = L.mxm(A.triu(1), semiring=sr, mask=A, cast=types.INT64)
+        return C.reduce_int() // 2
+    C = L.mxm(A.triu(1), semiring=sr, mask=L, cast=types.INT64,
+              desc=descriptor.T1)
+    return C.reduce_int()
+
+
+def betweenness_centrality(A, sources, AT=None, device=None):
+    """Batched Brandes betweenness centrality: a forward masked
+    PLUS_FIRST SpMM over a batch of source frontiers, then a backward
+    dependency sweep."""
+    dev = _device_of(A, device)
+    if AT is None:
+        AT = A.T
+    n = A.nrows
+    ns = len(sources)
+    paths = Matrix.dense(types.FP32, ns, n, fill=0.0, device=dev)
+    frontier = Matrix.sparse(types.FP32, ns, n, device=dev)
+    for i, s in enumerate(sources):
+        paths[i, s] = 1.0
+        frontier[i, s] = 1.0
+
+    # forward: expand frontiers until exhausted, snapshotting levels
+    S = []
+    frontier = frontier.mxm(A, semiring=types.FP32.plus_first,
+                            mask=paths, desc=descriptor.RC)
+    while frontier.nvals != 0:
+        S.append(frontier.pattern())
+        paths.assign_matrix(frontier, accum=types.FP32.PLUS)
+        frontier = frontier.mxm(A, semiring=types.FP32.plus_first,
+                                mask=paths, desc=descriptor.RC)
+
+    bc = Matrix.dense(types.FP32, ns, n, fill=1.0, device=dev)
+
+    # backward dependency accumulation
+    for i in range(len(S) - 1, 0, -1):
+        W = bc.emult(paths, types.FP32.DIV, mask=S[i], desc=descriptor.RS)
+        W = W.mxm(AT, semiring=types.FP32.plus_first, mask=S[i - 1],
+                  desc=descriptor.RS)
+        W.emult(paths, types.FP32.TIMES, out=bc, accum=types.FP32.PLUS)
+
+    centrality = bc.reduce_vector(types.FP32.PLUS_MONOID,
+                                  desc=descriptor.T0)
+    return centrality.apply_second(types.FP32.MINUS, float(ns))
 
 
 def k_truss(A, k, device=None):
@@ -65,7 +237,8 @@ def k_truss(A, k, device=None):
     Each pass is one masked PLUS_PAIR product C<A> = A @ A on the kept
     edges, which drops edges of no support, then a prune below k-2;
     passes end when a pass keeps every edge."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if device is not None \
+        else (A._dev or resolve_device(None))
     r, c, _ = A._coo()
     r = np.asarray(r, np.int64)
     c = np.asarray(c, np.int64)
@@ -81,7 +254,25 @@ def k_truss(A, k, device=None):
         keep = support >= (k - 2)
         r, c, support = cnt_r[keep], cnt_c[keep], support[keep]
         if len(r) == nvals_last:
-            out = Matrix.sparse(types.INT64, A.nrows, A.ncols)
+            out = Matrix.sparse(types.INT64, A.nrows, A.ncols, device=dev)
             out._build(r, c, support)
             return out
         nvals_last = len(r)
+
+
+def triangle_centrality(A, device=None):
+    """Triangle centrality (Burkhardt 2021): importance by triangle
+    participation, TC = (3 A y - 2 T' y + y) / k."""
+    dev = _device_of(A, device)
+    T = A.mxm(A, semiring=types.FP64.plus_pair, mask=A, cast=types.FP64)
+    y = T.reduce_vector(types.FP64.PLUS_MONOID)
+    k = y.reduce_float()
+    if k == 0:
+        return Vector.dense(types.FP64, A.nrows, fill=0.0, device=dev)
+    T_pattern = T.pattern(types.FP64)
+    yp = T_pattern.mxv(y, semiring=types.FP64.plus_second)
+    center = A.mxv(y, semiring=types.FP64.plus_second)
+    out = center.apply_second(types.FP64.TIMES, 3.0)
+    out = out.eadd(yp.apply_second(types.FP64.TIMES, -2.0), types.FP64.PLUS)
+    out = out.eadd(y, types.FP64.PLUS)
+    return out.apply_second(types.FP64.DIV, k)

@@ -1,18 +1,21 @@
-"""Runtime base: global options, the error hierarchy, and the
-index-range compiler.
+"""Runtime base: global options, the error hierarchy, per-operation
+timing and the index-range compiler.
 
 The port's counterpart of ``pygraphblas_tpu/base.py``.  Options live in
-a Python-side :class:`GlobalConfig` read by the dispatch layer; the
-ones the port's engines read so far:
-
-``spmv_engine`` ("auto" takes the xspmv pipeline when the semiring and
-size support it, "xspmv" forces it, "csr8" forces the csr8 engine: not
-ported yet, Queue A item 8) and the unmasked SpGEMM's
+a Python-side :class:`GlobalConfig` read by the dispatch layer: the
+containers' tier limits (``bitmap_max_cells``, ``vector_max_cells``:
+past them a container is host-staged sorted COO), ``op_timing`` (the
+``_timed`` counters, ``perf_report``), ``spmv_engine`` ("auto" takes the
+xspmv pipeline when the semiring and size support it and the plan is
+warm, "xspmv" forces it, "csr8" forces the csr8 engine),
+``spmv_plan_async`` (build a cold xspmv plan in a thread), the
+element-wise device engine's ``ewise_engine`` and ``ewise_device_min``,
+and the unmasked SpGEMM's
 ``spgemm_engine`` and ``spgemm_dense_cells`` ("auto" tries the
 compact-dense tier within ``spgemm_dense_cells`` cells, then the
 expand/sort/compact engine (core/esc.py) on the card, then the host
 two-phase tiers; "dense", "esc" and "scipy" force one tier).  The other
-fields are the JAX package's, kept for the containers to come.
+fields are the JAX package's, kept for parity.
 """
 
 import sys
@@ -189,6 +192,49 @@ def burble(msg, *args):
     if config.burble:
         print("[burble %.6f] %s" % (time.time(), msg % args),
               file=sys.stderr)
+
+
+# --------------------------------------------------------------------------
+# Per-operation wall-clock counters (options_set(op_timing=1))
+# --------------------------------------------------------------------------
+
+perf_counters = {}
+
+
+def _timed(name):
+    """Decorate a dispatch-layer operation with an op-timing counter
+    (enabled via ``options_set(op_timing=1)``; near zero cost when
+    off)."""
+    from functools import wraps
+
+    def deco(fn):
+        @wraps(fn)
+        def wrap(*a, **k):
+            if not config.op_timing:
+                return fn(*a, **k)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                c = perf_counters.setdefault(name, [0, 0.0])
+                c[0] += 1
+                c[1] += time.perf_counter() - t0
+        return wrap
+    return deco
+
+
+def perf_report(reset=False, file=None):
+    """Aggregated per-op timing: {op: (calls, total_seconds)}.  With
+    file= (e.g. sys.stderr) also prints a sorted table.  Host seconds:
+    a call returns when its work is queued on the card, unless it reads
+    a result back."""
+    snap = {k: tuple(v) for k, v in perf_counters.items()}
+    if file is not None:
+        for k, (n, t) in sorted(snap.items(), key=lambda kv: -kv[1][1]):
+            print(f"{k:24s} {n:8d} calls {t:10.4f} s", file=file)
+    if reset:
+        perf_counters.clear()
+    return snap
 
 
 # --------------------------------------------------------------------------

@@ -4,8 +4,7 @@ BinaryOp objects pair a name with a torch closure and a result-type
 rule.  Built-ins are generated from the semantic table in
 ``ops/table.py`` (the JAX package's ``binaryop.py``); user ops are made
 with the :func:`binary_op` decorator from a plain Python function over
-tensors.  The container forms (``op(A, B)`` as an element-wise multiply)
-need the containers, Queue A item 8 of ROADMAP.md.
+tensors.  ``op(A, B)`` is the element-wise multiply ``A.emult(B, op)``.
 """
 
 __all__ = ["BinaryOp", "Accum", "current_binop", "current_accum",
@@ -14,17 +13,13 @@ __all__ = ["BinaryOp", "Accum", "current_binop", "current_accum",
 import contextvars
 import sys
 
+import numpy as np
+
 from . import types
 from .ops import table
 
 current_accum = contextvars.ContextVar("current_accum")
 current_binop = contextvars.ContextVar("current_binop")
-
-
-def _needs_containers(what):
-    return NotImplementedError(
-        f"{what} needs Matrix and Vector, which are not ported yet "
-        "(ROADMAP.md Queue A item 8)")
 
 
 class BinaryOp:
@@ -68,7 +63,7 @@ class BinaryOp:
         return False
 
     def __call__(self, A, B, *args, **kwargs):
-        raise _needs_containers(f"{self.name}(A, B)")
+        return A.emult(B, self, *args, **kwargs)
 
     def get_op(self):
         return self
@@ -108,6 +103,33 @@ class BinaryOp:
         if self.builtin:
             return self.fn(x, y, self.type_cls)
         return self.fn(x, y)
+
+
+def at_type(op, typ):
+    """The built-in op of `op`'s name at Type `typ` (the JAX closures take
+    the dtype of the values they are given; the port's name their type):
+    `op` itself for a user, UDT or positional op, or a name `typ` lacks."""
+    if (op is None or not getattr(op, "builtin", False)
+            or op.positional is not None or typ is None):
+        return op
+    return getattr(sys.modules[__name__], f"{op.op}_{typ.__name__}", op)
+
+
+def np_binop(op):
+    """numpy-vectorized closure of a BinaryOp: numpy arrays in and out,
+    the op applied at the type of the first operand's dtype (a struct
+    UDT op takes the structured arrays as they are)."""
+    def fn(x, y):
+        x = np.asarray(x)
+        y = np.asarray(y)
+        if getattr(op, "udt", None) is not None:
+            return np.asarray(op.apply(x, y))
+        tx = types._gb_from_dtype(x.dtype)
+        ty = types._gb_from_dtype(y.dtype)
+        f = at_type(op, tx)
+        z = f.apply(tx.to_torch(x), ty.to_torch(y.astype(x.dtype)))
+        return f.ztype(tx).to_numpy(z)
+    return fn
 
 
 class Accum:

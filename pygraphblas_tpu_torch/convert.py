@@ -1,10 +1,15 @@
-"""Plans and algebra objects carried across from the JAX package.
+"""Plans, containers and algebra objects carried across from the JAX
+package.
 
 The JAX plans (``MonoPlan``, ``PermPlan``, ``XSpmvPlan``) are pytrees;
 a caller flattens one into a dict of numpy arrays and ints (its leaves
 and static fields) and hands the dict here, which builds the port's
 plan on a given device.  So both packages can run the very same plan.
 This module never sees a JAX object.
+
+A container goes across as the numpy arrays of its ``to_arrays()`` (or
+``_coo()``): ``matrix_from_arrays`` and ``vector_from_arrays`` build the
+port's Matrix or Vector of the same type, shape and entries.
 
 The algebra goes across by name: ``semiring_from_name``,
 ``monoid_from_name``, ``binaryop_from_name`` and ``type_from_name`` take
@@ -24,6 +29,8 @@ Dict formats (keys as the JAX plans' attributes):
 import numpy as np
 
 from . import binaryop, monoid, semiring, types
+from .matrix import Matrix
+from .vector import Vector
 from .core.mono import MonoPlan
 from .core.perm import PermPlan
 from .core.xspmv import XSpmvPlan
@@ -82,3 +89,24 @@ def binaryop_from_name(name):
 def type_from_name(name):
     """"UINT32" -> the port's ``types.UINT32``."""
     return types.MetaType._name_type_map[name]
+
+
+def matrix_from_arrays(type_name, nrows, ncols, rows, cols, vals,
+                       device=None):
+    """A Matrix of the type named `type_name` ("FP32", ...) holding the
+    entries (rows[k], cols[k]) = vals[k], on `device` (None: the device
+    of its first device work)."""
+    typ = type_from_name(type_name)
+    A = Matrix.sparse(typ, nrows, ncols, device=device)
+    A._build(np.asarray(rows, np.int64), np.asarray(cols, np.int64),
+             np.asarray(vals).astype(typ._numpy_t))
+    return A
+
+
+def vector_from_arrays(type_name, size, idx, vals, device=None):
+    """A Vector of the type named `type_name` holding the entries
+    idx[k] = vals[k], on `device` (None: as ``matrix_from_arrays``)."""
+    typ = type_from_name(type_name)
+    v = Vector.sparse(typ, size, device=device)
+    v._build(np.asarray(idx, np.int64), np.asarray(vals).astype(typ._numpy_t))
+    return v

@@ -1,7 +1,16 @@
-"""Dense semiring matmul: the matmul tier of the unmasked SpGEMM.
+"""The dense ("bitmap"/"full") tier: a container's (vals, mask) tensors,
+the element-wise operations over them and the semiring matmul.
 
-Counterpart of ``pygraphblas_tpu/core/dense.py:271-394`` (``_matmul_ok``,
-``_f32_pattern_matmul`` and ``mxm``).  The algebras a matmul computes
+Counterpart of ``pygraphblas_tpu/core/dense.py``.  The element-wise half
+(``effective_mask``, ``writeback``, ``eadd``, ``emult``,
+``apply_unary``, ``apply_binary_bound``, ``select``, ``reduce_all``,
+``reduce_axis``, ``gather2d``, ``scatter2d``) is plain torch on the
+tensors' device, as the JAX package's is XLA outside any Pallas kernel.
+Every function takes and returns values in the held dtype of a type it
+is told (``types.py``: UINT16/32/64 as signed bit views) and applies
+each op at that type (``binaryop.at_type``).
+
+The algebras a matmul computes
 exactly (PLUS_PAIR, PLUS_TIMES, and LOR or ANY with LAND, PAIR, FIRST,
 SECOND or TIMES into BOOL) are ``torch.matmul`` here, as the JAX package
 computes them with XLA matmuls outside any Pallas kernel, in full
@@ -17,6 +26,8 @@ import numpy as np
 import torch
 
 from .. import types
+from ..binaryop import at_type
+from ..unaryop import at_type as unary_at_type
 from ..semiring import ops_at
 
 # cells of one (m, kb, n) block of the generic path (dense.py:23)
@@ -45,6 +56,281 @@ def _full_fp32():
 
 def _truthy(vals):
     return vals if vals.dtype == torch.bool else vals != 0
+
+
+def effective_mask(mask_vals, mask_mask, complement, structural):
+    """The boolean write mask of a mask container's (vals, mask)."""
+    if mask_mask is None:
+        w = None
+    elif structural:
+        w = mask_mask
+    else:
+        w = mask_mask & _truthy(mask_vals)
+    if complement:
+        w = ~w
+    return w
+
+
+def writeback(c_vals, c_mask, t_vals, t_mask, mask_vals, mask_mask,
+              accum=None, complement=False, structural=False, replace=False,
+              typ=None):
+    """The GraphBLAS masked-accumulate-write C<M> (accum)= T, with C of
+    type `typ` and T already in its held dtype.
+
+    Z = accum(C, T) (union pattern) or T; entries of C in the mask
+    region become Z's; outside it they are kept, or deleted when
+    `replace`."""
+    t_vals = t_vals.to(c_vals.dtype)
+    if mask_mask is None and complement:
+        w = torch.zeros_like(c_mask)     # complement of no mask: nothing
+    elif mask_mask is None:
+        w = None
+    else:
+        w = effective_mask(mask_vals, mask_mask, complement, structural)
+
+    if accum is None:
+        z_vals, z_mask = t_vals, t_mask
+    else:
+        both = c_mask & t_mask
+        acc = at_type(accum, typ).apply(c_vals, t_vals)
+        z_vals = torch.where(both, acc.to(c_vals.dtype),
+                             torch.where(t_mask, t_vals, c_vals))
+        z_mask = c_mask | t_mask
+
+    if w is None:
+        return torch.where(z_mask, z_vals, c_vals), z_mask
+    out_vals = torch.where(w & z_mask, z_vals, c_vals)
+    if replace:
+        out_mask = w & z_mask
+    else:
+        out_mask = torch.where(w, z_mask, c_mask)
+    return out_vals, out_mask
+
+
+def _pos_grids(shape, device):
+    if len(shape) == 1:
+        i = torch.arange(shape[0], device=device)
+        return dict(i=i, j=i)
+    i = torch.arange(shape[0], device=device)[:, None].expand(shape)
+    j = torch.arange(shape[1], device=device)[None, :].expand(shape)
+    return dict(i=i, j=j)
+
+
+def _binary_pos(shape, device):
+    g = _pos_grids(shape, device)
+    return dict(i0=g["i"], j0=g["j"], i1=g["i"], j1=g["j"])
+
+
+def _zero(typ, device):
+    return torch.zeros((), dtype=typ.torch_dtype, device=device)
+
+
+def eadd(a_vals, a_mask, b_vals, b_mask, op, a_typ, b_typ, out_typ):
+    """T = A (+) B: union pattern; op applied (at out_typ) where both
+    are present."""
+    a_c = types.cast(a_vals, a_typ, out_typ)
+    b_c = types.cast(b_vals, b_typ, out_typ)
+    both = a_mask & b_mask
+    f = at_type(op, out_typ)
+    pos = _binary_pos(a_vals.shape, a_vals.device) \
+        if op.positional is not None else None
+    z = f.apply(a_c, b_c, pos)
+    z = types.cast(z, f.ztype(out_typ), out_typ)
+    t_vals = torch.where(both, z, torch.where(a_mask, a_c, b_c))
+    return t_vals, a_mask | b_mask
+
+
+def emult(a_vals, a_mask, b_vals, b_mask, op, a_typ, b_typ, out_typ):
+    """T = A (*) B: intersection pattern; the op applies at out_typ, or
+    (a BOOL-valued op) at the operands' promoted type."""
+    if op.ztype_rule == "BOOL":
+        in_typ = types.promote(a_typ, b_typ)
+    else:
+        in_typ = out_typ
+    a_c = types.cast(a_vals, a_typ, in_typ)
+    b_c = types.cast(b_vals, b_typ, in_typ)
+    f = at_type(op, in_typ)
+    pos = _binary_pos(a_vals.shape, a_vals.device) \
+        if op.positional is not None else None
+    z = types.cast(f.apply(a_c, b_c, pos), f.ztype(in_typ), out_typ)
+    t_mask = a_mask & b_mask
+    return torch.where(t_mask, z, _zero(out_typ, z.device)), t_mask
+
+
+def apply_unary(vals, mask, op, in_typ, out_typ):
+    """T = op(A) on the present entries."""
+    pos = _pos_grids(vals.shape, vals.device) \
+        if op.positional is not None else None
+    f = unary_at_type(op, in_typ)
+    z = types.cast(f.apply(vals, pos), f.ztype(in_typ), out_typ)
+    return torch.where(mask, z, _zero(out_typ, z.device)), mask
+
+
+def apply_binary_bound(vals, mask, scalar, op, in_typ, out_typ, bind_first):
+    """apply_first / apply_second: one operand bound to a scalar (a
+    value of in_typ)."""
+    f = at_type(op, in_typ)
+    if op.positional is not None:
+        z = f.apply(vals, vals, _binary_pos(vals.shape, vals.device))
+    else:
+        s = torch.full_like(vals, in_typ.scalar(scalar))
+        z = f.apply(s, vals) if bind_first else f.apply(vals, s)
+    z = types.cast(z, f.ztype(in_typ), out_typ)
+    return torch.where(mask, z, _zero(out_typ, z.device)), mask
+
+
+def select(vals, mask, thunk, op):
+    """Keep the entries where the predicate holds."""
+    g = _pos_grids(vals.shape, vals.device)
+    if isinstance(thunk, torch.Tensor):
+        th = thunk
+    else:
+        th = torch.as_tensor(np.asarray(thunk), device=vals.device)
+    keep = op.apply(g["i"], g["j"], vals, th)
+    t_mask = mask & keep
+    return torch.where(t_mask, vals, torch.zeros_like(vals)), t_mask
+
+
+# ---------------------------------------------------------------------------
+# reductions
+# ---------------------------------------------------------------------------
+
+
+def _flip(typ):
+    """The sign-bit flip that turns a bit view's order into a signed one."""
+    return -(1 << (typ._bits - 1)) if typ._view else 0
+
+
+def _masked_tree_reduce(vals, mask, add_fn, dim=0):
+    """log2-depth fold of present entries along `dim`; absent entries
+    never touch the combiner."""
+    n = vals.shape[dim]
+    size = 1
+    while size < n:
+        size *= 2
+    v = vals.movedim(dim, 0)
+    m = mask.movedim(dim, 0)
+    if size > n:
+        pad = (size - n,) + tuple(v.shape[1:])
+        v = torch.cat([v, torch.zeros(pad, dtype=v.dtype,
+                                      device=v.device)])
+        m = torch.cat([m, torch.zeros(pad, dtype=torch.bool,
+                                      device=m.device)])
+    while v.shape[0] > 1:
+        half = v.shape[0] // 2
+        lo, hi = v[:half], v[half:2 * half]
+        lo_m, hi_m = m[:half], m[half:2 * half]
+        both = lo_m & hi_m
+        v = torch.where(both, add_fn(lo, hi).to(v.dtype),
+                        torch.where(hi_m, hi, lo))
+        m = lo_m | hi_m
+    return v[0], m[0]
+
+
+def _tree(x, f, ident):
+    """Fold a 1-d tensor with the associative `f` in log2 passes (pads
+    with `ident`)."""
+    while x.numel() > 1:
+        if x.numel() % 2:
+            x = torch.cat([x, ident.reshape(1)])
+        x = f(x[0::2], x[1::2])
+    return x[0] if x.numel() else ident
+
+
+def reduce_all(vals, mask, monoid, typ):
+    """Reduce every present entry (values of `typ`) to a 0-d tensor with
+    the monoid (absent all: its identity)."""
+    ident = torch.tensor(typ.scalar(monoid.identity(typ._numpy_t)),
+                         dtype=typ.torch_dtype, device=vals.device)
+    filled = torch.where(mask, vals, ident)
+    name = monoid.binaryop.op if monoid.binaryop.builtin else None
+    fl = _flip(typ)
+    if name == "PLUS":
+        if typ._kind == "b":
+            return (mask & vals).any()
+        return torch.sum(torch.where(mask, vals, torch.zeros_like(vals)),
+                         dtype=vals.dtype)
+    if name == "TIMES":
+        if typ._kind == "b":
+            return torch.where(mask, vals, True).all()
+        return torch.prod(filled.reshape(-1), dtype=vals.dtype)
+    if name in ("MIN", "MAX") and typ._kind == "b":
+        return (filled.all() if name == "MIN" else filled.any())
+    if name in ("MIN", "MAX"):
+        f = torch.amin if name == "MIN" else torch.amax
+        return f(filled ^ fl) ^ fl if fl else f(filled)
+    if name == "LOR":
+        return (mask & _truthy(vals)).any()
+    if name == "LAND":
+        return torch.where(mask, _truthy(vals), True).all()
+    if name == "LXOR":
+        return (mask & _truthy(vals)).sum() % 2 == 1
+    if name == "LXNOR":
+        return ~((mask & ~_truthy(vals)).sum() % 2 == 1)
+    if name in ("BOR", "BAND", "BXOR"):
+        f = {"BOR": torch.bitwise_or, "BAND": torch.bitwise_and,
+             "BXOR": torch.bitwise_xor}[name]
+        return _tree(filled.reshape(-1), f, ident)
+    if name == "BXNOR":
+        r = _tree(filled.reshape(-1), torch.bitwise_xor,
+                  torch.zeros_like(ident))
+        return r if filled.numel() % 2 == 1 else ~r
+    if name == "ANY":
+        flat = mask.reshape(-1)
+        if not bool(flat.any()):
+            return ident
+        return vals.reshape(-1)[int(torch.argmax(flat.to(torch.int8)))]
+    add = at_type(monoid.binaryop, typ)
+    v, m = _masked_tree_reduce(vals.reshape(-1), mask.reshape(-1),
+                               add.apply)
+    return torch.where(m, v, ident)
+
+
+def reduce_axis(vals, mask, monoid, dim, typ):
+    """Row (dim=1) or column (dim=0) reduction to a (vals, mask) vector."""
+    ident = torch.tensor(typ.scalar(monoid.identity(typ._numpy_t)),
+                         dtype=typ.torch_dtype, device=vals.device)
+    filled = torch.where(mask, vals, ident)
+    name = monoid.binaryop.op if monoid.binaryop.builtin else None
+    fl = _flip(typ)
+    if typ._kind == "b" and name in ("PLUS", "MAX", "TIMES", "MIN"):
+        name = {"PLUS": "LOR", "MAX": "LOR", "TIMES": "LAND",
+                "MIN": "LAND"}[name]
+    if name == "PLUS":
+        out = torch.sum(torch.where(mask, vals, torch.zeros_like(vals)),
+                        dim=dim, dtype=vals.dtype)
+    elif name == "TIMES":
+        out = torch.prod(filled, dim=dim, dtype=vals.dtype)
+    elif name in ("MIN", "MAX"):
+        f = torch.amin if name == "MIN" else torch.amax
+        out = f(filled ^ fl, dim=dim) ^ fl if fl else f(filled, dim=dim)
+    elif name == "LOR":
+        out = (mask & _truthy(vals)).any(dim=dim)
+    elif name == "LAND":
+        out = torch.where(mask, _truthy(vals), True).all(dim=dim)
+    elif name == "LXOR":
+        out = ((mask & _truthy(vals)).sum(dim=dim) % 2) == 1
+    else:
+        add = at_type(monoid.binaryop, typ)
+        out, _ = _masked_tree_reduce(vals, mask, add.apply, dim=dim)
+    return out.to(typ.torch_dtype), mask.any(dim=dim)
+
+
+def gather2d(vals, mask, row_idx, col_idx):
+    """Extract a submatrix by row/col index vectors."""
+    return vals[row_idx][:, col_idx], mask[row_idx][:, col_idx]
+
+
+def scatter2d(c_vals, c_mask, row_idx, col_idx, t_vals, t_mask):
+    """Assign a submatrix into C at row/col index vectors (pattern
+    write)."""
+    rr = row_idx[:, None]
+    cc = col_idx[None, :]
+    v = c_vals.clone()
+    m = c_mask.clone()
+    v[rr, cc] = t_vals.to(c_vals.dtype)
+    m[rr, cc] = t_mask
+    return v, m
 
 
 def _f32_pattern_matmul(a_mask, b_mask):

@@ -1,0 +1,7 @@
+// One translation unit of mono.cuh: mono_rows at float words with int16 dm,
+// every fold.
+
+#define PGB_MONO_DEFS
+#include "mono.cuh"
+
+PGB_ROWS_INSTANCE(float, int16_t);

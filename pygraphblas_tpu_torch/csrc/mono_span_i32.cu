@@ -1,0 +1,7 @@
+// One translation unit of mono.cuh: mono_span at int32 words, the arithmetic
+// codes.
+
+#define PGB_MONO_DEFS
+#include "mono.cuh"
+
+PGB_SPAN_INSTANCE(int32_t, false);

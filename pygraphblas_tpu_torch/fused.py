@@ -12,10 +12,15 @@ frontier is empty; SSSP: whether a distance changed).  Nothing else
 leaves the card.  PageRank with ``tol < 0`` runs exactly ``itermax``
 iterations and reads nothing.
 
-Where the JAX package falls back to the csr8 engine or the eager
-algorithms (nnz below ``MIN_NNZ``, ``spmv_engine="csr8"``, integer
-SSSP, a non-square BC), the port raises ``NotImplementedError``: those
-belong to ROADMAP Queue A.
+Where the xspmv engine does not apply (nnz below ``MIN_NNZ``,
+``spmv_engine="csr8"``, integer SSSP) the loops run over the matrix's
+csr8 plan (``core/csr8.py``: torch gathers and folds on the device), as
+the JAX package's do; BC there, and on a non-square matrix, is
+``algorithms.betweenness_centrality``.  With ``spmv_plan_async`` a cold
+PageRank plan builds in a thread while the planless COO loop runs.
+Integer SSSP takes the csr8 plan's masked SpMV, so no value stands for
+infinity (the JAX package's loop casts inf to the integer type, which
+raises ``OverflowError``).
 """
 
 import numpy as np
@@ -24,12 +29,11 @@ import torch
 from . import types
 from ._device import resolve_device
 from .base import config
+from .core import csr8
 from .core import xspmv as xs
 from .vector import Vector
 
 __all__ = ["pagerank", "bfs_level", "bfs_batch", "sssp", "bc"]
-
-_NOT_PORTED = "csr8 engine and eager algorithms: ROADMAP Queue A"
 
 
 def _xspmv_ok(A, semiring, dtype):
@@ -38,6 +42,14 @@ def _xspmv_ok(A, semiring, dtype):
     if config.spmv_engine == "xspmv":
         return True
     return xs.supported(semiring, dtype, A.nvals)
+
+
+def _csr8_spmv(plan, x, mul, add, ident, ident_x):
+    """Semiring SpMV over a csr8 plan with dense x (fused.py:_spmv): the
+    pad column reads a trailing x cell holding `ident_x`."""
+    x_ext = torch.cat([x, ident_x.reshape(1)])
+    prod = mul(plan.vals_p.to(x.dtype), x_ext[plan.cols_p])
+    return csr8.reduce_partials(plan, prod, add, ident)
 
 
 def _deg_vec(A, device=None):
@@ -98,21 +110,36 @@ def _pagerank_loop_coo(rows, cols, n, itermax, d_inv_damped, teleport,
 
 def pagerank(A, damping=0.85, itermax=100, tol=1e-4, device=None):
     """Whole-loop PageRank; returns a dense FP32 Vector on `device`
-    (default: the CUDA card).  Uses the gather-free xspmv engine."""
+    (default: the CUDA card).  Uses the gather-free xspmv engine where
+    it applies (the hand kernels on the card), else the csr8 plan; with
+    ``spmv_plan_async`` a cold plan builds in a thread while the
+    planless COO loop runs."""
     dev = resolve_device(device)
     n = A.nrows
     sem = types.FP32.PLUS_SECOND
-    if not _xspmv_ok(A, sem, np.float32):
-        raise NotImplementedError(_NOT_PORTED)
-    plan = A._xspmv_plan(True, np.float32, device=dev)   # y = A^T w
     d_inv = _d_inv(_deg_vec(A, dev), damping)
+    teleport = np.float32((1 - damping) / n)
+    if _xspmv_ok(A, sem, np.float32):
+        plan = A._xspmv_plan(True, np.float32, device=dev,  # y = A^T w
+                             async_build=config.spmv_plan_async)
+        if plan is None:            # build in flight: the planless loop
+            rows, cols, _ = A._device_coo(dev)
+            r, _, _ = _pagerank_loop_coo(rows, cols, n, itermax, d_inv,
+                                         teleport, tol)
+        else:
+            def spmv(w):
+                return xs.xspmv(plan, w, sem, np.float32)[0]
 
-    def spmv(w):
-        return xs.xspmv(plan, w, sem, np.float32)[0]
+            r, _, _ = _loop(spmv, n, itermax, d_inv, teleport, tol)
+    else:
+        plan = A._spmv_plan(True, dev)                  # transposed
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    r, _, _ = _loop(spmv, n, itermax, d_inv, np.float32((1 - damping) / n),
-                    tol)
-    return Vector(types.FP32, r)
+        def spmv(w):
+            return _csr8_spmv(plan, w, lambda a, x: x, "PLUS", zero, zero)
+
+        r, _, _ = _loop(spmv, n, itermax, d_inv, teleport, tol)
+    return Vector._from_parts(types.FP32, r)
 
 
 def _bfs_one(plan, n, start, dev):
@@ -133,15 +160,37 @@ def _bfs_one(plan, n, start, dev):
     return lv
 
 
+def _bfs_csr8(plan, n, start, dev):
+    """The level loop over a csr8 plan: LOR of the frontier's pattern
+    (fused.py:_bfs_loop).  Returns int32 levels, 1-based, 0 where
+    unreached."""
+    lv = torch.zeros(n, dtype=torch.int32, device=dev)
+    frontier = torch.zeros(n, dtype=torch.bool, device=dev)
+    frontier[start] = True
+    zero = torch.zeros((), dtype=torch.int8, device=dev)
+    level = 1
+    while level <= n and bool(frontier.any()):
+        lv = torch.where(frontier, level, lv)
+        f_ext = torch.cat([frontier, torch.zeros(1, dtype=torch.bool,
+                                                 device=dev)])
+        fe = (f_ext[plan.cols_p] & plan.pad_mask).to(torch.int8)
+        nxt = csr8.reduce_partials(plan, fe, "LOR", zero) > 0
+        frontier = nxt & (lv == 0)
+        level += 1
+    return lv
+
+
 def bfs_level(A, start, device=None):
     """Whole-loop level-synchronous BFS (vxm = transposed SpMV); returns
     an INT64 Vector of 1-based levels, present where reached."""
     dev = resolve_device(device)
-    if not _xspmv_ok(A, types.FP32.MAX_SECOND, np.float32):
-        raise NotImplementedError(_NOT_PORTED)
-    plan = A._xspmv_plan(True, np.float32, device=dev)
-    lv = _bfs_one(plan, A.nrows, int(start), dev).to(torch.int64)
-    return Vector(types.INT64, lv, lv > 0)
+    if _xspmv_ok(A, types.FP32.MAX_SECOND, np.float32):
+        plan = A._xspmv_plan(True, np.float32, device=dev)
+        lv = _bfs_one(plan, A.nrows, int(start), dev)
+    else:
+        lv = _bfs_csr8(A._spmv_plan(True, dev), A.nrows, int(start), dev)
+    lv = lv.to(torch.int64)
+    return Vector._from_parts(types.INT64, lv, lv > 0)
 
 
 def bfs_batch(A, sources, device=None):
@@ -150,21 +199,60 @@ def bfs_batch(A, sources, device=None):
     unreached), as the JAX package's ``bfs_batch``."""
     dev = resolve_device(device)
     if not _xspmv_ok(A, types.FP32.MAX_SECOND, np.float32):
-        raise NotImplementedError(_NOT_PORTED)
+        return torch.stack([bfs_level(A, int(s), device=dev)._vals
+                            .to(torch.int32) for s in np.asarray(sources)])
     plan = A._xspmv_plan(True, np.float32, device=dev)
     return torch.stack([_bfs_one(plan, A.nrows, int(s), dev)
                         for s in np.asarray(sources)])
 
 
+def _sssp_csr8(A, plan, n, start, dev):
+    """Bellman-Ford over a csr8 plan (fused.py:_sssp_loop): MIN_PLUS
+    with an infinite fill for float types; for integer types the masked
+    SpMV of reached vertices, so that no value stands for infinity.
+    Returns (dist, reached)."""
+    typ = A.type
+    tdt = typ.torch_dtype
+    if typ._kind == "f":
+        inf = torch.tensor(np.inf, dtype=tdt, device=dev)
+        dist = torch.full((n,), np.inf, dtype=tdt, device=dev)
+        dist[start] = 0
+        changed, i = True, 0
+        while changed and i < n:
+            relax = _csr8_spmv(plan, dist, lambda a, x: a + x, "MIN", inf,
+                               inf)
+            new = torch.minimum(dist, relax)
+            changed = bool((new < dist).any())
+            dist = new
+            i += 1
+        return dist, torch.isfinite(dist)
+    sem = typ.MIN_PLUS
+    dist = torch.zeros(n, dtype=tdt, device=dev)
+    reached = torch.zeros(n, dtype=torch.bool, device=dev)
+    reached[start] = True
+    changed, i = True, 0
+    while changed and i < n:
+        relax, got = csr8.spmv_masked_x(plan, dist, reached, sem,
+                                        typ._numpy_t)
+        better = got & (~reached | (relax < dist))
+        dist = torch.where(better, relax, dist)
+        reached = reached | got
+        changed = bool(better.any())
+        i += 1
+    return dist, reached
+
+
 def sssp(A, start, device=None):
-    """Whole-loop Bellman-Ford SSSP (MIN_PLUS, float types); returns a
-    Vector of distances, present where finite (fused.py:327-361)."""
+    """Whole-loop Bellman-Ford SSSP (MIN_PLUS); returns a Vector of
+    distances, present where reached (fused.py:327-361)."""
     dev = resolve_device(device)
     n = A.nrows
     npdt = A.type.numpy_dtype
     sem = A.type.MIN_PLUS
     if npdt.kind != "f" or not _xspmv_ok(A, sem, npdt):
-        raise NotImplementedError(_NOT_PORTED)
+        dist, reached = _sssp_csr8(A, A._spmv_plan(True, dev), n,
+                                   int(start), dev)
+        return Vector._from_parts(A.type, dist, reached)
     plan = A._xspmv_plan(True, npdt, device=dev)
     dist = torch.full((n,), np.inf, dtype=A.type.torch_dtype, device=dev)
     dist[int(start)] = 0.0
@@ -176,7 +264,7 @@ def sssp(A, start, device=None):
         changed = bool((new < dist).any())
         dist = new
         i += 1
-    return Vector(A.type, dist, torch.isfinite(dist))
+    return Vector._from_parts(A.type, dist, torch.isfinite(dist))
 
 
 def bc(A, sources, device=None):
@@ -190,7 +278,9 @@ def bc(A, sources, device=None):
     ns = len(sources)
     sem = types.FP32.PLUS_SECOND
     if not _xspmv_ok(A, sem, np.float32) or A.nrows != A.ncols:
-        raise NotImplementedError(_NOT_PORTED)
+        from . import algorithms
+
+        return algorithms.betweenness_centrality(A, sources, device=dev)
     plan_t = A._xspmv_plan(True, np.float32, device=dev)   # forward
     plan_f = A._xspmv_plan(False, np.float32, device=dev)  # backward
 
@@ -224,4 +314,4 @@ def bc(A, sources, device=None):
         w2 = torch.where(level == i - 1, w2.clamp_min(0.0), 0.0)
         bcm = bcm + w2 * paths
     cent = torch.sum(bcm, dim=0) - np.float32(ns)
-    return Vector(types.FP32, cent)
+    return Vector._from_parts(types.FP32, cent)

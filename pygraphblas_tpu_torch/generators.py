@@ -63,14 +63,15 @@ def urand_edges(scale, edgefactor=16, seed=42, dedup=True):
     return rows, cols, n
 
 
-def to_matrix(rows, cols, n, typ=None, vals=None):
-    """Build a Matrix from an edge list."""
+def to_matrix(rows, cols, n, typ=None, vals=None, device=None):
+    """Build a Matrix from an edge list (on `device`, or on the device of
+    its first device work; see ``Matrix``)."""
     from . import types
     from .matrix import Matrix
 
     if typ is None:
         typ = types.FP32
-    A = Matrix.sparse(typ, n, n)
+    A = Matrix.sparse(typ, n, n, device=device)
     if vals is None:
         vals = np.ones(len(rows), typ.numpy_dtype)
     A._build(np.asarray(rows), np.asarray(cols), vals)

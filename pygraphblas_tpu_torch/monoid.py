@@ -1,8 +1,8 @@
 """Monoids: associative, commutative binary operators with an identity.
 
 Built-ins generated from ``ops/table.py`` (the JAX package's
-``monoid.py``).  ``Monoid(A, B)`` (an element-wise add) needs the
-containers: Queue A item 8 of ROADMAP.md.
+``monoid.py``).  ``Monoid(A, B)`` is the element-wise add
+``A.eadd(B, monoid)``.
 """
 
 __all__ = ["Monoid", "current_monoid"]
@@ -14,7 +14,6 @@ import numpy as np
 
 from . import binaryop as binaryop_module
 from . import types
-from .binaryop import _needs_containers
 from .ops import table
 
 current_monoid = contextvars.ContextVar("current_monoid")
@@ -58,7 +57,7 @@ class Monoid:
         return False
 
     def __call__(self, A, B, *args, **kwargs):
-        raise _needs_containers(f"{self.name}(A, B)")
+        return A.eadd(B, self, *args, **kwargs)
 
     def get_op(self):
         return self

@@ -2,8 +2,8 @@
 
 The 16 built-in select ops of the JAX package's ``selectop.py`` and the
 :func:`select_op` decorator for user predicates (a plain Python
-function ``(i, j, x, thunk) -> bool`` over tensors).  Selecting from a
-container needs the containers: Queue A item 8 of ROADMAP.md.
+function ``(i, j, x, thunk) -> bool`` over tensors), which
+``Matrix.select`` and ``Vector.select`` apply.
 """
 
 __all__ = ["SelectOp", "select_op"]

@@ -5,8 +5,9 @@ Every built-in semiring is generated from the family tables in
 lightweight pair (``add_monoid``, ``mul_op``), named
 ``{pls}_{mul}_{type}`` and attached to its type (``FP32.PLUS_TIMES``).
 The CUDA kernels switch on op codes derived from the ops' names
-(``_kernels.fold_code``, ``_kernels.mul_code``).  ``Semiring(A, B)``
-(a matrix product) needs the containers: Queue A item 8 of ROADMAP.md.
+(``_kernels.fold_code``, ``_kernels.mul_code``).  ``Semiring(A, B)`` is
+the product ``A.vxm(B)``, ``A.mxv(B)`` or ``A.mxm(B)`` by the operands'
+kinds.
 """
 
 import contextvars
@@ -15,7 +16,6 @@ import sys
 from . import binaryop as binaryop_module
 from . import monoid as monoid_module
 from . import types
-from .binaryop import _needs_containers
 from .ops import table
 
 current_semiring = contextvars.ContextVar("current_semiring")
@@ -61,7 +61,15 @@ class Semiring:
         return f"<Semiring {self.name}>"
 
     def __call__(self, A, B, *args, **kwargs):
-        raise _needs_containers(f"{self.name}(A, B)")
+        from .vector import Vector
+
+        if isinstance(A, Vector):
+            op = A.vxm
+        elif isinstance(B, Vector):
+            op = A.mxv
+        else:
+            op = A.mxm
+        return op(B, self, *args, **kwargs)
 
     def __enter__(self):
         self.token = current_semiring.set(self)

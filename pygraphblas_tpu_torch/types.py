@@ -355,6 +355,43 @@ def from_torch_dtype(dtype):
     return _BY_TORCH[dtype]
 
 
+def _type_from_value(value):
+    """Infer a Type from a Python or numpy scalar value."""
+    if isinstance(value, (bool, numpy.bool_)):
+        return BOOL
+    if isinstance(value, numpy.generic):
+        return _gb_from_dtype(value.dtype)
+    if isinstance(value, int):
+        return INT64
+    if isinstance(value, float):
+        return FP64
+    if isinstance(value, complex):
+        return FC64
+    raise TypeError(f"cannot infer GraphBLAS type from {value!r}")
+
+
+def cast(t, src, dst):
+    """Tensor `t` of type `src`'s held dtype -> `dst`'s, converting the
+    values as numpy's ``astype`` does (a bit view is read as its
+    unsigned value first, and written back as the bits of one)."""
+    if src is dst or (src.torch_dtype == dst.torch_dtype
+                      and src._view == dst._view and not src._view):
+        return t
+    if src._view:
+        if src._bits < 64:
+            t = t.to(torch.int64) & ((1 << src._bits) - 1)
+        elif dst._kind in "fc":
+            t = t.to(torch.float64) + torch.where(
+                t < 0, 2.0 ** 64, 0.0).to(torch.float64)
+    if dst._kind == "b":
+        return t != 0
+    if dst._kind in "iu" and t.dtype.is_floating_point:
+        # float -> integer truncates towards zero, through int64 (numpy's
+        # astype to a narrow type wraps the same way)
+        t = t.to(torch.int64)
+    return t.to(dst.torch_dtype)
+
+
 def _gb_from_type(typ):
     if typ is int:
         return INT64

@@ -2,17 +2,15 @@
 
 Built-ins generated from ``ops/table.py`` (the JAX package's
 ``unaryop.py``); user ops via the :func:`unary_op` decorator (a plain
-Python function over tensors).  Applying one to a container, and the
-positional ops (POSITIONI ...), need the containers: Queue A item 8 of
-ROADMAP.md.
+Python function over tensors).  ``op(A)`` is ``A.apply(op)``; the
+positional ops (POSITIONI ...) read the entries' coordinates there.
 """
 
-__all__ = ["UnaryOp", "unary_op"]
+__all__ = ["UnaryOp", "unary_op", "at_type"]
 
 import sys
 
 from . import types
-from .binaryop import _needs_containers
 from .ops import table
 
 
@@ -45,7 +43,7 @@ class UnaryOp:
         return f"<UnaryOp {self.name}>"
 
     def __call__(self, A, *args, **kwargs):
-        raise _needs_containers(f"{self.name}(A)")
+        return A.apply(self, *args, **kwargs)
 
     def get_op(self):
         return self
@@ -72,6 +70,15 @@ class UnaryOp:
         if self.builtin:
             return self.fn(x, self.type_cls)
         return self.fn(x)
+
+
+def at_type(op, typ):
+    """The built-in unary op of `op`'s name at Type `typ` (as
+    ``binaryop.at_type``): `op` itself for a user or positional op, or a
+    name `typ` lacks."""
+    if not getattr(op, "builtin", False) or op.positional is not None:
+        return op
+    return getattr(sys.modules[__name__], f"{op.op}_{typ.__name__}", op)
 
 
 def build_unaryops(__pdoc__=None):

@@ -322,8 +322,13 @@ def test_descriptors_scalar_and_base():
             assert issubclass(getattr(base, name), Exception)
     assert np.array_equal(base._build_range(slice(1, 3), 9).indices(9),
                           jbase._build_range(slice(1, 3), 9).indices(9))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        types.FP32.PLUS_TIMES(None, None)
+    # the container form: a semiring called on matrices is their mxm
+    from pygraphblas_tpu_torch import Matrix
+
+    A = Matrix.from_lists([0, 1], [1, 0], [2.0, 3.0], device="cpu")
+    assert types.FP32.PLUS_TIMES(A, A).to_lists() == \
+        A.mxm(A, semiring=types.FP32.PLUS_TIMES).to_lists() == \
+        [[0, 1], [0, 1], [6.0, 6.0]]
 
 
 def test_udt_struct_of_tensors_and_binop():

@@ -884,3 +884,88 @@ def test_pair_fold_new_codes(card, add, mul, typ, path, monkeypatch):
                               atol=0, equal_nan=True)
     else:
         assert torch.equal(vals, wvals)
+
+
+@pytest.fixture
+def coo_tier():
+    """Matrices of kron-12 on the COO tier (the container's sparse
+    engines), vectors on the bitmap tier."""
+    options_set(bitmap_max_cells=1 << 20)
+    yield
+    options_set(bitmap_max_cells=1 << 26, spmv_engine="auto",
+                spgemm_engine="auto")
+
+
+def test_container_pagerank_on_card(card, coo_tier):
+    """algorithms.pagerank through Matrix.mxv: with spmv_engine="xspmv"
+    every iteration is one xspmv of the hand kernels; with "csr8" no
+    kernel runs; both equal the CPU run of the same call."""
+    rows, cols, n = _kron12(False)
+    want = algorithms.pagerank(generators.to_matrix(
+        rows, cols, n, types.FP32, device="cpu"), itermax=5,
+        tol=-1.0).to_numpy()
+    A = generators.to_matrix(rows, cols, n, types.FP32)
+    for engine, kernels in (("xspmv", True), ("csr8", False)):
+        options_set(spmv_engine=engine)
+        _kernels.reset_launches()
+        got = algorithms.pagerank(A, itermax=5, tol=-1.0).to_numpy()
+        torch.cuda.synchronize()
+        L = _kernels.launches
+        if kernels:
+            assert L["mono_span"] == 10 and L["mono_cascade"] == 5
+            assert L["lane_gather_tdesc"] == 5 and L["mid_pass"] == 5
+        else:
+            assert not any(L.values())
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_container_sssp_bfs_on_card(card, coo_tier):
+    """algorithms.sssp and bfs_level_vxm (vxm: SpMSpV, then the csr8
+    plan; torch ops, no kernel of the port) equal the fused loops."""
+    rows, cols, n = _kron12(False)
+    w = np.random.RandomState(1).randint(1, 256, len(rows)).astype(
+        np.float32)
+    Aw = generators.to_matrix(rows, cols, n, types.FP32, vals=w)
+    A = generators.to_matrix(rows, cols, n, types.BOOL)
+    _kernels.reset_launches()
+    d = algorithms.sssp(Aw, 0)
+    lv = algorithms.bfs_level_vxm(A, 0)
+    torch.cuda.synchronize()
+    assert not any(_kernels.launches.values())
+    assert d.to_lists() == fused.sssp(Aw, 0).to_lists()
+    assert lv.to_lists() == fused.bfs_level(A, 0).to_lists()
+
+
+def test_container_triangle_methods_on_card(card, coo_tier):
+    """triangle_count "cohen" and "sandia_dot" through the containers
+    launch pair_count (a masked Matrix.mxm) and give the sandia count."""
+    rows, cols, n = _kron12(True)
+    A = generators.to_matrix(rows, cols, n, types.INT64)
+    want = algorithms.triangle_count(A)
+    for method in ("cohen", "sandia_dot"):
+        _kernels.reset_launches()
+        assert algorithms.triangle_count(A, method=method) == want > 0
+        assert _kernels.launches["pair_count"] > 0
+
+
+def test_container_mxm_esc_on_card(card, coo_tier):
+    """Matrix.mxm on the COO tier through ESC: 4 segfold launches and 1
+    esc_gather, the product equal to scipy's exactly."""
+    import scipy.sparse as sp
+
+    rows, cols, n = _kron12(False)
+    w = np.random.RandomState(7).randint(1, 5, len(rows)).astype(
+        np.float32)
+    A = generators.to_matrix(rows, cols, n, types.FP32, vals=w)
+    options_set(spgemm_engine="esc")
+    _kernels.reset_launches()
+    C = A.mxm(A, semiring=types.FP32.PLUS_TIMES)
+    torch.cuda.synchronize()
+    assert _kernels.launches["segfold"] == 4
+    assert _kernels.launches["esc_gather"] == 1
+    S = sp.csr_matrix((w.astype(np.float64), (rows, cols)), (n, n))
+    P = (S @ S).tocoo()
+    order = np.lexsort((P.col, P.row))
+    r, c, v = C._coo()
+    assert np.array_equal(r, P.row[order]) and np.array_equal(c, P.col[order])
+    assert np.array_equal(v, P.data[order].astype(np.float32))

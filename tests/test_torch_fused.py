@@ -100,19 +100,30 @@ def test_bc_matches_jax(kron12_sym):
 
 def test_unported_fallbacks_raise(kron12):
     """Where the JAX package falls back to csr8 or the eager algorithms,
-    the port raises, naming ROADMAP Queue A."""
+    the port now takes the same route (it raised NotImplementedError
+    before): small graphs and integer SSSP give the JAX package's
+    answers."""
     rows, cols, n = generators.rmat_edges(8, 4)
     small = generators.to_matrix(rows, cols, n, types.BOOL)
+    jsmall = jgen.to_matrix(rows, cols, n, jtypes.BOOL)
     assert small.nvals < TX.MIN_NNZ
-    for call in (lambda: fused.bfs_level(small, 0, device="cpu"),
-                 lambda: fused.bfs_batch(small, [0], device="cpu"),
-                 lambda: fused.sssp(generators.to_matrix(
-                     rows, cols, n, types.FP32), 0, device="cpu"),
-                 lambda: fused.bc(generators.to_matrix(
-                     rows, cols, n, types.FP32), [0], device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            call()
+    assert fused.bfs_level(small, 0, device="cpu").to_lists() == \
+        jfused.bfs_level(jsmall, 0).to_lists()
+    assert np.array_equal(fused.bfs_batch(small, [0], device="cpu").numpy(),
+                          np.asarray(jfused.bfs_batch(jsmall, [0])))
+    fsmall = generators.to_matrix(rows, cols, n, types.FP32)
+    jfsmall = jgen.to_matrix(rows, cols, n, jtypes.FP32)
+    assert fused.sssp(fsmall, 0, device="cpu").to_lists() == \
+        jfused.sssp(jfsmall, 0).to_lists()
+    np.testing.assert_allclose(
+        fused.bc(fsmall, [0], device="cpu").to_numpy(),
+        np.asarray(jfused.bc(jfsmall, [0]).to_numpy()), rtol=1e-5,
+        atol=1e-5)
     rows, cols, n = kron12
     ints = generators.to_matrix(rows, cols, n, types.INT32)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        fused.sssp(ints, 0, device="cpu")
+    floats = jgen.to_matrix(rows, cols, n, jtypes.FP32)
+    got = fused.sssp(ints, 0, device="cpu")
+    assert got.type is types.INT32
+    i, v = got.to_lists()
+    wi, wv = jfused.sssp(floats, 0).to_lists()
+    assert i == wi and v == [int(x) for x in wv]

@@ -69,20 +69,32 @@ def test_build_dedups_last_wins():
 
 
 def test_csr8_and_small_graphs_raise():
+    """A graph below MIN_NNZ, and spmv_engine="csr8", take the csr8 loop
+    (they raised NotImplementedError before) and match the JAX package,
+    which takes the same route; "xspmv" still forces the plan."""
     rows, cols, n = generators.rmat_edges(8, 4)
     A = generators.to_matrix(rows, cols, n)
+    jA = jgen.to_matrix(rows, cols, n)
     assert A.nvals < TX.MIN_NNZ
-    with pytest.raises(NotImplementedError, match="csr8"):
-        fused.pagerank(A, device="cpu")
+
+    def close(r, jr):
+        got, want = r.to_numpy(), np.asarray(jr.to_numpy())
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+    close(fused.pagerank(A, device="cpu"), jfused.pagerank(jA))
+    assert not any(k[0] == "x" for k in A._cache())
     options_set(spmv_engine="xspmv")
     try:
         r = fused.pagerank(A, itermax=3, device="cpu")
         assert r.to_numpy().shape == (n,)
+        assert any(k[0] == "x" for k in A._cache())
         options_set(spmv_engine="csr8")
-        with pytest.raises(NotImplementedError, match="csr8"):
-            fused.pagerank(A, device="cpu")
+        jfused.config.spmv_engine = "csr8"
+        close(fused.pagerank(A, itermax=7, device="cpu"),
+              jfused.pagerank(jA, itermax=7))
     finally:
         options_set(spmv_engine="auto")
+        jfused.config.spmv_engine = "auto"
 
 
 def test_default_device_needs_cuda():
@@ -128,6 +140,13 @@ def test_port_never_imports_jax():
             "pygraphblas_tpu_torch.core.esc, pygraphblas_tpu_torch.core.scan, "
             "pygraphblas_tpu_torch.core.dense, "
             "pygraphblas_tpu_torch.core.coosem, "
+            "pygraphblas_tpu_torch.core.coosparse, "
+            "pygraphblas_tpu_torch.core.sparse, "
+            "pygraphblas_tpu_torch.core.csr8, "
+            "pygraphblas_tpu_torch.core.spmspv, "
+            "pygraphblas_tpu_torch.core.dewise, "
+            "pygraphblas_tpu_torch.matrix, pygraphblas_tpu_torch.vector, "
+            "pygraphblas_tpu_torch.generators, "
             "pygraphblas_tpu_torch.testing, pygraphblas_tpu_torch.ops.table, "
             "pygraphblas_tpu_torch.types, pygraphblas_tpu_torch.binaryop, "
             "pygraphblas_tpu_torch.unaryop, pygraphblas_tpu_torch.monoid, "
