@@ -84,6 +84,27 @@ Phases, in order; any failure exits non-zero:
        gesc14 Matrix.mxm(A, PLUS_TIMES) on esc14's graph as a Matrix (the
               COO tier: ESC, 4 segfold and 1 esc_gather), equal to
               esc14's product exactly (after esc14);
+       then the rest of Matrix (extract and assign over index sets,
+       Kronecker) and Louvain over it:
+       gx20   on pr20's matrix (after gpr20; the COO tier, no kernel):
+              the row block A[0:262143, :], 4096 random rows, one row,
+              one column, a 4096 x 4096 block assigned, a scalar over 8
+              rows under a mask; each equal to scipy's slice or
+              assignment of the same CSR;
+       glv16  algorithms.louvain_cluster on bc16's graph (FP32 weights
+              1.0, max_iters 20, max_levels 10): its chunk products and
+              contractions through Matrix.mxm (the diagonal-B path, ESC:
+              4 segfold and 1 esc_gather a call, the host tier past
+              ESC's caps, the dense tier once a contracted graph is
+              small); labels equal to the same call with device="cpu";
+              every ESC call's launches recorded and held against
+              their plain versions after the run (bit-exact over the
+              live slots, as esc14's); every product's output
+              row-major; modularity through scipy;
+       gkr    A.kronecker(B) on the bitmap tier (two 64 x 64 FP32
+              matrices at density 1/2) and on the COO tier (kron-10
+              symmetrised with a 16 x 16 INT32 matrix at density 1/2),
+              each equal to scipy.sparse.kron (no kernel);
      before each path, every kernel it runs is held against its plain
      PyTorch version on the card at the path's own shapes (bit-exact,
      but pair_fold's float32 PLUS within rtol 1e-5: another fold order),
@@ -120,7 +141,10 @@ Phases, in order; any failure exits non-zero:
      and 7 rows with the values' top bit set; then the
      repairs: a MonoPlan with ok == False, and int64 and float64 values
      into every gather and permutation wrapper, each giving its plain
-     version's answer on the card with no launch;
+     version's answer on the card with no launch; UINT16/32/64 value
+     selects and comparisons (values past the sign bit of the signed
+     bit view) on both tiers, Matrix and Vector, equal to the JAX
+     package's answers;
   5. one JSON line of kernel results, the card line, and the final
      {"ok": true, "device": ...} line.
 
@@ -265,6 +289,10 @@ EXPECTED = {
     # SpMSpV): torch ops on the card, no kernel of the port
     "gpr20_csr8": {},
     "gsp18": {},
+    # extract/assign over ranges and Kronecker products (slice 11): host
+    # COO plumbing and torch ops, no kernel of the port
+    "gx20": {},
+    "gkr": {},
 }
 # masked-SpGEMM paths: the kernel each masked_spgemm call of the path
 # launches, once per width bucket of its light edges ("bucket"), or once
@@ -289,7 +317,8 @@ GENERIC_SPGEMM = ("sr16 LOR_LAND", "sr16 BXOR_PAIR")
 EXPECTED_ESC = {"esc14": {"segfold": 4, "esc_gather": 1},
                 "esc13": {"segfold": 4, "esc_gather": 1},
                 "sr14": {"segfold": 4, "esc_gather": 1},
-                "gesc14": {"segfold": 4, "esc_gather": 1}}
+                "gesc14": {"segfold": 4, "esc_gather": 1},
+                "glv16": {"segfold": 4, "esc_gather": 1}}
 
 # kernel symbol prefix in a profile -> kernel name
 _SYMBOLS = {"mono_span_kernel": "mono_span",
@@ -373,6 +402,7 @@ class Checks:
         self.rows = []
         self.cascade_vs_chain = {}      # path -> cascade and chain ms
         self.segment_reduce_ms = {}     # path -> torch.segment_reduce ms
+        self.quiet = False              # log only failed or timed rows
 
     def run(self, kernel, path, case, kfn, pfn, nbytes, ops=0,
             timed=False, rtol=None, ops_per_s=FP32_OPS_PER_S,
@@ -448,10 +478,11 @@ class Checks:
             row["plain_ms"] = event_ms(torch, time_fns[1], self.reps,
                                        behind_sleep=False)
         self.rows.append(row)
-        log(f"  {kernel:17s} {path:8s} {case:26s} err={err:.3e} "
-            f"{'ok' if ok else 'FAIL'}"
-            + (f"  {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
-               f"bound {row['bound_ms']:.4f} ms)" if timed else ""))
+        if not self.quiet or not ok or timed:
+            log(f"  {kernel:17s} {path:8s} {case:26s} err={err:.3e} "
+                f"{'ok' if ok else 'FAIL'}"
+                + (f"  {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
+                   f"bound {row['bound_ms']:.4f} ms)" if timed else ""))
         if not ok:
             raise AssertionError(f"{kernel}/{path} {case} disagrees with "
                                  f"its plain version: max err {err}")
@@ -780,11 +811,12 @@ class PathRunner:
                                  host_s=dict(SG.stats["seconds"]))
         return out
 
-    def drive_esc(self, path, run):
+    def drive_esc(self, path, run, dense_ok=False):
         """Run `run()` with the counters at 0; check that every ESC call
         (esc.stats["calls"]: the calls that reached the device) launched
         segfold 4 times and esc_gather once, that no other kernel ran,
-        and that the dense tier's matmul was not used."""
+        and (unless `dense_ok`) that the dense tier's matmul was not
+        used."""
         from pygraphblas_tpu_torch.core import dense as DN, esc as E
 
         torch, K = self.torch, self.K
@@ -808,7 +840,7 @@ class PathRunner:
             "launches " + ", ".join(f"{k} {c}" for k, c in counts.items()
                                     if c))
         want = {k: v * calls for k, v in EXPECTED_ESC[path].items()}
-        if calls == 0 or mxm_calls:
+        if calls == 0 or (mxm_calls and not dense_ok):
             raise AssertionError(f"{path}: the call did not take ESC")
         for k in KERNELS:
             if counts[k] != want.get(k, 0):
@@ -816,6 +848,7 @@ class PathRunner:
                     f"{path}: kernel {k} launched {counts[k]} times in "
                     f"{calls} ESC calls, expected {want.get(k, 0)}")
         self.counts[path] = dict(counts=counts, esc_calls=calls,
+                                 dense_matmuls=len(mxm_calls),
                                  host_s=dict(E.stats["seconds"]))
         return out
 
@@ -1281,6 +1314,56 @@ def check_repairs(torch):
                 ("mid_pass", lambda: P._mid_pass(x3, ix[2], ssel, ix[3]),
                  lambda: P._mid_pass_plain(x3, ix[2], ssel, ix[3]))):
             check(f"{name} {str(dt)[6:]}", kfn, pfn)
+    rows += check_unsigned_selects()
+    return rows
+
+
+# UINT16/32/64 values past the sign bit of their signed bit view
+UNSIGNED_BIG = {"UINT16": 40000, "UINT32": 3000000000,
+                "UINT64": 2**63 + 2048}
+
+
+def check_unsigned_selects():
+    """Queue C fault 1, repaired: UINT16/32/64 value selects and scalar
+    comparisons on the card, Matrix and Vector, bitmap and COO tiers
+    (bitmap_max_cells = vector_max_cells = 1), read the values as
+    unsigned: each equal to the JAX package's answer, written out.
+    Returns the checks (name, ok)."""
+    from pygraphblas_tpu_torch import Matrix, Vector, options_set, types
+
+    rows = []
+    for tier, cells in (("bitmap", None), ("coo", 1)):
+        if cells:
+            options_set(bitmap_max_cells=cells, vector_max_cells=cells)
+        try:
+            for tname, big in UNSIGNED_BIG.items():
+                t = getattr(types, tname)
+                A = Matrix.from_lists([0, 1, 2], [0, 1, 2], [big, 1, 0],
+                                      typ=t, device="cuda")
+                v = Vector.from_lists([0, 1, 2], [big, 1, 0], typ=t,
+                                      device="cuda")
+                for name, got, want in (
+                        ("A.select('>0')", A.select(">0"),
+                         [[0, 1], [0, 1], [big, 1]]),
+                        ("A.select('>=', 2)", A.select(">=", 2),
+                         [[0], [0], [big]]),
+                        ("A > 0", A > 0, [[0, 1], [0, 1], [True, True]]),
+                        ("v.select('>0')", v.select(">0"),
+                         [[0, 1], [big, 1]]),
+                        ("v.select('>=', 2)", v.select(">=", 2),
+                         [[0], [big]]),
+                        ("v > 0", v > 0, [[0, 1], [True, True]])):
+                    ok = got.to_lists() == want
+                    case = f"{tname} {tier} {name}"
+                    rows.append(dict(check=f"unsigned {case}", ok=ok))
+                    log(f"  repair unsigned {case:34s} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"repair unsigned {case}: {got.to_lists()} "
+                            f"!= {want}")
+        finally:
+            options_set(bitmap_max_cells=1 << 26, vector_max_cells=1 << 27)
     return rows
 
 
@@ -2561,6 +2644,375 @@ def gesc14_path(torch, drv, card):
     return dict(seconds=el, nnz_out=C.nvals)
 
 
+# ---------------------------------------------------------------------------
+# the rest of Matrix (slice 11): extract and assign over index sets,
+# Kronecker products, and Louvain over them
+# ---------------------------------------------------------------------------
+
+def gx20_path(torch, drv, card, A, n):
+    """Extract and assign over index sets on pr20's kron-20 matrix (the
+    COO tier: host triples through coosem's selectors, no kernel), each
+    equal to scipy's slice or assignment of the same CSR: the row block
+    A[0:262143, :] (stop-inclusive), 4096 random rows in random order,
+    the row and the column of most entries, a 4096 x 4096 block
+    assigned (density 1/64, weights 1..4, seed 11), and a scalar over 8
+    rows under a mask of about 32k positions (seed 12)."""
+    import scipy.sparse as sp
+    from pygraphblas_tpu_torch import Matrix, types
+
+    r, c, v = A._coo()
+    S = sp.csr_matrix((v, (r, c)), (n, n))
+    rng = np.random.RandomState(11)
+    pick = rng.choice(n, 4096, replace=False)
+    i0 = int(np.argmax(np.diff(S.indptr)))
+    j0 = int(np.argmax(np.bincount(c, minlength=n)))
+    r0, c0 = n // 8 + 1, n // 2 + 17
+    kb = 4096 * 4096 // 64
+    cells = np.unique(rng.randint(0, 4096 * 4096, kb))
+    bv = rng.randint(1, 5, len(cells)).astype(np.float32)
+    B = Matrix.sparse(types.FP32, 4096, 4096, device="cuda")
+    B._build(cells // 4096, cells % 4096, bv)
+    mrng = np.random.RandomState(12)
+    mr = mrng.randint(r0, r0 + 8, 32768)
+    mc = mrng.randint(0, n, 32768)
+    mkey = np.unique(mr * n + mc)
+    Mk = Matrix.sparse(types.BOOL, n, n, device="cuda")
+    Mk._build(mkey // n, mkey % n, np.ones(len(mkey), bool))
+    secs = {}
+
+    def timed(name, call):
+        t = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    def run():
+        out = dict(block=timed("row_block", lambda: A[0:262143, :]),
+                   rows=timed("row_list",
+                              lambda: A.extract_matrix(pick.tolist())),
+                   row=timed("extract_row", lambda: A.extract_row(i0)),
+                   col=timed("extract_col", lambda: A.extract_col(j0)))
+        C = A.dup()
+        timed("assign_matrix", lambda: C.assign_matrix(
+            B, slice(r0, r0 + 4095), slice(c0, c0 + 4095)))
+        D = A.dup()
+        timed("assign_scalar", lambda: D.assign_scalar(
+            2.0, slice(r0, r0 + 7), None, mask=Mk))
+        out.update(C=C, D=D)
+        return out
+
+    got = drv.drive("gx20", run, EXPECTED["gx20"])
+
+    def same(X, want):
+        g = X._coo()
+        return all(np.array_equal(x, y) for x, y in zip(g, want))
+
+    row = S[i0].tocoo()
+    col = S[:, j0].tocoo()
+    want_col = np.argsort(col.row, kind="stable")
+    SB = sp.csr_matrix((bv, (cells // 4096 + r0, cells % 4096 + c0)),
+                       (n, n))
+    region = S[r0:r0 + 4096, c0:c0 + 4096].tocoo()
+    Sreg = sp.csr_matrix((region.data, (region.row + r0, region.col + c0)),
+                         (n, n))
+    E = (S - Sreg) + SB
+    E.eliminate_zeros()
+    Mr = sp.csr_matrix((np.ones(len(mkey), np.float32),
+                        (mkey // n, mkey % n)), (n, n))
+    F = (S - S.multiply(Mr)) + 2 * Mr
+    F.eliminate_zeros()
+    checks = dict(
+        row_block=same(got["block"], csr_coo(S[0:262144])),
+        row_list=same(got["rows"], csr_coo(S[pick])),
+        extract_row=got["row"].to_lists() == [row.col.tolist(),
+                                               row.data.tolist()],
+        extract_col=got["col"].to_lists() == [
+            col.row[want_col].tolist(), col.data[want_col].tolist()],
+        assign_matrix=same(got["C"], csr_coo(E)),
+        assign_scalar=same(got["D"], csr_coo(F)))
+    shapes = dict(row_block=(got["block"].shape, got["block"].nvals),
+                  row_list=(got["rows"].shape, got["rows"].nvals),
+                  extract_row=got["row"].nvals, extract_col=got["col"].nvals,
+                  assign_matrix=got["C"].nvals, assign_scalar=got["D"].nvals)
+    log(f"gx20: extract and assign on kron-20 (n={n}, nnz={len(r)}, COO "
+        f"tier); equal to scipy: {checks}; entries {shapes}; seconds "
+        + ", ".join(f"{k} {t:.4f}" for k, t in secs.items())
+        + f"; card {card}")
+    if not all(checks.values()):
+        raise AssertionError(f"gx20: differs from scipy: {checks}")
+    return dict(seconds=secs, entries={k: str(x) for k, x in shapes.items()},
+                row=i0, col=j0, region=(r0, c0))
+
+
+def gkr_path(torch, drv, card):
+    """Kronecker products equal to scipy.sparse.kron: on the bitmap tier
+    two 64 x 64 FP32 matrices at density 1/2 (weights 1..9, seed 13; a
+    4096 x 4096 output, one broadcast of TIMES on the card), and on the
+    COO tier kron-10 symmetrised (INT32 ones) with a 16 x 16 INT32
+    matrix at density 1/2 (1..9, seed 14; host coosem.kron)."""
+    import scipy.sparse as sp
+    from pygraphblas_tpu_torch import Matrix, types
+    from pygraphblas_tpu_torch.generators import to_matrix
+
+    def dense_half(k, typ, seed):
+        rng = np.random.RandomState(seed)
+        cells = np.nonzero(rng.rand(k * k) < 0.5)[0]
+        vals = rng.randint(1, 10, len(cells)).astype(typ._numpy_t)
+        M = Matrix.sparse(typ, k, k, device="cuda")
+        M._build(cells // k, cells % k, vals)
+        return M, sp.csr_matrix((vals, (cells // k, cells % k)), (k, k))
+
+    A64, SA64 = dense_half(64, types.FP32, 13)
+    B64, SB64 = dense_half(64, types.FP32, 13 + 100)
+    rows, cols, n = graph(10, sym=True)
+    A10 = to_matrix(rows, cols, n, types.INT32)
+    SA10 = sp.csr_matrix((np.ones(len(rows), np.int32), (rows, cols)),
+                         (n, n))
+    B16, SB16 = dense_half(16, types.INT32, 14)
+    secs = {}
+
+    def run():
+        out = {}
+        for name, call in (("bitmap", lambda: A64.kronecker(B64)),
+                           ("coo", lambda: A10.kronecker(B16))):
+            t = time.perf_counter()
+            out[name] = call()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+        return out
+
+    got = drv.drive("gkr", run, EXPECTED["gkr"])
+    res = {}
+    # format="csr": scipy's default takes B as dense past half full and
+    # stores its zeros
+    for name, want in (("bitmap", sp.kron(SA64, SB64, format="csr")),
+                       ("coo", sp.kron(SA10, SB16, format="csr"))):
+        C = got[name]
+        g, w = C._coo(), csr_coo(want)
+        ok = all(np.array_equal(x, y) for x, y in zip(g, w))
+        res[name] = dict(seconds=secs[name], fmt=C._fmt, shape=C.shape,
+                         nvals=C.nvals, equal=ok)
+        if not ok:
+            raise AssertionError(f"gkr {name}: differs from scipy's kron")
+    log(f"gkr: Kronecker products equal to scipy.sparse.kron: "
+        + "; ".join(f"{k} {v['fmt']} {v['shape']} {v['nvals']} entries "
+                    f"{v['seconds']:.4f} s" for k, v in res.items())
+        + f"; card {card}")
+    return res
+
+
+def record_esc_calls(run):
+    """run() with the inputs of every ESC call's kernels recorded (its
+    product count F, the four segfold inputs, the esc_gather inputs),
+    to be checked after the run, so that the path's counts hold only
+    its own launches.  Returns (run's result, the calls)."""
+    from pygraphblas_tpu_torch.core import esc as E
+
+    calls = []
+    orig_s, orig_g, orig_d = E.segfold, E.esc_gather, E._esc_device
+
+    def dev(*a, **kw):
+        calls.append(dict(F=a[6], scans=[], gathers=[]))
+        return orig_d(*a, **kw)
+
+    def seg(v, f, add):
+        calls[-1]["scans"].append((v, f, add))
+        return orig_s(v, f, add)
+
+    def gat(*a):
+        calls[-1]["gathers"].append(a)
+        return orig_g(*a)
+
+    E.segfold, E.esc_gather, E._esc_device = seg, gat, dev
+    try:
+        out = run()
+    finally:
+        E.segfold, E.esc_gather, E._esc_device = orig_s, orig_g, orig_d
+    return out, calls
+
+
+def modularity(rows, cols, n, labels):
+    """Newman's modularity of `labels` on the unit-weight graph (rows,
+    cols), through scipy: sum over communities of (inner weight / 2m) -
+    (degree sum / 2m)^2."""
+    import scipy.sparse as sp
+
+    S = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), (n, n))
+    k = np.asarray(S.sum(axis=1)).ravel()
+    two_m = float(k.sum())
+    inner = float(S.multiply(sp.csr_matrix(
+        ((labels[rows] == labels[cols]).astype(np.float64), (rows, cols)),
+        (n, n))).sum())
+    tot = np.bincount(labels, weights=k)
+    return inner / two_m - float(((tot / two_m) ** 2).sum())
+
+
+def glv16_path(torch, ck, drv, card, rows, cols, n, max_levels=10):
+    """algorithms.louvain_cluster on kron-16 symmetrised (bc16's graph),
+    weights 1.0 as FP32, max_iters 20, on the card: each chunk's product
+    W[chunk, :] @ M and each contraction P^T (W P) is a Matrix.mxm on the
+    COO tier (gustavson.spgemm: the diagonal-B path while the labels are
+    the identity, ESC on the card where it fits, the host tier past its
+    caps; the dense tier once a contracted graph fits the bitmap tier).
+    Labels equal to the same call with device="cpu" (every product is a
+    sum of integer weights far below 2^24: exact in FP32 in any order);
+    every ESC call's segfold and esc_gather launches held against their
+    plain versions after the run (check_esc_kernels: bit-exact over the
+    live slots, within rtol 1e-5 over the dead ones past them); every
+    product's output row-major (the local moves searchsorted its rows);
+    each product's route logged by level; modularity through scipy."""
+    from pygraphblas_tpu_torch import algorithms as ALG, matrix as MX, types
+    from pygraphblas_tpu_torch.core import esc as E, gustavson as G
+    from pygraphblas_tpu_torch.generators import to_matrix
+
+    K = drv.K
+    routes, unordered, levels = [], [], []
+    state = dict(level=0, inside=False, spgemm=False)
+    orig_sp, orig_dense, orig_lm, orig_mxm = (
+        G.spgemm, G.dense_spgemm, ALG._louvain_local_moves, MX.dk.mxm)
+    dense_hits = []
+
+    def bitmap_mxm(*a, **kw):
+        # a product of two bitmap-tier matrices (not through spgemm)
+        if not state["spgemm"]:
+            routes.append((state["level"],
+                           "chunk" if state["inside"] else "contract",
+                           "bitmap"))
+        return orig_mxm(*a, **kw)
+
+    def dense(*a, **kw):
+        out = orig_dense(*a, **kw)
+        dense_hits.append(out is not None)
+        return out
+
+    def spgemm(ra, ca, va, rb, cb, vb, *a, **kw):
+        s0, e0, d0 = K.launches["segfold"], E.stats["calls"], len(dense_hits)
+        state["spgemm"] = True
+        try:
+            out = orig_sp(ra, ca, va, rb, cb, vb, *a, **kw)
+        finally:
+            state["spgemm"] = False
+        if len(rb) and bool(np.all(rb == cb)):
+            route = "diag"
+        elif E.stats["calls"] > e0:
+            route = "esc"
+            if K.launches["segfold"] - s0 != 4:
+                raise AssertionError("glv16: an ESC call did not launch "
+                                     "segfold 4 times")
+        elif any(dense_hits[d0:]):
+            route = "dense"
+        elif len(out[0]) == 0:
+            route = "empty"      # a chunk of isolated vertices
+        else:
+            route = "host"
+        r, c = out[0], out[1]
+        dr, dc = np.diff(r), np.diff(c)
+        if not bool(np.all((dr > 0) | ((dr == 0) & (dc > 0)))):
+            unordered.append((state["level"], route))
+        routes.append((state["level"],
+                       "chunk" if state["inside"] else "contract", route))
+        return out
+
+    def local_moves(W, *a, **kw):
+        state["level"] += 1
+        state["inside"] = True
+        t = time.perf_counter()
+        try:
+            out = orig_lm(W, *a, **kw)
+        finally:
+            state["inside"] = False
+        levels.append((state["level"], W.nrows, W._fmt,
+                       round(time.perf_counter() - t, 4),
+                       int(out.max()) + 1))
+        log(f"  glv16 level {levels[-1]} (level, vertices, tier, s, "
+            "communities)")
+        return out
+
+    def louvain(dev):
+        A = to_matrix(rows, cols, n, types.FP32, device=dev)
+        ALG.seconds.clear()
+        state["level"] = 0
+        t = time.perf_counter()
+        lab = ALG.louvain_cluster(A, max_levels=max_levels)
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t
+        return lab, el, dict(ALG.seconds)
+
+    G.spgemm, G.dense_spgemm, ALG._louvain_local_moves = (spgemm, dense,
+                                                          local_moves)
+    MX.dk.mxm = bitmap_mxm
+    try:
+        (lab, el, phases), calls = record_esc_calls(
+            lambda: drv.drive_esc("glv16", lambda: louvain("cuda"),
+                                  dense_ok=True))
+        card_routes, card_levels = list(routes), list(levels)
+        routes.clear()
+        levels.clear()
+        lab_cpu, el_cpu, phases_cpu = louvain("cpu")
+    finally:
+        G.spgemm, G.dense_spgemm, ALG._louvain_local_moves = (
+            orig_sp, orig_dense, orig_lm)
+        MX.dk.mxm = orig_mxm
+    counts = drv.counts["glv16"]
+    got, want = lab.to_lists(), lab_cpu.to_lists()
+    labels = np.asarray(got[1], np.int64)
+    q = modularity(rows, cols, n, labels)
+    by_level = {}
+    for level, kind, route in card_routes:
+        d = by_level.setdefault(level, {})
+        d[f"{kind} {route}"] = d.get(f"{kind} {route}", 0) + 1
+    log(f"glv16: louvain_cluster on kron-16 symmetrised (n={n}, "
+        f"nnz={len(rows)}), max_levels {max_levels}: {el:.4f} s on the "
+        f"card, {el_cpu:.4f} s with device='cpu'; {int(labels.max()) + 1} "
+        f"communities, modularity {q:.6f} (scipy); labels equal to the "
+        f"CPU run: {got == want}; card phases (s) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+        + "; CPU phases (s) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phases_cpu.items())
+        + f"; {counts['esc_calls']} ESC calls, {counts['dense_matmuls']} "
+        f"dense matmuls, launches segfold {counts['counts']['segfold']} "
+        f"esc_gather {counts['counts']['esc_gather']}; products by level "
+        f"(kind route: count) {json.dumps(by_level)}; card {card}")
+    if got != want:
+        raise AssertionError("glv16: the card's labels differ from the CPU "
+                             "run's")
+    if unordered:
+        raise AssertionError(f"glv16: products not row-major: {unordered}")
+    if len(calls) != counts["esc_calls"]:
+        raise AssertionError(f"glv16: {len(calls)} ESC calls recorded, "
+                             f"{counts['esc_calls']} counted")
+    t = time.perf_counter()
+    ck.quiet = True
+    try:
+        for i, call in enumerate(calls):
+            if len(call["scans"]) != 4 or len(call["gathers"]) != 1:
+                raise AssertionError(f"glv16: ESC call {i} made "
+                                     f"{len(call['scans'])} scans")
+            check_esc_kernels(torch, ck, "glv16", f"call {i} ",
+                              call["scans"], call["gathers"], call["F"],
+                              timed=False)
+    finally:
+        ck.quiet = False
+    mine = [row for row in ck.rows if row["path"] == "glv16"]
+    nchk = len(mine)
+    dead_err = max(row["max_abs_err"] for row in mine)
+    log(f"  glv16: {nchk} checks of {len(calls)} ESC calls' launches "
+        f"against their plain versions: equal, bit-exact over every live "
+        f"slot (largest difference over the dead slots past them, a "
+        f"float PLUS fold in another order: {dead_err}) "
+        f"({time.perf_counter() - t:.1f} s)")
+    del calls
+    return dict(seconds=el, cpu_seconds=el_cpu, max_levels=max_levels,
+                communities=int(labels.max()) + 1, modularity=q,
+                phases_s=phases, cpu_phases_s=phases_cpu,
+                esc_calls=counts["esc_calls"],
+                dense_matmuls=counts["dense_matmuls"],
+                products_by_level=by_level, levels=card_levels,
+                cpu_levels=list(levels), checks=nchk,
+                dead_slot_max_abs_err=dead_err)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200,
@@ -2700,8 +3152,13 @@ def main():
     t0 = time.perf_counter()
     e2e["gpr20"] = gpr20_path(torch, drv, card, A, n,
                               e2e["pr20"]["ms_per_iteration"])
-    del A
     phase_s["gpr20"] = time.perf_counter() - t0
+
+    # 3a''. extract and assign over index sets on the same matrix
+    t0 = time.perf_counter()
+    e2e["gx20"] = gx20_path(torch, drv, card, A, n)
+    del A
+    phase_s["gx20"] = time.perf_counter() - t0
 
     # 3b. PageRank at kron-21: level 1 streams, mono_rows, no cascade
     t0 = time.perf_counter()
@@ -2856,10 +3313,12 @@ def main():
                                        degree_lower(*kron16s))),
             ("esc14", lambda: esc14_path(torch, ck, drv, card)),
             ("gesc14", lambda: gesc14_path(torch, drv, card)),
+            ("glv16", lambda: glv16_path(torch, ck, drv, card, *kron16s)),
             ("esc13", lambda: esc13_path(torch, ck, drv, card)),
             ("sr14", lambda: sr14_path(torch, ck, drv, card)),
             ("sr16", lambda: sr16_path(torch, ck, drv, card,
-                                       degree_lower(*kron16s)))):
+                                       degree_lower(*kron16s))),
+            ("gkr", lambda: gkr_path(torch, drv, card))):
         t0 = time.perf_counter()
         e2e[path] = run()
         for tag in ("profile", "profile_chain"):

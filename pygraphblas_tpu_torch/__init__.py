@@ -52,7 +52,22 @@ from .base import (
     Panic,
 )
 
+IMPLEMENTATION_MAJOR, IMPLEMENTATION_MINOR, IMPLEMENTATION_SUB = \
+    GxB_IMPLEMENTATION
+IMPLEMENTATION_VERSION = GxB_IMPLEMENTATION
+
 __version__ = "1.0.0"
+
+
+def get_version():
+    """The package's version."""
+    return __version__
+
+
+def init(blocking=False):
+    """Library initialization: nothing to do (torch and the kernels
+    initialize at first use); kept for API parity."""
+    return None
 
 __pdoc__ = {}
 

@@ -5,9 +5,11 @@ written, as the JAX package writes them, as masked semiring mxv/vxm/mxm
 loops over :class:`Matrix` and :class:`Vector` (``bfs_level_vxm``,
 ``bfs_parents_vxm``, ``pagerank``, ``sssp``, ``betweenness_centrality``,
 ``triangle_centrality``, and ``triangle_count`` methods "cohen" and
-"sandia_dot"), and the two that run on canonical host COO arrays feeding
+"sandia_dot"), the two that run on canonical host COO arrays feeding
 ``core/spgemm.py:masked_spgemm`` directly with INT64 PLUS_PAIR
-(``triangle_count`` method "sandia", ``k_truss``).
+(``triangle_count`` method "sandia", ``k_truss``), and Louvain
+(``louvain_cluster``: host gain arithmetic around one unmasked
+``Matrix.mxm`` a chunk of vertices, ESC's kernels on the card).
 
 Each runs on `device` (default: the matrix's own device, else the CUDA
 card; with no card and no device named it raises).  A matrix that holds
@@ -26,10 +28,12 @@ from .vector import Vector
 
 __all__ = ["bfs_level_vxm", "bfs_parents_vxm", "pagerank", "sssp",
            "triangle_count", "betweenness_centrality", "k_truss",
-           "triangle_centrality"]
+           "triangle_centrality", "louvain_cluster"]
 
-# host seconds by phase ("relabel+build") summed over calls since
-# seconds.clear(); core/spgemm.stats holds masked_spgemm's own phases
+# host seconds by phase ("relabel+build"; Louvain's "louvain extract",
+# "louvain mxm", "louvain moves" and "louvain contract") summed over
+# calls since seconds.clear(); core/spgemm.stats holds masked_spgemm's
+# own phases
 seconds = {}
 
 
@@ -276,3 +280,152 @@ def triangle_centrality(A, device=None):
     out = out.eadd(yp.apply_second(types.FP64.TIMES, -2.0), types.FP64.PLUS)
     out = out.eadd(y, types.FP64.PLUS)
     return out.apply_second(types.FP64.DIV, k)
+
+
+def _louvain_local_moves(W, kv, two_m, max_iters, nchunks=32, seed=0):
+    """One Louvain local-move phase.  Each sweep visits the vertices in
+    shuffled chunks; a chunk's per-(vertex, candidate community) edge
+    weights are one semiring product
+
+        H = W[chunk, :] @ M,   M[j, c] = 1 iff labels[j] == c
+
+    (FP32 PLUS_TIMES: ``Matrix.extract_matrix`` then ``Matrix.mxm``,
+    the unmasked SpGEMM tiers; while labels are the identity M is the
+    identity, so the product takes the diagonal-B path), and M is built
+    from the current labels, so a chunk sees the sweep's earlier moves.
+    The gains are host float64 arithmetic.  Returns compacted labels."""
+    n = W.nrows
+    dev = W._device()
+    labels = np.arange(n, dtype=np.int64)
+    comm_deg = kv.astype(np.float64).copy()
+    rng = np.random.RandomState(seed)
+    order = rng.permutation(n)
+    chunks = np.array_split(order, min(nchunks, max(1, n // 64)))
+    wr, wc, wv = W._coo()
+    self_w = np.zeros(n, np.float64)
+    dsel = wr == wc
+    self_w[wr[dsel]] = wv[dsel].astype(np.float64)
+    ones = np.ones(n, np.float32)
+    vids = np.arange(n, dtype=np.int64)
+    M = None
+
+    for _ in range(max_iters):
+        moved = 0
+        for chunk in chunks:
+            if chunk.size == 0:
+                continue
+            t0 = time.perf_counter()
+            Wc = W.extract_matrix(chunk.tolist())
+            t1 = gk.add_seconds(seconds, "louvain extract", t0)
+            if M is None:      # membership matrix of the current labels
+                M = Matrix.sparse(types.FP32, n, n, device=dev)
+                M._build(vids, labels, ones)
+            H = Wc.mxm(M, semiring=types.FP32.PLUS_TIMES)
+            hr, hc, hv = H._coo()
+            t0 = gk.add_seconds(seconds, "louvain mxm", t1)
+            hv = hv.astype(np.float64)
+            # a self-loop does not vote for a move
+            sw = self_w[chunk]
+            srows = np.nonzero(sw)[0]
+            if srows.size and len(hr):
+                want = hr * np.int64(n) + hc
+                skey = srows * np.int64(n) + labels[chunk[srows]]
+                pos = np.searchsorted(want, skey)
+                posc = np.minimum(pos, len(want) - 1)
+                hit = want[posc] == skey
+                np.subtract.at(hv, posc[hit], sw[srows][hit])
+            row_ptr = np.searchsorted(hr, np.arange(chunk.size + 1))
+            lens = row_ptr[1:] - row_ptr[:-1]
+            total = int(lens.sum())
+            if total == 0:
+                gk.add_seconds(seconds, "louvain moves", t0)
+                continue
+            g_ent = np.repeat(np.arange(chunk.size), lens)
+            g_src = chunk[g_ent]
+            g_cand = hc
+            w_in = hv
+            cur = labels[g_src]
+            ki = kv[g_src].astype(np.float64)
+            # the gain of joining g_cand, with i out of its community
+            other = (comm_deg[g_cand]
+                     - np.where(g_cand == cur, kv[g_src], 0.0))
+            gain = w_in - other * ki / two_m
+            # staying: the g_cand == cur entry where there is one, else
+            # the empty community's baseline
+            stay_base = -(comm_deg[cur] - ki) * ki / two_m
+            is_cur = g_cand == cur
+            stay_per_v = np.full(chunk.size, 0.0)
+            has_cur = np.zeros(chunk.size, bool)
+            stay_per_v[g_ent[is_cur]] = gain[is_cur]
+            has_cur[g_ent[is_cur]] = True
+            base_per_v = np.zeros(chunk.size)
+            base_per_v[g_ent] = stay_base
+            stay_v = np.where(has_cur, stay_per_v, base_per_v)
+            # each vertex's best candidate: the last of its group sorted
+            # by (vertex, gain)
+            o2 = np.lexsort((gain, g_ent))
+            ge, gg, gc = g_ent[o2], gain[o2], g_cand[o2]
+            last = np.ones(ge.size, bool)
+            last[:-1] = ge[1:] != ge[:-1]
+            be, bg, bc = ge[last], gg[last], gc[last]
+            vsrc = chunk[be]
+            do = bg > stay_v[be] + 1e-12
+            vsrc, bc = vsrc[do], bc[do]
+            changed = labels[vsrc] != bc
+            vsrc, bc = vsrc[changed], bc[changed]
+            if vsrc.size:
+                np.subtract.at(comm_deg, labels[vsrc], kv[vsrc])
+                np.add.at(comm_deg, bc, kv[vsrc])
+                labels[vsrc] = bc
+                moved += vsrc.size
+                M = None       # the membership changed
+            gk.add_seconds(seconds, "louvain moves", t0)
+        if moved == 0:
+            break
+    _, labels = np.unique(labels, return_inverse=True)
+    return labels
+
+
+def louvain_cluster(A, max_iters=20, max_levels=10, seed=None, device=None):
+    """Louvain community detection: local modularity-gain moves, then
+    the communities contracted into a weighted graph, W = P^T (W P)
+    (two FP32 PLUS_TIMES products, P[i, labels[i]] = 1), repeated until
+    no vertex moves or `max_levels`.  Returns an INT64 Vector of
+    community labels.  As in the JAX package, the sweeps' vertex order
+    is ``RandomState(0)``'s whatever `seed` says."""
+    dev = _device_of(A, device)
+    n = A.nrows
+    W = A.cast(types.FP32)
+    mapping = np.arange(n, dtype=np.int64)
+    two_m = None
+    for _ in range(max_levels):
+        t0 = time.perf_counter()
+        nw = W.nrows
+        kvec = W.reduce_vector(types.FP32.PLUS_MONOID)
+        kv = np.zeros(nw, np.float64)
+        ki, kvv = kvec._coo()
+        kv[ki] = kvv
+        gk.add_seconds(seconds, "louvain contract", t0)
+        if two_m is None:
+            two_m = float(kv.sum())
+            if two_m == 0:
+                return Vector.from_lists(list(range(n)), list(range(n)), n,
+                                         device=dev)
+        labels = _louvain_local_moves(W, kv, two_m, max_iters)
+        ncomm = int(labels.max()) + 1
+        if ncomm == nw:
+            break
+        mapping = labels[mapping]
+        if ncomm == 1:
+            break
+        t0 = time.perf_counter()
+        P = Matrix.sparse(types.FP32, nw, ncomm, device=dev)
+        P._build(np.arange(nw, dtype=np.int64), labels,
+                 np.ones(nw, np.float32))
+        W = P.transpose().mxm(W.mxm(P, semiring=types.FP32.PLUS_TIMES),
+                              semiring=types.FP32.PLUS_TIMES)
+        gk.add_seconds(seconds, "louvain contract", t0)
+
+    out = Vector.sparse(types.INT64, n, device=dev)
+    out._build(np.arange(n, dtype=np.int64), mapping.astype(np.int64))
+    return out

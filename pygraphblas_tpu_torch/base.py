@@ -16,8 +16,14 @@ compact-dense tier within ``spgemm_dense_cells`` cells, then the
 expand/sort/compact engine (core/esc.py) on the card, then the host
 two-phase tiers; "dense", "esc" and "scipy" force one tier).  The other
 fields are the JAX package's, kept for parity.
+
+At import it tunes glibc's allocator as the JAX package does
+(``_tune_host_allocator``), and ``profile_start``/``profile_stop`` wrap
+``torch.profiler``.
 """
 
+import ctypes
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -28,6 +34,7 @@ __all__ = [
     "DomainMismatch", "DimensionMismatch", "OutputNotEmpty", "OutOfMemory",
     "InsufficientSpace", "IndexOutOfBound", "Panic", "options_set",
     "options_get", "GxB_INDEX_MAX", "GxB_IMPLEMENTATION", "GxB_SPEC",
+    "profile_start", "profile_stop",
 ]
 
 NULL = None
@@ -38,6 +45,32 @@ GxB_INDEX_MAX = 2**60
 # Implementation/spec version tuples for API parity.
 GxB_IMPLEMENTATION = (1, 0, 0)
 GxB_SPEC = (2, 0, 0)
+
+
+def _tune_host_allocator():
+    """Keep freed large blocks on the glibc heap (no mmap, no trim).
+
+    glibc munmaps every large free, so each big numpy temporary of the
+    host phases (plan builds, sorted-COO merges, the SpGEMM relabel and
+    assembly, graph generators) faults all of its pages in again; on a
+    virtual machine a first touch can cost far more than a reuse.
+    Reusing heap pages keeps the resident size at its high-water mark,
+    the right trade for a compute host.  ``PYGB_MALLOC_TUNE=0``
+    disables it (the JAX package's contract)."""
+    if os.environ.get("PYGB_MALLOC_TUNE", "1") != "1":
+        return
+    if not sys.platform.startswith("linux"):
+        return
+    try:
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        M_TRIM_THRESHOLD, M_MMAP_MAX = -1, -4
+        libc.mallopt(M_MMAP_MAX, 0)
+        libc.mallopt(M_TRIM_THRESHOLD, 2**31 - 1)
+    except OSError:  # pragma: no cover - another libc: best effort
+        pass
+
+
+_tune_host_allocator()
 
 
 # --------------------------------------------------------------------------
@@ -235,6 +268,33 @@ def perf_report(reset=False, file=None):
     if reset:
         perf_counters.clear()
     return snap
+
+
+_profiler = None
+
+
+def profile_start(log_dir):
+    """Start a torch.profiler trace of the host and, where there is a
+    card, its kernels; `profile_stop` writes it into `log_dir` (a Chrome
+    trace, one ``.json`` file)."""
+    global _profiler
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    _profiler = torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir))
+    _profiler.start()
+
+
+def profile_stop():
+    """Stop the trace `profile_start` began and write it out."""
+    global _profiler
+    prof, _profiler = _profiler, None
+    if prof is not None:
+        prof.stop()
 
 
 # --------------------------------------------------------------------------

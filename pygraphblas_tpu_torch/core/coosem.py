@@ -1,12 +1,11 @@
 """GraphBLAS semantics on canonical sorted-COO triples, on the host: the
-sparse tier's pair membership, merges, masked writeback and the
-extract/assign index plumbing.
+sparse tier's pair membership, merges, masked writeback, the
+extract/assign index plumbing and the Kronecker product.
 
-Counterpart of ``pygraphblas_tpu/core/coosem.py`` (all but ``kron``,
-which comes with ``Matrix.kronecker``).  The JAX package answers sorted
-queries and merges with its native passes (``_fastio``) when that is
-built; the port always takes the numpy searches, which give the same
-answer (as ``csrc/benes.cpp`` keeps its own copy of the routing, the
+Counterpart of ``pygraphblas_tpu/core/coosem.py``.  The JAX package
+answers sorted queries and merges with its native passes (``_fastio``)
+when that is built; the port always takes the numpy searches, which
+give the same answer (as ``csrc/benes.cpp`` keeps its own copy of the routing, the
 port shares no native module with the JAX package).
 
 All functions take and return numpy arrays; rows and cols int64."""
@@ -236,6 +235,8 @@ class ArithSelector:
         ent = np.nonzero(keep)[0]
         return ent, (d[ent] // st)
 
+    select_sorted = select
+
     def inverse(self, positions):
         return self.start + np.asarray(positions, np.int64) * self.step
 
@@ -257,6 +258,18 @@ class ListSelector:
 
     def select(self, values):
         return _positions(self._sorted, self._order, values)
+
+    def select_sorted(self, values):
+        """select() for `values` sorted ascending (a canonical COO's
+        rows): each list entry's run of equal values by two searches of
+        `values`, O(k log nnz) and not O(nnz log k); the pairs come in
+        list order, which is `values`' order when the list ascends."""
+        lo = np.searchsorted(values, self.arr, side="left")
+        cnt = np.searchsorted(values, self.arr, side="right") - lo
+        total = int(cnt.sum())
+        pos = np.repeat(np.arange(self.size, dtype=np.int64), cnt)
+        run0 = np.repeat(np.cumsum(cnt) - cnt, cnt)
+        return np.repeat(lo, cnt) + (np.arange(total) - run0), pos
 
     def inverse(self, positions):
         return self.arr[np.asarray(positions, np.int64)]
@@ -296,7 +309,7 @@ def extract(rows, cols, vals, sel_r, sel_c):
     """out[a, b] = A[I[a], J[b]] on canonical triples, with I/J given as
     Selectors; LIST duplicates fan entries out.  Returns canonical
     triples in output coordinates."""
-    ent_r, pos_r = sel_r.select(rows)
+    ent_r, pos_r = sel_r.select_sorted(rows)
     r2 = pos_r
     c_src = cols[ent_r]
     v_src = vals[ent_r]
@@ -377,5 +390,21 @@ def assign_region(cr, cc, cv, tr, tc, tv, sel_r, sel_c, mpr, mpc,
     out_r = np.concatenate([keep_r, inv_r])
     out_c = np.concatenate([keep_c_, inv_c])
     out_v = np.concatenate([cv[~inside].astype(dtype), nv])
+    order = lex_order(out_r, out_c)
+    return out_r[order], out_c[order], out_v[order]
+
+
+def kron(ra, ca, va, rb, cb, vb, b_nrows, b_ncols, mul_fn, dtype):
+    """Kronecker product on canonical triples: out[(ia*bn + ib),
+    (ja*bm + jb)] = mul(a, b), canonical."""
+    na, nb = len(ra), len(rb)
+    if na == 0 or nb == 0:
+        e = np.empty(0, np.int64)
+        return e, e.copy(), np.empty(0, dtype)
+    A = np.repeat(np.arange(na), nb)
+    B = np.tile(np.arange(nb), na)
+    out_r = ra[A] * b_nrows + rb[B]
+    out_c = ca[A] * b_ncols + cb[B]
+    out_v = np.asarray(mul_fn(va[A], vb[B])).astype(dtype)
     order = lex_order(out_r, out_c)
     return out_r[order], out_c[order], out_v[order]

@@ -316,6 +316,21 @@ def reduce_axis(vals, mask, monoid, dim, typ):
     return out.to(typ.torch_dtype), mask.any(dim=dim)
 
 
+def kronecker(a_vals, a_mask, b_vals, b_mask, op, a_typ, b_typ, out_typ):
+    """T = kron(A, B): op(A[i, j], B[k, l]) at (i*p + k, j*q + l), one
+    broadcast of the op at out_typ over (m, p, n, q)."""
+    m, n = a_vals.shape
+    p, q = b_vals.shape
+    a_c = types.cast(a_vals, a_typ, out_typ)
+    b_c = types.cast(b_vals, b_typ, out_typ)
+    f = at_type(op, out_typ)
+    z = f.apply(a_c[:, None, :, None], b_c[None, :, None, :])
+    t_vals = types.cast(z, f.ztype(out_typ), out_typ).reshape(m * p, n * q)
+    t_mask = (a_mask[:, None, :, None]
+              & b_mask[None, :, None, :]).reshape(m * p, n * q)
+    return torch.where(t_mask, t_vals, _zero(out_typ, t_vals.device)), t_mask
+
+
 def gather2d(vals, mask, row_idx, col_idx):
     """Extract a submatrix by row/col index vectors."""
     return vals[row_idx][:, col_idx], mask[row_idx][:, col_idx]

@@ -30,10 +30,13 @@ when there is none).  Operations raise if their operands sit on
 different devices; nothing falls back to the CPU.  Plans are cached per
 device (``_ell_c``), and xspmv plans on disk as well (``core/xspmv``).
 
-Not here yet (ROADMAP Queue A item 8b): extract and assign with index
-ranges (``A[0, :]``, ``assign_*``; whole-matrix ``assign_matrix`` is
-here), ``kronecker``/``kronpow``, ``from_diag``/``vector_diag``,
-``resize``, ``gini``, the printers and the I/O constructors.
+Extract and assign take GraphBLAS index sets (``A[1:3, 2]``,
+``A[0, :]``, lists; slices are stop-inclusive, ``base._build_range``):
+the bitmap tier gathers and scatters on the device (``dk.gather2d``,
+``dk.scatter2d``), the COO tier maps host triples through selectors
+(``coosem.extract``, ``coosem.assign_region``).  Not here yet: the I/O
+constructors (``from_mm``, ``binread`` and the rest, ROADMAP item 11)
+and ``shard`` (item 12).
 """
 
 import operator
@@ -48,6 +51,8 @@ import torch
 
 from .base import (
     _timed,
+    _build_range,
+    IndexSet,
     GxB_INDEX_MAX,
     NoValue,
     DimensionMismatch,
@@ -75,9 +80,6 @@ from .core import coosem as cs
 from .core import dewise as dw
 
 __all__ = ["Matrix"]
-
-_ITEM_8B = ("needs extract/assign over index ranges, ROADMAP.md Queue A "
-            "item 8b")
 
 
 def _is_scalar(x):
@@ -332,6 +334,23 @@ class Matrix:
         out._build(I.astype(np.int64), J.astype(np.int64), arr[I, J])
         return out
 
+    @classmethod
+    def from_diag(cls, v, k=0, desc=None, device=None):
+        """A square Matrix holding Vector `v`'s values along diagonal
+        `k` (above the main one for k > 0); on `v`'s device unless one
+        is named."""
+        n = v.size + abs(k)
+        m = cls.sparse(v.type, n, n,
+                       device=v.device if device is None else device)
+        I, V = v._coo()
+        if k >= 0:
+            m._build(I, I + k, V)
+        else:
+            m._build(I - k, I, V)
+        if k == 0:
+            m._diag_c = True
+        return m
+
     # ------------------------------------------------------------------
     # internal storage plumbing
     # ------------------------------------------------------------------
@@ -469,6 +488,16 @@ class Matrix:
             return v.t(), m.t()
         return v, m
 
+    @classmethod
+    def _from_parts(cls, typ, nrows, ncols, vals, mask):
+        out = cls.sparse(typ, nrows, ncols, device=vals.device)
+        out._set_dense(vals, mask)
+        return out
+
+    def _out_like(self, typ=None, nrows=None, ncols=None):
+        return Matrix.sparse(typ or self.type, nrows or self._nrows,
+                             ncols or self._ncols, device=self._dev)
+
     def _set_dense(self, vals, mask):
         self._fmt = "bitmap"
         self._rows_h = self._cols_h = self._vals_h = None
@@ -596,6 +625,8 @@ class Matrix:
                                   out.type._numpy_t)
         out._set_coo(nr, nc, nv)
         return out
+
+    _np_binop = staticmethod(np_binop)
 
     # ------------------------------------------------------------------
     # properties
@@ -766,6 +797,22 @@ class Matrix:
             self._vals_h = np.empty(0, self.type._numpy_t)
         self._invalidate()
 
+    def resize(self, nrows=GxB_INDEX_MAX, ncols=GxB_INDEX_MAX):
+        """Resize in place; values outside the new bounds are dropped
+        (the tier follows the new dimensions)."""
+        r, c, v = self._coo()
+        keep = (r < nrows) & (c < ncols)
+        self._nrows = int(nrows)
+        self._ncols = int(ncols)
+        self._fmt = ("bitmap" if self._fits_bitmap(nrows, ncols, self.type)
+                     else "coo")
+        self._vals = self._mask = None
+        self._rows_h = np.empty(0, np.int64)
+        self._cols_h = np.empty(0, np.int64)
+        self._vals_h = np.empty(0, self.type._numpy_t)
+        self._invalidate()
+        self._build(r[keep], c[keep], v[keep])
+
     def wait(self):
         """Barrier: complete all pending work on this Matrix."""
         self._flush()
@@ -778,26 +825,73 @@ class Matrix:
     # ------------------------------------------------------------------
 
     def __setitem__(self, index, value):
-        """Write one element (``A[i, j] = v``).  Rows, columns, regions
-        and masks need assign, ROADMAP Queue A item 8b."""
-        if isinstance(index, (tuple, list)) and len(index) == 2 \
-                and _is_int(index[0]) and _is_int(index[1]):
-            i0, i1 = index
+        """Write an element, row, column or region: ``A[i, j] = v``,
+        ``A[i] = vector``, ``A[:, j] = vector``, ``A[1:2, 0:3] = B``
+        (slices stop-inclusive), ``A[M] = s`` (M a mask)."""
+        from .vector import Vector
+
+        if _is_int(index):
+            if _is_scalar(value):
+                return self.assign_scalar(value, index)
+            if isinstance(value, Vector):
+                return self.assign_row(index, value)
+            raise TypeError
+        if isinstance(index, slice):
+            if isinstance(value, Matrix):
+                return self.assign_matrix(value, index, None)
+            if _is_scalar(value):
+                return self.assign_scalar(value, index, None)
+            raise TypeError
+        if isinstance(index, Matrix):
+            if isinstance(value, Matrix):
+                return self.assign_matrix(value, mask=index)
+            if _is_scalar(value):
+                return self.assign_scalar(value, mask=index)
+            raise TypeError
+        if not isinstance(index, (tuple, list)):
+            raise TypeError
+        i0, i1 = index[0], index[1]
+        if _is_int(i0) and _is_int(i1):
             if not (0 <= i0 < self._nrows and 0 <= i1 < self._ncols):
                 raise InvalidIndex("index out of bounds")
             self._pending.append(
                 (i0, i1, self.type._coerce(self.type._from_value(value))))
             self._invalidate()
             return
-        raise NotImplementedError(f"Matrix[{index!r}] = ... {_ITEM_8B}")
+        if _is_int(i0) and isinstance(i1, slice):
+            if isinstance(value, Vector):
+                return self.assign_row(i0, value, i1)
+            return self.assign_scalar(value, i0, i1)
+        if isinstance(i0, slice) and _is_int(i1):
+            if isinstance(value, Vector):
+                return self.assign_col(i1, value, i0)
+            return self.assign_scalar(value, i0, i1)
+        if isinstance(i0, slice) and isinstance(i1, slice):
+            if _is_scalar(value):
+                return self.assign_scalar(value, i0, i1)
+            return self.assign_matrix(value, i0, i1)
+        raise TypeError
 
     def __getitem__(self, index):
-        """Read one element (``A[i, j]``; NoValue when absent).  Rows,
-        columns and submatrices need extract, ROADMAP Queue A item 8b."""
-        if isinstance(index, (tuple, list)) and len(index) == 2 \
-                and _is_int(index[0]) and _is_int(index[1]):
-            return self._extract_element(index[0], index[1])
-        raise NotImplementedError(f"Matrix[{index!r}] {_ITEM_8B}")
+        """Read an element (NoValue when absent), a row or column (a
+        Vector) or a submatrix: ``A[i, j]``, ``A[i]``, ``A[1:3, 2]``,
+        ``A[0:1, :]`` (slices stop-inclusive), ``A[M]`` (M a mask)."""
+        if _is_int(index):
+            return self.extract_row(index, None)
+        if isinstance(index, slice):
+            return self.extract_matrix(index, None)
+        if isinstance(index, Matrix):
+            return self.extract_matrix(mask=index)
+        if not isinstance(index, (tuple, list)):
+            raise TypeError
+        i0, i1 = index[0], index[1]
+        if _is_int(i0) and _is_int(i1):
+            return self._extract_element(i0, i1)
+        if _is_int(i0) and isinstance(i1, slice):
+            return self.extract_row(i0, i1)
+        if isinstance(i0, slice) and _is_int(i1):
+            return self.extract_col(i1, i0)
+        return self.extract_matrix(i0, i1)
 
     def _extract_element(self, i, j):
         if not (0 <= i < self._nrows and 0 <= j < self._ncols):
@@ -941,11 +1035,81 @@ class Matrix:
         arr[r, c] = v
         return arr
 
+    # ------------------------------------------------------------------
+    # rendering (the JAX package's layouts; a bit view prints its
+    # unsigned value, a BOOL t or f)
+    # ------------------------------------------------------------------
+
+    def to_string(self, format_string="{:>%s}", width=3, prec=5,
+                  empty_char="", cell_sep=""):
+        """ASCII grid rendering: a header of column numbers, one line a
+        row with the row number on both sides."""
+        format_string = format_string % width
+        header = (format_string.format("") + " "
+                  + "".join(format_string.format(i)
+                            for i in range(self.ncols)))
+        result = header + "\n"
+        for row in range(self.nrows):
+            result += format_string.format(row) + "|"
+            for col in range(self.ncols):
+                value = self.get(row, col, empty_char)
+                result += cell_sep + self.type.format_value(value, width,
+                                                            prec)
+            result += "|  " + str(row) + "\n"
+        result += header
+        return result
+
+    def __str__(self):
+        return self.to_string()
+
     def __repr__(self):
         tname = self.type.__name__
         if self._nrows == GxB_INDEX_MAX and self._ncols == GxB_INDEX_MAX:
             return f"<Matrix({tname}, nvals: {self.nvals})>"
         return f"<Matrix({tname}, shape: {self.shape}, nvals: {self.nvals})>"
+
+    def to_markdown_table(self, title="A", width=2):
+        """Markdown-table rendering."""
+        rows = []
+        header = [title] + [str(j) for j in range(self.ncols)]
+        rows.append("|".join(header))
+        rows.append("|".join(["---"] * len(header)))
+        for i in range(self.nrows):
+            cells = [str(i)]
+            for j in range(self.ncols):
+                v = self.get(i, j)
+                cells.append("" if v is None else str(v))
+            rows.append("|".join(cells))
+        return "\n".join(rows)
+
+    def to_html_table(self, title="A", width=2):
+        """HTML-table rendering for notebooks."""
+        out = [f"<table><tr><th>{title}</th>"]
+        for j in range(self.ncols):
+            out.append(f"<th>{j}</th>")
+        out.append("</tr>")
+        for i in range(self.nrows):
+            out.append(f"<tr><th>{i}</th>")
+            for j in range(self.ncols):
+                v = self.get(i, j)
+                out.append("<td>%s</td>" % ("" if v is None else v))
+            out.append("</tr>")
+        out.append("</table>")
+        return "".join(out)
+
+    def _repr_html_(self):  # pragma: no cover
+        return self.to_html_table()
+
+    def print(self, level=2, name="A", f=None):
+        """Print a diagnostic dump of the matrix (with the grid from
+        level 3)."""
+        import sys
+
+        f = f or sys.stdout
+        print(f"GraphBLAS Matrix {name}: {self.type.__name__} "
+              f"{self.shape} nvals={self.nvals} fmt={self._fmt}", file=f)
+        if level >= 3:
+            print(self.to_string(), file=f)
 
     # ------------------------------------------------------------------
     # transpose / cast
@@ -1250,6 +1414,7 @@ class Matrix:
             if self.type._view:
                 thunk = thunk.view({16: np.int16, 32: np.int32,
                                     64: np.int64}[self.type._bits])
+        op = op.at_type(self.type)
         mask, accum, desc = self._get_args(mask, accum, desc)
         if self._is_huge:
             r, c, v = self._coo()
@@ -1310,6 +1475,32 @@ class Matrix:
         from . import selectop
 
         return self.select(selectop.NONZERO)
+
+    def vector_diag(self, k=0, desc=None):
+        """Diagonal `k` as a Vector (GxB_Vector_diag)."""
+        from .vector import Vector
+
+        if k >= 0:
+            n = min(self._nrows, self._ncols - k)
+        else:
+            n = min(self._nrows + k, self._ncols)
+        n = max(n, 0)
+        out = Vector.sparse(self.type, n, device=self._dev)
+        if self._is_huge:
+            r, c, v = self._coo()
+            sel = (c - r) == k
+            idx = r[sel] if k >= 0 else c[sel]
+            keep = idx < n
+            return out._coo_writeback(out, idx[keep], v[sel][keep],
+                                      None, None, Default)
+        v, m = self._dense_pair()
+        idx = torch.arange(n, device=v.device)
+        if k >= 0:
+            dv, dm = v[idx, idx + k], m[idx, idx + k]
+        else:
+            dv, dm = v[idx - k, idx], m[idx - k, idx]
+        out._set_dense(dv, dm)
+        return out
 
     # ------------------------------------------------------------------
     # reductions
@@ -1412,6 +1603,13 @@ class Matrix:
     # ------------------------------------------------------------------
     # matmul family
     # ------------------------------------------------------------------
+
+    def _resolve_semiring(self, semiring, out_type):
+        if semiring is None:
+            semiring = current_semiring.get(None)
+        if semiring is None:
+            semiring = out_type._default_semiring()
+        return semiring
 
     @_timed("Matrix.mxm")
     def mxm(self, other, semiring=None, cast=None, out=None, mask=None,
@@ -1765,6 +1963,15 @@ class Matrix:
             cache[key] = (u, s, d, outs, vv)
         return cache[key]
 
+    @property
+    def _dev_coo_c(self):
+        """The device COO triples `_device_coo` cached on this matrix's
+        device, or None (the JAX package keeps them in a slot of this
+        name; the port caches them per device in `_ell_c`)."""
+        if self._ell_c is None or self._dev is None:
+            return None
+        return self._ell_c.get(("coo", str(self._dev)))
+
     def _device_coo(self, device=None):
         """Device copies of the canonical COO triples (cached per device;
         int32 indices when the dimensions allow)."""
@@ -1800,71 +2007,376 @@ class Matrix:
             result.mxm(self, out=result)
         return result
 
+    def kronpow(self, exponent):
+        """Kronecker-power expansion (graph generation): each step
+        squares the result, ``result = result.kronecker(result)``, as
+        the JAX package's does."""
+        if exponent == 0:
+            return self.__class__.identity(self.type, self.nrows,
+                                           device=self._dev)
+        if exponent == 1:
+            return self
+        result = self.dup()
+        for _ in range(1, exponent):
+            result = result.kronecker(result)
+        return result
+
+    @_timed("Matrix.kronecker")
+    def kronecker(self, other, op=None, cast=None, out=None, mask=None,
+                  accum=None, desc=None):
+        """Kronecker product with `op` (default TIMES): out[i*p + k,
+        j*q + l] = op(A[i, j], B[k, l]) for B of shape (p, q).  The
+        bitmap tier broadcasts `op` on the device (``dk.kronecker``); a
+        huge operand or output takes the host triples
+        (``coosem.kron``)."""
+        mask, accum, desc = self._get_args(mask, accum, desc)
+        typ = cast or promote(self.type, other.type)
+        if op is None:
+            op = current_binop.get(None) or typ.TIMES
+        if isinstance(op, Semiring):
+            op = op.mul_op
+        if isinstance(op, Monoid):
+            op = op.binaryop
+        a_nr, a_nc = ((self._ncols, self._nrows) if desc.inp0
+                      else (self._nrows, self._ncols))
+        b_nr, b_nc = ((other._ncols, other._nrows) if desc.inp1
+                      else (other._nrows, other._ncols))
+        if out is None:
+            out = Matrix.sparse(typ, a_nr * b_nr, a_nc * b_nc,
+                                device=self._dev)
+        if self._is_huge or other._is_huge or out._is_huge:
+            common_device(self, other, out, mask)
+            ra, ca, va = self._coo()
+            if desc.inp0:
+                ra, ca, va = ck.build(ca, ra, va, va.dtype)
+            rb, cb, vb = other._coo()
+            if desc.inp1:
+                rb, cb, vb = ck.build(cb, rb, vb, vb.dtype)
+            dt = out.type._numpy_t
+            r, c, v = cs.kron(ra, ca, va.astype(dt), rb, cb, vb.astype(dt),
+                              b_nr, b_nc, np_binop(op), dt)
+            return self._coo_writeback(out, r, c, v, mask, accum, desc)
+        common_device(self, other, out, mask)
+        av, am = self._dense_pair(desc.inp0)
+        bv, bm = other._dense_pair(desc.inp1)
+        tv, tm = dk.kronecker(av, am, bv, bm, op, self.type, other.type,
+                              out.type)
+        return self._writeback(out, tv, tm, mask, accum, desc)
+
     # ------------------------------------------------------------------
-    # whole-matrix assign (index ranges: ROADMAP Queue A item 8b)
+    # extract / assign over GraphBLAS index sets (stop-inclusive slices,
+    # lists, negative steps backwards)
     # ------------------------------------------------------------------
 
-    def assign_matrix(self, value, I=None, J=None, mask=None, accum=None,
-                      desc=None):
-        """C<M> (accum)= A over the whole matrix.  Index ranges need
-        assign, ROADMAP Queue A item 8b."""
-        if I is not None or J is not None:
-            raise NotImplementedError(f"assign_matrix over {I!r}, {J!r} "
-                                      f"{_ITEM_8B}")
+    def _resolve_index(self, idx, dim_size):
+        """An index argument as a host numpy index vector."""
+        return np.asarray(self._resolve_iset(idx, dim_size)
+                          .indices(dim_size), np.int64)
+
+    def _resolve_iset(self, idx, dim_size):
+        """An index argument as an IndexSet with its size resolved."""
+        if _is_int(idx):
+            iset = _build_range(slice(idx, idx), dim_size - 1)
+        else:
+            iset = _build_range(idx, dim_size - 1)
+        if iset.size is None:
+            iset.size = dim_size
+        return iset
+
+    @_timed("Matrix.extract_matrix")
+    def extract_matrix(self, row_index=None, col_index=None, out=None,
+                       mask=None, accum=None, desc=None):
+        """Extract a submatrix (GrB_Matrix_extract): slices are
+        stop-inclusive, a negative step selects backwards, a list picks
+        rows in its order (repeats allowed).  `desc=T0` extracts from
+        the transpose."""
+        ta = desc is not None and desc.inp0
         mask, accum, desc = self._get_args(mask, accum, desc)
-        if value.shape != self.shape:
-            raise DimensionMismatch("assign shape mismatch")
+        result_nrows = self.ncols if ta else self.nrows
+        result_ncols = self.nrows if ta else self.ncols
+        iset_r = self._resolve_iset(row_index, result_nrows)
+        iset_c = self._resolve_iset(col_index, result_ncols)
+        if out is None:
+            out = self.__class__.sparse(self.type, iset_r.size, iset_c.size,
+                                        device=self._dev)
+        if self._is_huge or out._is_huge:
+            r, c, v = self._coo()
+            if ta:
+                r, c, v = ck.build(c, r, v, v.dtype)
+            er, ec, ev = cs.extract(r, c, v,
+                                    cs.selector(iset_r, result_nrows),
+                                    cs.selector(iset_c, result_ncols))
+            return self._coo_writeback(out, er, ec,
+                                       ev.astype(out.type._numpy_t),
+                                       mask, accum, desc)
+        dev = common_device(self, out, mask)
+        I = torch.as_tensor(iset_r.indices(result_nrows), device=dev)
+        J = torch.as_tensor(iset_c.indices(result_ncols), device=dev)
+        v, m = self._dense_pair(ta)
+        tv, tm = dk.gather2d(v, m, I, J)
+        return self._writeback(out, types.cast(tv, self.type, out.type), tm,
+                               mask, accum, desc)
+
+    def extract_col(self, col_index, row_slice=None, out=None, mask=None,
+                    accum=None, desc=None):
+        """Extract a column (or part of it) as a Vector."""
+        from .vector import Vector
+
+        ta = desc is not None and desc.inp0
+        dim = self.ncols if ta else self.nrows
+        iset = self._resolve_iset(row_slice, dim)
+        mask, accum, desc = self._get_args(mask, accum, desc)
+        if out is None:
+            out = Vector.sparse(self.type, iset.size, device=self._dev)
         if self._is_huge:
-            r, c, v = value._coo()
-            self._coo_writeback(self, r, c, v.astype(self.type._numpy_t),
-                                mask, accum, desc)
-            return
-        common_device(self, value, mask)
+            r, c, v = self._coo()
+            if ta:
+                r, c, v = ck.build(c, r, v, v.dtype)
+            sel = c == col_index
+            rows, vals = r[sel], v[sel]
+            ent, pos = cs.selector(iset, dim).select(rows)
+            ti, tv = pos, vals[ent]
+            order = np.argsort(ti, kind="stable")
+            return out._coo_writeback(out, ti[order],
+                                      tv[order].astype(out.type._numpy_t),
+                                      mask, accum, desc)
+        dev = common_device(self, out, mask)
+        I = torch.as_tensor(iset.indices(dim), device=dev)
+        v, m = self._dense_pair(ta)
+        return out._writeback(
+            out, types.cast(v[I, col_index], self.type, out.type),
+            m[I, col_index], mask, accum, desc)
+
+    def extract_row(self, row_index, col_slice=None, out=None, mask=None,
+                    accum=None, desc=None):
+        """Extract a row (or part of it) as a Vector: the column extract
+        of the transpose."""
+        desc2 = desc if desc is not None else Default
+        flipped = desc2 & T0 if not desc2.inp0 else desc2
+        return self.extract_col(row_index, col_slice, out, mask=mask,
+                                accum=accum, desc=flipped)
+
+    def _assign_line(self, line, value, iset, dim, mask, accum, desc,
+                     is_col):
+        """C(I, j) or C(i, J) <m> (accum)= x on the dense tensors: the
+        line's entries where x (masked) is present take x (or
+        accum(c, x) where both are present)."""
+        self._flush()
+        dev = common_device(self, value, mask)
+        v, m = self._dense_pair()
         xv, xm = value._dense_pair()
-        self._writeback(self, types.cast(xv, value.type, self.type), xm,
-                        mask, accum, desc)
+        xv = types.cast(xv, value.type, self.type)
+        idx = torch.as_tensor(iset.indices(dim), device=dev)
+        at = (idx, line) if is_col else (line, idx)
+        if mask is not None:
+            mv, mm = mask._dense_pair()
+            w = dk.effective_mask(mv, mm, desc.complement, desc.structural)
+            if w.ndim == 2:
+                w = w[:, line] if is_col else w[line, :]
+            xm = xm & w[idx]
+        cur_v, cur_m = v[at], m[at]
+        new_v = torch.where(xm, xv, cur_v)
+        if accum is not None:
+            acc = at_type(accum, self.type).apply(cur_v, xv)
+            new_v = torch.where(cur_m & xm, acc.to(v.dtype), new_v)
+        new_m = xm if desc.replace else (cur_m | xm)
+        v2, m2 = v.clone(), m.clone()
+        v2[at] = new_v
+        m2[at] = new_m
+        self._set_dense(v2, m2)
 
-    def assign_scalar(self, value, I=None, J=None, mask=None, accum=None,
-                      desc=None):
-        """C<M> (accum)= s over the whole matrix (masked fills of a huge
-        matrix take the mask's pattern).  Index ranges need assign,
-        ROADMAP Queue A item 8b."""
-        if I is not None or J is not None:
-            raise NotImplementedError(f"assign_scalar over {I!r}, {J!r} "
-                                      f"{_ITEM_8B}")
+    def assign_col(self, col_index, value, row_slice=None, mask=None,
+                   accum=None, desc=None):
+        """Assign a Vector to a column (or part of it)."""
         mask, accum, desc = self._get_args(mask, accum, desc)
-        val = self.type._coerce(value)
+        stop_val = self.ncols if desc.inp0 else self.nrows
+        iset = self._resolve_iset(row_slice, stop_val)
+        if iset.size != value.size:
+            raise DimensionMismatch("assign_col length mismatch")
         if self._is_huge:
-            self._flush()
-            if mask is not None and not desc.complement:
-                # T = the scalar at every true mask position
+            return self._assign_line_sparse(value, iset, stop_val,
+                                            col_index, mask, accum, desc,
+                                            is_col=True)
+        self._assign_line(col_index, value, iset, stop_val, mask, accum,
+                          desc, is_col=True)
+
+    def assign_row(self, row_index, value, col_slice=None, mask=None,
+                   accum=None, desc=None):
+        """Assign a Vector to a row (or part of it)."""
+        mask, accum, desc = self._get_args(mask, accum, desc)
+        iset = self._resolve_iset(col_slice, self.ncols)
+        if iset.size != value.size:
+            raise DimensionMismatch("assign_row length mismatch")
+        if self._is_huge:
+            return self._assign_line_sparse(value, iset, self.ncols,
+                                            row_index, mask, accum, desc,
+                                            is_col=False)
+        self._assign_line(row_index, value, iset, self.ncols, mask, accum,
+                          desc, is_col=False)
+
+    def _assign_line_sparse(self, value, iset, dim, fixed_index, mask,
+                            accum, desc, is_col):
+        """COO-tier row/column assign: a one-wide assign_region along
+        the fixed row (is_col=False) or column (is_col=True)."""
+        self._flush()
+        ti, tv = value._coo()
+        cr, cc, cv = self._coo()
+        mpr = mpc = None
+        if mask is not None:
+            if isinstance(mask, Matrix):
                 mpr, mpc = self._mask_pair_set(mask, desc)
-                tv = np.full(len(mpr), val, self.type._numpy_t)
-                self._coo_writeback(self, mpr, mpc, tv, mask, accum, desc)
+            else:
+                # a vector mask lies along the assigned line: lift it
+                # into C's coordinates for the region map
+                mi, mv = mask._coo()
+                ii, jj = ((mi, np.full_like(mi, fixed_index)) if is_col
+                          else (np.full_like(mi, fixed_index), mi))
+                mpr, mpc = cs.mask_pairs(ii, jj, mv, desc.structural)
+        accum_fn = np_binop(accum) if accum is not None else None
+        line_sel = cs.ArithSelector(fixed_index, 1, 1)
+        span_sel = cs.selector(iset, dim)
+        zero = np.zeros_like(ti)
+        if is_col:
+            args = (ti, zero, span_sel, line_sel)
+        else:
+            args = (zero, ti, line_sel, span_sel)
+        nr, nc, nv = cs.assign_region(
+            cr, cc, cv, args[0], args[1], tv.astype(self.type._numpy_t),
+            args[2], args[3], mpr, mpc, accum_fn, desc.complement,
+            desc.replace, self.type._numpy_t)
+        self._set_coo(nr, nc, nv)
+
+    def _region_writeback(self, I, J, tv, tm, mask, accum, desc):
+        """C(I, J)<M> (accum)= T on the dense tensors, T of the region's
+        shape: the mask is restricted to the region when it spans C."""
+        v, m = self._dense_pair()
+        sub_v, sub_m = dk.gather2d(v, m, I, J)
+        mv, mm = self._region_mask(mask, I, J, desc)
+        nv, nm = dk.writeback(sub_v, sub_m, tv, tm, mv, mm, accum=accum,
+                              complement=desc.complement,
+                              structural=desc.structural,
+                              replace=desc.replace, typ=self.type)
+        self._set_dense(*dk.scatter2d(v, m, I, J, nv, nm))
+
+    def _region_mask(self, mask, I, J, desc):
+        if mask is None:
+            return None, None
+        mv, mm = mask._dense_pair()
+        if tuple(mv.shape) == self.shape:
+            mv, mm = dk.gather2d(mv, mm, I, J)
+        return mv, mm
+
+    @_timed("Matrix.assign_matrix")
+    def assign_matrix(self, value, rindex=None, cindex=None, mask=None,
+                      accum=None, desc=None):
+        """C(I, J)<M> (accum)= A (GrB_Matrix_assign): the whole matrix by
+        default; the mask applies over C, restricted to the region."""
+        mask, accum, desc = self._get_args(mask, accum, desc)
+        iset_r = self._resolve_iset(rindex, self.nrows)
+        iset_c = self._resolve_iset(cindex, self.ncols)
+        if iset_r.size != value.nrows or iset_c.size != value.ncols:
+            raise DimensionMismatch("assign shape mismatch")
+        if self._is_huge or value._is_huge:
+            self._flush()
+            tr, tc, tv = value._coo()
+            if desc.inp0:
+                tr, tc, tv = ck.build(tc, tr, tv, tv.dtype)
+            full = (iset_r.kind == IndexSet.ALL
+                    and iset_c.kind == IndexSet.ALL
+                    and (iset_r.size, iset_c.size) == self.shape)
+            if full:
+                self._coo_writeback(self, tr, tc,
+                                    tv.astype(self.type._numpy_t),
+                                    mask, accum, desc)
                 return
-            nr, nc = self._nrows, self._ncols
-            if nr * nc > self._SCALAR_FILL_BUDGET:
-                raise InsufficientSpace(
-                    "unbounded scalar fill on a huge matrix requires a mask "
-                    "(the fill pattern cannot be enumerated)")
-            I = np.repeat(np.arange(nr, dtype=np.int64), nc)
-            J = np.tile(np.arange(nc, dtype=np.int64), nr)
-            tv = np.full(len(I), val, self.type._numpy_t)
             cr, cc, cv = self._coo()
             mpr, mpc = self._mask_pair_set(mask, desc)
             accum_fn = np_binop(accum) if accum is not None else None
-            r, c, v = cs.assign_region(
-                cr, cc, cv, I, J, tv, cs.ArithSelector(0, 1, nr),
-                cs.ArithSelector(0, 1, nc), mpr, mpc, accum_fn,
-                desc.complement, desc.replace, self.type._numpy_t)
-            self._set_coo(r, c, v)
+            nr, nc, nv = cs.assign_region(
+                cr, cc, cv, tr, tc, tv.astype(self.type._numpy_t),
+                cs.selector(iset_r, self.nrows),
+                cs.selector(iset_c, self.ncols),
+                mpr, mpc, accum_fn, desc.complement, desc.replace,
+                self.type._numpy_t)
+            self._set_coo(nr, nc, nv)
             return
+        I = iset_r.indices(self.nrows)
+        J = iset_c.indices(self.ncols)
+        self._flush()
+        dev = common_device(self, value, mask)
+        xv, xm = value._dense_pair(desc.inp0)
+        xv = types.cast(xv, value.type, self.type)
+        if (len(I), len(J)) == self.shape and \
+                np.array_equal(I, np.arange(self.nrows)) and \
+                np.array_equal(J, np.arange(self.ncols)):
+            self._writeback(self, xv, xm, mask, accum, desc)
+            return
+        self._region_writeback(torch.as_tensor(I, device=dev),
+                               torch.as_tensor(J, device=dev), xv, xm,
+                               mask, accum, desc)
+
+    assign = assign_matrix
+
+    @_timed("Matrix.assign_scalar")
+    def assign_scalar(self, value, row_slice=None, col_slice=None, mask=None,
+                      accum=None, desc=None):
+        """C(I, J)<M> (accum)= s: the whole matrix by default; with a
+        mask only the mask's pattern is written."""
+        mask, accum, desc = self._get_args(mask, accum, desc)
+        iset_r = self._resolve_iset(row_slice, self.nrows)
+        iset_c = self._resolve_iset(col_slice, self.ncols)
+        if self._is_huge:
+            return self._assign_scalar_sparse(value, iset_r, iset_c, mask,
+                                              accum, desc)
+        self._flush()
         dev = common_device(self, mask)
-        shape = (self._nrows, self._ncols)
-        tv = torch.full(shape, self.type.scalar(val),
-                        dtype=self.type.torch_dtype, device=dev)
-        tm = torch.ones(shape, dtype=torch.bool, device=dev)
-        self._writeback(self, tv, tm, mask, accum, desc)
+        s = self.type.scalar(self.type._coerce(value))
+        tdt = self.type.torch_dtype
+        if iset_r.kind == IndexSet.ALL and iset_c.kind == IndexSet.ALL:
+            tv = torch.full(self.shape, s, dtype=tdt, device=dev)
+            tm = torch.ones(self.shape, dtype=torch.bool, device=dev)
+            self._writeback(self, tv, tm, mask, accum, desc)
+            return
+        I = torch.as_tensor(iset_r.indices(self.nrows), device=dev)
+        J = torch.as_tensor(iset_c.indices(self.ncols), device=dev)
+        shape = (len(I), len(J))
+        self._region_writeback(
+            I, J, torch.full(shape, s, dtype=tdt, device=dev),
+            torch.ones(shape, dtype=torch.bool, device=dev), mask, accum,
+            desc)
+
+    def _assign_scalar_sparse(self, value, iset_r, iset_c, mask, accum,
+                              desc):
+        """Scalar assign on a huge matrix: a masked whole-matrix fill
+        takes the mask's pattern (the ``Y[M] = 32`` idiom at any size);
+        a bounded region materializes; an unbounded unmasked fill cannot
+        be enumerated."""
+        self._flush()
+        val = self.type._coerce(value)
+        full = (iset_r.kind == IndexSet.ALL and iset_c.kind == IndexSet.ALL)
+        cells = iset_r.size * iset_c.size
+        if full and mask is not None and not desc.complement:
+            mpr, mpc = self._mask_pair_set(mask, desc)
+            tv = np.full(len(mpr), val, self.type._numpy_t)
+            self._coo_writeback(self, mpr, mpc, tv, mask, accum, desc)
+            return
+        if cells > self._SCALAR_FILL_BUDGET:
+            raise InsufficientSpace(
+                "unbounded scalar fill on a huge matrix requires a mask "
+                "(the fill pattern cannot be enumerated)")
+        I = np.repeat(np.arange(iset_r.size, dtype=np.int64), iset_c.size)
+        J = np.tile(np.arange(iset_c.size, dtype=np.int64), iset_r.size)
+        tv = np.full(len(I), val, self.type._numpy_t)
+        cr, cc, cv = self._coo()
+        mpr, mpc = self._mask_pair_set(mask, desc)
+        accum_fn = np_binop(accum) if accum is not None else None
+        nr, nc, nv = cs.assign_region(
+            cr, cc, cv, I, J, tv,
+            cs.selector(iset_r, self.nrows),
+            cs.selector(iset_c, self.ncols),
+            mpr, mpc, accum_fn, desc.complement, desc.replace,
+            self.type._numpy_t)
+        self._set_coo(nr, nc, nv)
 
     # ------------------------------------------------------------------
     # comparison operators
@@ -2019,6 +2531,14 @@ class Matrix:
 
         return self.cast(typ).plus_pair(
             Vector.iso(1, self.nrows, device=self._dev), out=out)
+
+    def gini(self, typ=types.FP64):
+        """Gini coefficient of the out-degree distribution."""
+        arr = np.sort(self.out_degree(typ).npV)
+        n = arr.shape[0]
+        index = np.arange(1, n + 1)
+        return float((np.sum((2 * index - n - 1) * arr))
+                     / (n * np.sum(arr)))
 
 
 def _random_value_fn(typ):

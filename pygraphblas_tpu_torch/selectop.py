@@ -3,23 +3,30 @@
 The 16 built-in select ops of the JAX package's ``selectop.py`` and the
 :func:`select_op` decorator for user predicates (a plain Python
 function ``(i, j, x, thunk) -> bool`` over tensors), which
-``Matrix.select`` and ``Vector.select`` apply.
+``Matrix.select`` and ``Vector.select`` apply at the container's type
+(:meth:`SelectOp.at_type`): UINT16, UINT32 and UINT64 are held as
+signed bit views, and a predicate reads them as their unsigned values.
 """
 
 __all__ = ["SelectOp", "select_op"]
 
+import operator
 import sys
+
+import torch
 
 
 class SelectOp:
-    """A select predicate keep = f(i, j, x, thunk)."""
+    """A select predicate keep = f(i, j, x, thunk).  ``order`` is set on
+    the built-in value comparisons: (comparison, against the thunk)."""
 
-    __slots__ = ("name", "fn", "needs_thunk")
+    __slots__ = ("name", "fn", "needs_thunk", "order")
 
-    def __init__(self, name, fn, needs_thunk=False):
+    def __init__(self, name, fn, needs_thunk=False, order=None):
         self.name = name
         self.fn = fn
         self.needs_thunk = needs_thunk
+        self.order = order
 
     def __repr__(self):
         return f"<SelectOp {self.name}>"
@@ -29,6 +36,35 @@ class SelectOp:
 
     def apply(self, i, j, x, thunk):
         return self.fn(i, j, x, thunk)
+
+    def at_type(self, T):
+        """This predicate over values of type T, as the JAX package
+        applies it.  At a bit view (UINT16/32/64) a built-in order
+        comparison compares sign-flipped keys (``ops/table.py:_key``), so
+        that signed order is the unsigned one; a user predicate is handed
+        UINT16 and UINT32 values (and the thunk) widened to int32 and
+        int64, the unsigned values the JAX package hands it (torch has no
+        uint64 comparisons: at UINT64 it keeps the view).  Any other
+        type, and the positional and equality built-ins, are unchanged."""
+        if not getattr(T, "_view", False):
+            return self
+        if self.order is not None:
+            cmp, on_thunk = self.order
+            flip = -(1 << (T._bits - 1))
+
+            def fn(i, j, x, t):
+                ref = t.to(x.dtype) if on_thunk else torch.zeros_like(x)
+                return cmp(x ^ flip, ref ^ flip)
+        elif self is getattr(sys.modules[__name__], self.name, None) \
+                or T._bits == 64:
+            return self        # positional, ==, != (right on the view)
+        else:
+            wide = torch.int32 if T._bits == 16 else torch.int64
+            low = (1 << T._bits) - 1
+
+            def fn(i, j, x, t):
+                return self.fn(i, j, x.to(wide) & low, t.to(wide) & low)
+        return SelectOp(self.name, fn, self.needs_thunk)
 
 
 _BUILTINS = {
@@ -53,11 +89,18 @@ _BUILTINS = {
 # default thunk when none is supplied (positional ops default to 0)
 DEFAULT_THUNKS = {n: d for n, (_, _, d) in _BUILTINS.items()}
 
+# the built-in order comparisons: (comparison, against the thunk)
+_ORDER = {"GT_ZERO": (operator.gt, False), "GE_ZERO": (operator.ge, False),
+          "LT_ZERO": (operator.lt, False), "LE_ZERO": (operator.le, False),
+          "GT_THUNK": (operator.gt, True), "GE_THUNK": (operator.ge, True),
+          "LT_THUNK": (operator.lt, True), "LE_THUNK": (operator.le, True)}
+
 
 def build_selectops(__pdoc__=None):
     this = sys.modules[__name__]
     for name, (fn, needs_thunk, _default) in _BUILTINS.items():
-        setattr(this, name, SelectOp(name, fn, needs_thunk))
+        setattr(this, name, SelectOp(name, fn, needs_thunk,
+                                     _ORDER.get(name)))
         if name not in __all__:
             __all__.append(name)
         if __pdoc__ is not None:

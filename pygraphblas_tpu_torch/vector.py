@@ -1099,6 +1099,7 @@ class Vector:
             thunk = thunk[0]
         if thunk is None:
             thunk = DEFAULT_THUNKS.get(op.name) or 0
+        op = op.at_type(self.type)
         mask, accum, desc = self._get_args(mask, accum, desc)
         th = self.type.scalar(self.type._coerce(thunk))
         if not self._fits_bitmap(self.size, self.type):

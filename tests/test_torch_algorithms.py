@@ -267,3 +267,60 @@ def test_default_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         spgemm.masked_spgemm(r, c, v, c, r, v, r, c, types.FP32.PLUS_TIMES,
                              np.float32)
+
+
+def _two_blocks():
+    """tests/test_algorithms.py's graph: two blocks of 30 (p 0.5 inside,
+    0.02 across), weights 1."""
+    import networkx as nx
+
+    G = nx.random_partition_graph([30, 30], 0.5, 0.02, seed=1)
+    e = np.asarray(list(G.edges()), np.int64)
+    r = np.concatenate([e[:, 0], e[:, 1]])
+    c = np.concatenate([e[:, 1], e[:, 0]])
+    return r, c, np.ones(len(r)), 60
+
+
+def _planted():
+    """A planted partition: 400 vertices in 8 groups (p 0.1 inside, 0.005
+    across), symmetric integer weights 1..3 (every sum exact in FP32)."""
+    rng = np.random.RandomState(3)
+    n = 400
+    group = rng.randint(0, 8, n)
+    p = np.where(group[:, None] == group[None, :], 0.1, 0.005)
+    W = np.triu((rng.rand(n, n) < p) * rng.randint(1, 4, (n, n)), 1)
+    W = W + W.T
+    r, c = np.nonzero(W)
+    return r.astype(np.int64), c.astype(np.int64), \
+        W[r, c].astype(np.float64), n
+
+
+LOUVAIN_GRAPHS = {"two_blocks": _two_blocks, "planted400": _planted}
+_JAX_LABELS = {}
+
+
+@pytest.mark.parametrize("graph", sorted(LOUVAIN_GRAPHS))
+def test_louvain_matches_jax(tier, graph):
+    """louvain_cluster's labels equal the JAX package's.  The JAX labels
+    are computed once a graph, on the first tier that asks (they are the
+    same on both tiers: the chunk products are exact integer sums)."""
+    import pygraphblas_tpu as J
+
+    r, c, v, n = LOUVAIN_GRAPHS[graph]()
+    if graph not in _JAX_LABELS:
+        jA = J.Matrix.sparse(jtypes.FP64, n, n)
+        jA._build(r, c, v)
+        _JAX_LABELS[graph] = jalg.louvain_cluster(jA).to_lists()
+    A = algorithms.Matrix.sparse(types.FP64, n, n, device="cpu")
+    A._build(r, c, v)
+    algorithms.seconds.clear()
+    got = algorithms.louvain_cluster(A, device="cpu")
+    assert got.to_lists() == _JAX_LABELS[graph]
+    assert set(algorithms.seconds) == {"louvain extract", "louvain mxm",
+                                       "louvain moves", "louvain contract"}
+    labels = np.asarray(got.to_lists()[1])
+    if graph == "two_blocks":
+        a, b = np.bincount(labels[:30]).argmax(), \
+            np.bincount(labels[30:]).argmax()
+        assert a != b and (labels[:30] == a).sum() >= 27 \
+            and (labels[30:] == b).sum() >= 27

@@ -969,3 +969,72 @@ def test_container_mxm_esc_on_card(card, coo_tier):
     r, c, v = C._coo()
     assert np.array_equal(r, P.row[order]) and np.array_equal(c, P.col[order])
     assert np.array_equal(v, P.data[order].astype(np.float32))
+
+
+UINT_CARD = {"UINT16": 40000, "UINT32": 3000000000, "UINT64": 2**63 + 2048}
+
+
+@pytest.mark.parametrize("tname", sorted(UINT_CARD))
+@pytest.mark.parametrize("cells", [1 << 26, 1])
+def test_unsigned_selects_on_card(card, tname, cells):
+    """UINT16/32/64 value selects and comparisons on the card, bitmap and
+    COO tiers: values past the sign bit of the signed view read as
+    unsigned (the expected lists are the JAX package's answers)."""
+    t, big = getattr(types, tname), UINT_CARD[tname]
+    options_set(bitmap_max_cells=cells, vector_max_cells=cells)
+    try:
+        from pygraphblas_tpu_torch import Matrix, Vector
+
+        A = Matrix.from_lists([0, 1, 2], [0, 1, 2], [big, 1, 0], typ=t,
+                              device="cuda")
+        v = Vector.from_lists([0, 1, 2], [big, 1, 0], typ=t, device="cuda")
+        assert A.select(">0").to_lists() == [[0, 1], [0, 1], [big, 1]]
+        assert A.select(">=", 2).to_lists() == [[0], [0], [big]]
+        assert (A > 0).to_lists() == [[0, 1], [0, 1], [True, True]]
+        assert A.select("<", big).to_lists() == [[1, 2], [1, 2], [1, 0]]
+        assert v.select(">0").to_lists() == [[0, 1], [big, 1]]
+        assert (v > 0).to_lists() == [[0, 1], [True, True]]
+        assert v.select("<=", 1).to_lists() == [[1, 2], [1, 0]]
+    finally:
+        options_set(bitmap_max_cells=1 << 26, vector_max_cells=1 << 27)
+
+
+def test_extract_assign_kronecker_on_card(card, coo_tier):
+    """Extract and assign over ranges and Kronecker products on the card,
+    on the COO tier and the bitmap tier, equal to the CPU runs."""
+    rows, cols, n = _kron12(True)
+    w = np.random.RandomState(2).randint(1, 9, len(rows)).astype(np.int32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        A = generators.to_matrix(rows, cols, n, types.INT32, vals=w,
+                                 device=dev)
+        S = A.extract_matrix(slice(0, 63), slice(0, 63))
+        C = A.dup()
+        C.assign_matrix(S, slice(100, 163), slice(200, 263),
+                        accum=types.INT32.PLUS)
+        C.assign_scalar(7, slice(5, 9), None, mask=A)
+        outs.append([A.extract_matrix([9, 3, 3, 4000]).to_lists(),
+                     A.extract_row(17).to_lists(),
+                     A.extract_col(5, slice(0, 99)).to_lists(),
+                     C.to_lists(), S.kronecker(S[0:7, 0:7]).to_lists(),
+                     A[0:15, 0:15].kronecker(A[0:3, 0:3]).to_lists()])
+    assert outs[0] == outs[1]
+
+
+def test_louvain_on_card(card, coo_tier):
+    """louvain_cluster at kron-12 symmetrised on the card (the products
+    through ESC): labels equal to the CPU run; every ESC call launches 4
+    segfold and 1 esc_gather."""
+    rows, cols, n = _kron12(True)
+    want = algorithms.louvain_cluster(generators.to_matrix(
+        rows, cols, n, types.FP32, device="cpu"), max_levels=2).to_lists()
+    A = generators.to_matrix(rows, cols, n, types.FP32)
+    options_set(spgemm_engine="esc")   # kron-12's products fit the dense
+    esc.reset_stats()                  # tier's cells
+    _kernels.reset_launches()
+    got = algorithms.louvain_cluster(A, max_levels=2)
+    torch.cuda.synchronize()
+    calls = esc.stats["calls"]
+    assert got.to_lists() == want
+    assert calls > 0 and _kernels.launches["segfold"] == 4 * calls
+    assert _kernels.launches["esc_gather"] == calls

@@ -190,7 +190,97 @@ CASES = {
         w, A), True),
     "unaryop_call": (lambda ns, A, B, M, u, w: A.type.AINV(A), False),
     "attr_semiring": (lambda ns, A, B, M, u, w: A.min_plus(B), True),
+    # extract over index sets (slices stop-inclusive)
+    "extract_range": (lambda ns, A, B, M, u, w: A.extract_matrix(
+        slice(1, 4), slice(2, 5)), False),
+    "extract_list": (lambda ns, A, B, M, u, w: A.extract_matrix(
+        [5, 0, 3, 3], [6, 1, 2]), False),
+    "extract_backwards": (lambda ns, A, B, M, u, w: A.extract_matrix(
+        slice(5, 1, -2), None), False),
+    "extract_t0_mask": (lambda ns, A, B, M, u, w: A.extract_matrix(
+        None, None, mask=M, desc=ns.d.T0), False),
+    "extract_row": (lambda ns, A, B, M, u, w: A.extract_row(2), False),
+    "extract_row_slice": (lambda ns, A, B, M, u, w: A.extract_row(
+        3, slice(1, 4)), False),
+    "extract_col": (lambda ns, A, B, M, u, w: A.extract_col(4), False),
+    "extract_col_slice": (lambda ns, A, B, M, u, w: A.extract_col(
+        1, slice(2, 6)), False),
+    "getitem_col_slice": (lambda ns, A, B, M, u, w: A[1:3, 2], False),
+    "getitem_row_all": (lambda ns, A, B, M, u, w: A[0, :], False),
+    "getitem_row": (lambda ns, A, B, M, u, w: A[3], False),
+    "getitem_slices": (lambda ns, A, B, M, u, w: A[2:5, 0:1], False),
+    "getitem_mask": (lambda ns, A, B, M, u, w: A[M], False),
+    # assign over index sets, into a copy of A
+    "assign_row": (lambda ns, A, B, M, u, w: _do(A, lambda C: C.assign_row(
+        2, w)), False),
+    "assign_row_slice_accum": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_row(1, w[0:2], slice(3, 5),
+                                  accum=A.type.PLUS)), False),
+    "assign_row_mask": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_row(4, w, mask=M, desc=ns.d.RC)), False),
+    "assign_col": (lambda ns, A, B, M, u, w: _do(A, lambda C: C.assign_col(
+        3, u)), False),
+    "assign_col_vmask_accum": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_col(0, w, mask=u, accum=A.type.MINUS)), False),
+    "assign_col_slice": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_col(6, w[2:4], slice(0, 2))), False),
+    "assign_matrix_range": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_matrix(B[0:2, 0:2], slice(1, 3),
+                                     slice(2, 4))), False),
+    "assign_matrix_mask_accum": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_matrix(B[4:6, 1:3], slice(1, 3), [6, 0, 2],
+                                     mask=M, accum=A.type.PLUS)), False),
+    "assign_alias_replace": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign(B, mask=M, desc=ns.d.R)), False),
+    "assign_scalar_range": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_scalar(5, slice(1, 3), slice(0, 4))), False),
+    "assign_scalar_mask_accum": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_scalar(2, slice(0, 5), None, mask=M,
+                                     accum=A.type.TIMES)), False),
+    "assign_scalar_row": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.assign_scalar(-3, 6)), False),
+    "setitem_slices": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.__setitem__((slice(1, 2), slice(0, 3)),
+                                   B[0:1, 0:3])), False),
+    "setitem_row": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.__setitem__(2, w)), False),
+    "setitem_col_slice": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.__setitem__((slice(1, 3), 4), w[0:2])), False),
+    "setitem_scalar_slices": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.__setitem__((slice(0, 1), slice(2, 3)), 9)), False),
+    "setitem_mask": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.__setitem__(M, 4)), False),
+    # Kronecker products and powers
+    "kronecker": (lambda ns, A, B, M, u, w: A.kronecker(B), False),
+    "kronecker_minus": (lambda ns, A, B, M, u, w: A.kronecker(
+        B, A.type.MINUS), False),
+    "kronecker_t0": (lambda ns, A, B, M, u, w: A.kronecker(
+        B, desc=ns.d.T0), False),
+    "kronecker_t1": (lambda ns, A, B, M, u, w: A.kronecker(
+        B, desc=ns.d.T1), False),
+    "kronpow0": (lambda ns, A, B, M, u, w: A.kronpow(0), False),
+    "kronpow1": (lambda ns, A, B, M, u, w: A.kronpow(1), False),
+    "kronpow2": (lambda ns, A, B, M, u, w: A.kronpow(2), False),
+    # diagonals, resize, gini
+    "from_diag_m1": (lambda ns, A, B, M, u, w: ns.M.from_diag(u, -1), False),
+    "from_diag_0": (lambda ns, A, B, M, u, w: ns.M.from_diag(w), False),
+    "from_diag_2": (lambda ns, A, B, M, u, w: ns.M.from_diag(u, 2), False),
+    "vector_diag_m1": (lambda ns, A, B, M, u, w: A.vector_diag(-1), False),
+    "vector_diag_0": (lambda ns, A, B, M, u, w: A.vector_diag(), False),
+    "vector_diag_2": (lambda ns, A, B, M, u, w: A.vector_diag(2), False),
+    "resize_grow": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.resize(9, 10)), False),
+    "resize_shrink": (lambda ns, A, B, M, u, w: _do(
+        A, lambda C: C.resize(4, 5)), False),
+    "gini": (lambda ns, A, B, M, u, w: (A.gini(),), False),
 }
+
+
+def _do(A, change):
+    """A copy of A after `change` (an in-place operation) ran on it."""
+    C = A.dup()
+    change(C)
+    return C
 
 
 def _arrays(x):
@@ -285,13 +375,78 @@ def test_build_out_of_bounds_raises_dimension_mismatch():
         A._build(np.asarray([-1]), np.asarray([0]), np.ones(1, np.int64))
 
 
-def test_slice_indexing_names_item_8b():
-    A = T.Matrix.from_lists([0, 1], [1, 0], [1, 2], device="cpu")
-    for index in ((0, slice(None)), (slice(1, 3), 2), 0):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            A[index]
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            A[index] = 3
+def test_matrix_lacks_only_io_and_shard():
+    """The port's Matrix has every name of the JAX package's but the I/O
+    constructors (ROADMAP item 11) and shard (item 12)."""
+    assert set(dir(J.Matrix)) - set(dir(T.Matrix)) == {
+        "from_mm", "from_tsv", "from_csv", "binread", "from_binfile",
+        "binwrite", "to_binfile", "to_mm", "ssget", "shard"}
+
+
+PRINT_VALUES = {"INT64": [-7, 42, 0, 123456], "FP32": [1.5, -0.25, 3.0, 1e6],
+                "BOOL": [True, False, True, True],
+                "UINT32": [3000000000, 1, 0, 4294967295]}
+
+
+@pytest.mark.parametrize("tname", sorted(PRINT_VALUES))
+def test_printers_match_jax(tier, tname):
+    """to_string, str, the markdown and HTML tables, equal as strings;
+    a bit view prints its unsigned value."""
+    r, c = [0, 1, 2, 2], [1, 2, 0, 3]
+    outs = []
+    for ns in (JNS, TNS):
+        A = ns.mat(tname, r, c, PRINT_VALUES[tname], nrows=3, ncols=4)
+        outs.append((A.to_string(), str(A), A.to_markdown_table(),
+                     A.to_html_table(), A.to_string(width=12, empty_char="."),
+                     A.to_markdown_table(title="W")))
+    assert outs[0] == outs[1]
+    if tname == "UINT32":
+        assert "3000000000" in outs[1][0] and "-1294967296" not in outs[1][0]
+
+
+UINT_BIG = {"UINT16": 40000, "UINT32": 3000000000, "UINT64": 2**63 + 2048}
+
+
+def _uint_selects(ns, tname, kw, vector=True):
+    """Value selects and scalar comparisons with values past the sign bit
+    of the signed bit view (each a to_lists())."""
+    t = getattr(ns.t, tname)
+    big = UINT_BIG[tname]
+    A = ns.M.from_lists([0, 1, 2, 2], [0, 1, 2, 0], [big, 1, 0, 7], typ=t,
+                        **kw)
+    out = [A.select(">0"), A.select(">=", 2), A.select("<", big),
+           A.select("<=", 1), A.select("<0"), A.select(">=0"), A > 0, A < 5]
+    if tname != "UINT64":     # torch has no uint64 comparisons
+        out.append(A.select(lambda i, j, x, th: x > th, 8))
+    if vector:
+        v = ns.V.from_lists([0, 1, 2, 4], [big, 1, 0, 7], typ=t, **kw)
+        out += [v.select(">0"), v.select("<=", 1), v > 0, v < 5]
+    return [x.to_lists() for x in out]
+
+
+@pytest.mark.parametrize("tname", sorted(UINT_BIG))
+def test_unsigned_selects_match_jax(tier, tname):
+    """UINT16/32/64 are held as signed bit views: their value selects and
+    comparisons read them as unsigned, as the JAX package does."""
+    want = _uint_selects(JNS, tname, {})
+    assert _uint_selects(TNS, tname, dict(device="cpu")) == want
+
+
+@pytest.mark.parametrize("tname", sorted(UINT_BIG))
+def test_unsigned_selects_device_engine_match_jax(tname):
+    """The same on the COO tier through the device sort engine
+    (core/dewise.select; ewise_engine="device" in both packages)."""
+    _set_tier("coo")
+    for pkg in (J, T):
+        pkg.options_set(ewise_engine="device")
+    try:
+        want = _uint_selects(JNS, tname, {}, vector=False)
+        assert _uint_selects(TNS, tname, dict(device="cpu"),
+                             vector=False) == want
+    finally:
+        for pkg in (J, T):
+            pkg.options_set(ewise_engine="auto")
+        _set_tier("bitmap")
 
 
 def test_devices_are_named_or_shared():

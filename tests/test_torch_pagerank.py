@@ -159,3 +159,92 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# the modules slice 11 adds to or changes, and the calls that reach their
+# new code
+SLICE_MODULES = ["__init__.py", "algorithms.py", "base.py", "matrix.py",
+                 "selectop.py", "vector.py", "core/coosem.py",
+                 "core/dense.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_never_imports_jax(module):
+    """No import of jax or the JAX package anywhere in the module, at its
+    top or inside a function."""
+    path = os.path.join(ROOT, "pygraphblas_tpu_torch", module)
+    for mod in _imports(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib",
+                                         "pygraphblas_tpu"), (path, mod)
+
+
+def test_slice_calls_never_import_jax(tmp_path):
+    """Louvain, extract/assign over ranges, Kronecker, the diagonals,
+    the printers, the unsigned selects and the profiler, run in a fresh
+    interpreter on the CPU, load neither jax nor the JAX package."""
+    code = f"""
+import sys
+import numpy as np
+import pygraphblas_tpu_torch as T
+from pygraphblas_tpu_torch import algorithms, base
+A = T.Matrix.from_lists([0, 1, 2, 2], [1, 2, 0, 1], [1.0, 2.0, 3.0, 4.0],
+                        device="cpu")
+base.profile_start({str(tmp_path)!r})
+A[0:1, :]; A[1:2, 0:1] = A[0:1, 1:2]; A.kronecker(A).kronpow(1)
+A.assign_col(2, A[:, 0]); A.vector_diag(1); A.resize(4, 4); A.gini()
+T.Matrix.from_diag(A.vector_diag()); str(A); A.to_html_table()
+U = T.Matrix.from_lists([0], [0], [3000000000], typ=T.UINT32, device="cpu")
+assert (U > 0).nvals == 1
+base.profile_stop()
+algorithms.louvain_cluster(A.eadd(A.T), device="cpu")
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygraphblas_tpu')]
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_version_and_init_match_jax():
+    import pygraphblas_tpu as J
+    import pygraphblas_tpu_torch as T
+
+    assert T.get_version() == J.get_version() == T.__version__
+    assert T.init() is None and T.init(blocking=True) is None
+    for name in ("IMPLEMENTATION_MAJOR", "IMPLEMENTATION_MINOR",
+                 "IMPLEMENTATION_SUB", "IMPLEMENTATION_VERSION"):
+        assert getattr(T, name) == getattr(J, name)
+
+
+def test_profile_writes_a_trace(tmp_path):
+    """profile_start / profile_stop (torch.profiler) write a trace of the
+    work between them into the directory."""
+    from pygraphblas_tpu_torch import base
+
+    base.profile_start(str(tmp_path))
+    A = generators.to_matrix(*generators.rmat_edges(5, 4), device="cpu")
+    A.mxm(A)
+    base.profile_stop()
+    traces = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    assert len(traces) == 1
+    assert os.path.getsize(os.path.join(tmp_path, traces[0])) > 0
+
+
+def test_host_allocator_tuned_at_import():
+    """The allocator tuning runs at import unless PYGB_MALLOC_TUNE=0 (a
+    fresh interpreter each, torch loaded first, then mallopt observed
+    through a stand-in libc)."""
+    code = ("import ctypes, sys, torch\n"
+            "calls = []\n"
+            "class L:\n"
+            "    def mallopt(self, *a): calls.append(a)\n"
+            "ctypes.CDLL = lambda *a, **k: L()\n"
+            "import pygraphblas_tpu_torch\n"
+            "print(calls)\n")
+    for env, want in (("1", "[(-4, 0), (-1, 2147483647)]"), ("0", "[]")):
+        res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True,
+                             env={**os.environ, "PYGB_MALLOC_TUNE": env})
+        assert res.returncode == 0, res.stderr
+        assert res.stdout.strip().splitlines()[-1] == want
