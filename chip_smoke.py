@@ -105,6 +105,33 @@ Phases, in order; any failure exits non-zero:
               matrices at density 1/2) and on the COO tier (kron-10
               symmetrised with a 16 x 16 INT32 matrix at density 1/2),
               each equal to scipy.sparse.kron (no kernel);
+       then slice 12 (the direction-optimised BFS, the sparse DNN and
+       the I/O):
+       gio    after gx20, binwrite / binread of pr20's kron-20 matrix,
+              and after gbfs18, to_mm / from_mm (the native parser) of
+              bfs18's, in temporary directories; each iseq the original;
+       gbfs18 after gsp18, algorithms.bfs_level and bfs_parents on
+              bfs18's matrix from 0 and from 213,770: the frontier loop
+              (from 213,770 it overflows twice and the dense
+              fused.bfs_level runs bfs18's plan, its xspmv kernels held
+              against their plain versions first); levels equal to
+              scipy's, parents equal to the device="cpu" run's, each
+              parent edge present and one level up;
+       groad  fused.bfs_frontier and algorithms.bfs_level on a 4096 x
+              4096 4-neighbour lattice from its centre (the stand-in
+              for GAP's road graph): 4097 levels equal to the closed
+              form, no retry (no kernel: torch ops);
+       gdnn1024 the GraphChallenge DNN at 1024 neurons, 120 layers,
+              60,000 images (RadiX-Net, seed 7): fused.dnn and
+              algorithms.dnn (bitmap tier) equal entry for entry to a
+              float64 oracle on the card, categories equal (no kernel:
+              torch.matmul without TF32);
+       gdnn_coo the same net at 1024 images (DNN_COO_IMAGES) on the COO
+              tier: algorithms.dnn (the compact-dense tier) and
+              hyperdnn (its products through ESC: 4 segfold and 1
+              esc_gather a call, every call's launches held against
+              their plain versions), each layer's route counted;
+              categories equal to the scipy oracle's;
      before each path, every kernel it runs is held against its plain
      PyTorch version on the card at the path's own shapes (bit-exact,
      but pair_fold's float32 PLUS within rtol 1e-5: another fold order),
@@ -143,8 +170,8 @@ Phases, in order; any failure exits non-zero:
      into every gather and permutation wrapper, each giving its plain
      version's answer on the card with no launch; UINT16/32/64 value
      selects and comparisons (values past the sign bit of the signed
-     bit view) on both tiers, Matrix and Vector, equal to the JAX
-     package's answers;
+     bit view), user predicates among them, on both tiers, Matrix and
+     Vector, equal to the JAX package's answers;
   5. one JSON line of kernel results, the card line, and the final
      {"ok": true, "device": ...} line.
 
@@ -293,6 +320,19 @@ EXPECTED = {
     # COO plumbing and torch ops, no kernel of the port
     "gx20": {},
     "gkr": {},
+    # slice 12: algorithms.bfs_level on bfs18's matrix (the frontier
+    # loop: torch ops; its dense fallback: bfs18's xspmv plan) and
+    # bfs_parents (host)
+    "gbfs18": {"mono_span": 2, "mono_cascade": 1, "lane_gather_tdesc": 2,
+               "mid_pass": 1, "lane_gather_tasc": 2},
+    # the frontier loop on the lattice, the dense DNN (torch.matmul),
+    # dnn's products on the COO tier (the compact-dense tier) and the
+    # I/O: no kernel of the port
+    "groad": {},
+    "gdnn1024": {},
+    "gdnn_coo dnn": {},
+    "gio binfile": {},
+    "gio mm": {},
 }
 # masked-SpGEMM paths: the kernel each masked_spgemm call of the path
 # launches, once per width bucket of its light edges ("bucket"), or once
@@ -318,7 +358,8 @@ EXPECTED_ESC = {"esc14": {"segfold": 4, "esc_gather": 1},
                 "esc13": {"segfold": 4, "esc_gather": 1},
                 "sr14": {"segfold": 4, "esc_gather": 1},
                 "gesc14": {"segfold": 4, "esc_gather": 1},
-                "glv16": {"segfold": 4, "esc_gather": 1}}
+                "glv16": {"segfold": 4, "esc_gather": 1},
+                "gdnn_coo hyperdnn": {"segfold": 4, "esc_gather": 1}}
 
 # kernel symbol prefix in a profile -> kernel name
 _SYMBOLS = {"mono_span_kernel": "mono_span",
@@ -1322,12 +1363,19 @@ def check_repairs(torch):
 UNSIGNED_BIG = {"UINT16": 40000, "UINT32": 3000000000,
                 "UINT64": 2**63 + 2048}
 
+# gdnn_coo's images: the largest power of two for which each layer's
+# product stays under ESC's caps (F_pad <= 2^27, core/esc.py) is 4096,
+# but at 4096 the path took 438 s of host-bound work on the card (ESC's
+# host relabel and plan 1.26 s a call: PERF.md), so it runs at 1024
+DNN_COO_IMAGES = 1024
+
 
 def check_unsigned_selects():
     """Queue C fault 1, repaired: UINT16/32/64 value selects and scalar
     comparisons on the card, Matrix and Vector, bitmap and COO tiers
     (bitmap_max_cells = vector_max_cells = 1), read the values as
-    unsigned: each equal to the JAX package's answer, written out.
+    unsigned: each equal to the JAX package's answer, written out; a
+    user predicate (x > t, x >= t) too, at UINT64 through Unsigned64.
     Returns the checks (name, ok)."""
     from pygraphblas_tpu_torch import Matrix, Vector, options_set, types
 
@@ -1352,7 +1400,13 @@ def check_unsigned_selects():
                          [[0, 1], [big, 1]]),
                         ("v.select('>=', 2)", v.select(">=", 2),
                          [[0], [big]]),
-                        ("v > 0", v > 0, [[0, 1], [True, True]])):
+                        ("v > 0", v > 0, [[0, 1], [True, True]]),
+                        ("A.select(x > t, 8)",
+                         A.select(lambda i, j, x, th: x > th, 8),
+                         [[0], [0], [big]]),
+                        ("v.select(x >= t, big)",
+                         v.select(lambda i, j, x, th: x >= th, big),
+                         [[0], [big]])):
                     ok = got.to_lists() == want
                     case = f"{tname} {tier} {name}"
                     rows.append(dict(check=f"unsigned {case}", ok=ok))
@@ -2802,36 +2856,6 @@ def gkr_path(torch, drv, card):
     return res
 
 
-def record_esc_calls(run):
-    """run() with the inputs of every ESC call's kernels recorded (its
-    product count F, the four segfold inputs, the esc_gather inputs),
-    to be checked after the run, so that the path's counts hold only
-    its own launches.  Returns (run's result, the calls)."""
-    from pygraphblas_tpu_torch.core import esc as E
-
-    calls = []
-    orig_s, orig_g, orig_d = E.segfold, E.esc_gather, E._esc_device
-
-    def dev(*a, **kw):
-        calls.append(dict(F=a[6], scans=[], gathers=[]))
-        return orig_d(*a, **kw)
-
-    def seg(v, f, add):
-        calls[-1]["scans"].append((v, f, add))
-        return orig_s(v, f, add)
-
-    def gat(*a):
-        calls[-1]["gathers"].append(a)
-        return orig_g(*a)
-
-    E.segfold, E.esc_gather, E._esc_device = seg, gat, dev
-    try:
-        out = run()
-    finally:
-        E.segfold, E.esc_gather, E._esc_device = orig_s, orig_g, orig_d
-    return out, calls
-
-
 def modularity(rows, cols, n, labels):
     """Newman's modularity of `labels` on the unit-weight graph (rows,
     cols), through scipy: sum over communities of (inner weight / 2m) -
@@ -3013,6 +3037,547 @@ def glv16_path(torch, ck, drv, card, rows, cols, n, max_levels=10):
                 dead_slot_max_abs_err=dead_err)
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the direction-optimised BFS, the sparse DNN and the I/O
+# ---------------------------------------------------------------------------
+
+def gbfs18_path(torch, ck, drv, card, A, rows, cols, n, sources=(0, 213770)):
+    """algorithms.bfs_level and bfs_parents on bfs18's matrix (kron-18
+    ef16, directed, BOOL) from each source.  bfs_level takes the device
+    frontier loop (fused.bfs_frontier): from a vertex with a small reach
+    it ends in its budgets; on kron's giant frontiers it overflows them
+    twice and falls back to the dense fused.bfs_level (bfs18's xspmv
+    plan: the xspmv kernels, held against their plain versions here at
+    the plan's shapes).  Levels equal to scipy's unweighted shortest
+    paths + 1 on the reached set; parents equal to the same call on a
+    device="cpu" copy, every parent edge in the graph, every parent one
+    level above its child."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from pygraphblas_tpu_torch import algorithms, fused, types
+    from pygraphblas_tpu_torch.generators import to_matrix
+
+    plan = A._xspmv_plan(True, np.float32, device="cuda")
+    f0 = torch.zeros(n, device="cuda")
+    f0[:: 97] = 1.0
+    check_xspmv_kernels(torch, ck, plan, f0, types.FP32.MAX_SECOND,
+                        "gbfs18")
+    routes, secs = {}, {}
+
+    def run():
+        out = {}
+        for s in sources:
+            t = time.perf_counter()
+            fused.last_frontier.clear()
+            c0 = drv.calls
+            lv = algorithms.bfs_level(A, s)
+            torch.cuda.synchronize()
+            secs[f"bfs_level {s}"] = time.perf_counter() - t
+            routes[s] = dict(fused.last_frontier, xspmv_calls=drv.calls - c0)
+            t = time.perf_counter()
+            pa = algorithms.bfs_parents(A, s)
+            secs[f"bfs_parents {s}"] = time.perf_counter() - t
+            out[s] = (lv, pa)
+        return out
+
+    got = drv.drive("gbfs18", run, EXPECTED["gbfs18"])
+    G = sp.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)), (n, n))
+    dist = csgraph.shortest_path(G, directed=True, unweighted=True,
+                                 indices=list(sources))
+    Ac = to_matrix(rows, cols, n, types.BOOL, device="cpu")
+    keys = np.asarray(rows, np.int64) * n + np.asarray(cols, np.int64)
+    res = {}
+    for k, s in enumerate(sources):
+        lv, pa = got[s]
+        li, lvals = lv.to_lists()
+        want = np.where(np.isfinite(dist[k]), dist[k] + 1, 0).astype(np.int64)
+        dense = np.zeros(n, np.int64)
+        dense[li] = lvals
+        if not np.array_equal(dense, want):
+            raise AssertionError(f"gbfs18: levels from {s} differ from "
+                                 f"scipy's in {int((dense != want).sum())} "
+                                 "places")
+        pi, pv = pa.to_lists()
+        if pa.to_lists() != algorithms.bfs_parents(Ac, s).to_lists():
+            raise AssertionError(f"gbfs18: parents from {s} differ from the "
+                                 "device='cpu' run")
+        ci = np.asarray(pi, np.int64)
+        pv = np.asarray(pv, np.int64)
+        off = ci != s
+        edge_ok = bool(np.all(np.isin(pv[off] * n + ci[off], keys)))
+        level_ok = bool(np.array_equal(dense[pv[off]], dense[ci[off]] - 1))
+        if not (edge_ok and level_ok and np.array_equal(
+                np.sort(ci), np.flatnonzero(want))):
+            raise AssertionError(f"gbfs18: parents from {s}: edges "
+                                 f"{edge_ok}, levels {level_ok}")
+        res[s] = dict(route=routes[s], reached=len(li),
+                      depth=int(want.max()),
+                      bfs_level_s=secs[f"bfs_level {s}"],
+                      bfs_parents_s=secs[f"bfs_parents {s}"])
+        log(f"gbfs18: from {s}: route {routes[s]['route']} (frontier loop "
+            f"p_bits {routes[s]['p_bits']}, {routes[s]['levels_run']} "
+            f"levels run in it; {routes[s]['xspmv_calls']} xspmv calls of "
+            f"the dense fallback), {len(li)} reached, depth "
+            f"{int(want.max())}; bfs_level {secs[f'bfs_level {s}']:.4f} s, "
+            f"bfs_parents {secs[f'bfs_parents {s}']:.4f} s; levels equal "
+            f"scipy's, parents equal the CPU run's, every parent edge "
+            f"present and one level up; card {card}")
+    c = drv.counts["gbfs18"]
+    res["launches"] = {k: v for k, v in c["counts"].items() if v}
+    res["xspmv_calls"] = c["xspmv_calls"]
+    return res
+
+
+def lattice(side):
+    """A side x side 4-neighbour lattice in canonical (row, col) order:
+    each vertex's neighbours up, left, right, down."""
+    n = side * side
+    v = np.arange(n, dtype=np.int64)
+    i, j = v // side, v % side
+    nbr = np.stack([np.where(i > 0, v - side, -1),
+                    np.where(j > 0, v - 1, -1),
+                    np.where(j < side - 1, v + 1, -1),
+                    np.where(i < side - 1, v + side, -1)], 1)
+    keep = nbr >= 0
+    return np.repeat(v, keep.sum(1)), nbr[keep], n
+
+
+def groad_path(torch, drv, card, side=4096):
+    """fused.bfs_frontier and algorithms.bfs_level (which takes it) on a
+    side x side 4-neighbour lattice from its centre: the high-diameter
+    input the frontier loop exists for, standing in for GAP's road
+    graph.  Levels equal to the closed form |i - c| + |j - c| + 1; every
+    level's frontier fits the id buffer and its edges a tier (no
+    retry); no kernel of the port runs."""
+    from pygraphblas_tpu_torch import Matrix, algorithms, fused, types
+
+    t = time.perf_counter()
+    rows, cols, n = lattice(side)
+    A = Matrix.sparse(types.BOOL, n, n, device="cuda")
+    A._build(rows, cols, np.ones(len(rows), np.bool_))
+    del rows, cols
+    build_s = time.perf_counter() - t
+    ctr = side // 2
+    start = ctr * side + ctr
+    t = time.perf_counter()
+    fused._frontier_csr(A, "cuda")   # the copy bfs_frontier reads
+    csr_s = time.perf_counter() - t
+    secs, routes = {}, {}
+
+    def run():
+        out = []
+        for name, call in (("bfs_frontier",
+                            lambda: fused.bfs_frontier(A, start)),
+                           ("bfs_level",
+                            lambda: algorithms.bfs_level(A, start))):
+            t = time.perf_counter()
+            out.append(call())
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            routes[name] = dict(fused.last_frontier)
+        return out
+
+    got = drv.drive("groad", run, EXPECTED["groad"])
+    copies = [k for k in A._cache() if isinstance(k, tuple)
+              and k[0] == "frontier_csr"]
+    if len(copies) != 1:
+        raise AssertionError(f"groad: the timed calls built their own "
+                             f"frontier CSR: {copies}")
+    v = torch.arange(n, device="cuda")
+    want = ((v // side - ctr).abs() + (v % side - ctr).abs() + 1)
+    for name, lv in zip(secs, got):
+        vals, mask = lv._dense_pair()
+        if not (torch.equal(vals, want) and bool(mask.all())):
+            raise AssertionError(f"groad: {name} levels differ from the "
+                                 "closed form")
+        if routes[name]["route"] != "frontier":
+            raise AssertionError(f"groad: {name} took {routes[name]}")
+    depth = int(want.max())
+    log(f"groad: {side} x {side} lattice (n={n}, nnz={A.nvals}) from "
+        f"{start}: {depth} levels, route {routes['bfs_level']['route']} "
+        f"(p_bits {routes['bfs_level']['p_bits']}, no retry); "
+        f"fused.bfs_frontier {secs['bfs_frontier']:.4f} s "
+        f"({depth / secs['bfs_frontier']:.1f} levels/s), "
+        f"algorithms.bfs_level {secs['bfs_level']:.4f} s; levels equal the "
+        f"closed form; lattice build {build_s:.1f} s, host CSR + upload "
+        f"{csr_s:.1f} s (before the timed calls, which reuse it); card "
+        f"{card}")
+    return dict(n=n, nnz=A.nvals, levels=depth, seconds=secs,
+                routes=routes, build_s=build_s, csr_s=csr_s)
+
+
+def dnn_net(torch, nneurons, nlayers, nimages, device, seed=7):
+    """run_fullscale's RadiX net, biases and images (testing.py)."""
+    from pygraphblas_tpu_torch import Matrix, testing, types
+
+    radices, w = testing.fullscale_radices(nneurons)
+    n, layers = testing.radix_net(radices, nlayers, weight=w, seed=seed,
+                                  device=device)
+    biases = testing.build_biases(n, nlayers, -0.25, device=device)
+    r, c, v = testing.fullscale_images(nimages, n, seed=seed)
+    Y = Matrix.sparse(types.FP32, nimages, n, device=device)
+    Y._build(r, c, v)
+    return n, layers, biases, Y, (r, c, v)
+
+
+def gdnn1024_path(torch, drv, card, nlayers=120, nimages=60000):
+    """The GraphChallenge sparse DNN at its published width (1024
+    neurons), 120 layers and 60,000 images (run_fullscale's RadiX net:
+    weights 4/32, bias -0.25, image fill in [0, 0.3), seed 7):
+    fused.dnn, then algorithms.dnn on the bitmap tier, each equal entry
+    for entry to a float64 oracle on the card that applies the
+    recurrence (product, bias on the product's pattern, ReLU, clip at
+    32; every value a binary fraction, so float32 is exact), and their
+    categories equal.  torch.matmul (no TF32) and torch ops: no kernel
+    of the port."""
+    from pygraphblas_tpu_torch import algorithms, fused
+
+    t = time.perf_counter()
+    n, layers, biases, Y, (r, c, v) = dnn_net(torch, 1024, nlayers,
+                                              nimages, "cuda")
+    build_s = time.perf_counter() - t
+    secs = {}
+
+    def run():
+        t = time.perf_counter()
+        F = fused.dnn(layers, biases, Y)
+        torch.cuda.synchronize()
+        secs["fused.dnn"] = time.perf_counter() - t
+        t = time.perf_counter()
+        D = algorithms.dnn(layers, biases, Y)
+        torch.cuda.synchronize()
+        secs["algorithms.dnn"] = time.perf_counter() - t
+        return F, D
+
+    F, D = drv.drive("gdnn1024", run, EXPECTED["gdnn1024"])
+    t = time.perf_counter()
+    y = torch.zeros((nimages, n), dtype=torch.float64, device="cuda")
+    y[torch.from_numpy(r).cuda(), torch.from_numpy(c).cuda()] = \
+        torch.from_numpy(v.astype(np.float64)).cuda()
+    for w in layers:
+        wr, wc, wv = w._coo()
+        W = torch.zeros((n, n), dtype=torch.float64, device="cuda")
+        W[torch.from_numpy(wr).cuda(), torch.from_numpy(wc).cuda()] = \
+            torch.from_numpy(wv.astype(np.float64)).cuda()
+        p = y @ W
+        y = torch.where(p != 0, p - 0.25, 0.0).clamp(0.0, 32.0)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t
+    ok = {}
+    for name, M in (("fused.dnn", F), ("algorithms.dnn", D)):
+        vals, mask = M._dense_pair()
+        ok[name] = bool(torch.equal(torch.where(mask, vals, 0.0).double(), y)
+                        and torch.equal(mask, y != 0))
+    cats = (y != 0).any(1)
+    ncat = int(cats.sum())
+    same_cats = all(bool(torch.equal(M._dense_pair()[1].any(1), cats))
+                    for M in (F, D))
+    entries = int((y != 0).sum())
+    flops = 2.0 * nimages * n * n * nlayers
+    log(f"gdnn1024: {nimages} images x {n} neurons x {nlayers} layers "
+        f"({len(r)} image entries, {entries} output entries, {ncat} "
+        f"categories): fused.dnn {secs['fused.dnn']:.4f} s "
+        f"({flops / secs['fused.dnn'] / 1e12:.3f} TFLOP/s of dense "
+        f"float32 matmul), algorithms.dnn (bitmap tier) "
+        f"{secs['algorithms.dnn']:.4f} s; equal to the float64 oracle "
+        f"entry for entry: {ok}; categories equal: {same_cats}; oracle "
+        f"{oracle_s:.1f} s, net and images {build_s:.1f} s; card {card}")
+    if not (all(ok.values()) and same_cats) or ncat in (0, nimages):
+        raise AssertionError(f"gdnn1024: {ok}, categories {same_cats}, "
+                             f"{ncat} categories")
+    return dict(seconds=secs, oracle_s=oracle_s, build_s=build_s,
+                image_entries=len(r), output_entries=entries,
+                categories=ncat, dense_tflops=flops / secs["fused.dnn"]
+                / 1e12)
+
+
+def record_esc_calls(run, check=None):
+    """run() with the inputs of every ESC call's kernels recorded (its
+    product count F, the four segfold inputs, the esc_gather inputs), so
+    that the path's counts hold only its own launches.  Without `check`
+    every call keeps its inputs, to be checked after the run; with it,
+    check(i, call) runs on each call's inputs as soon as esc_spgemm
+    returns (outside ESC's own phase seconds), with its own launches
+    taken back out of the counts and its seconds in call["check_s"], and
+    the inputs are then dropped.  Returns (run's result, the calls)."""
+    from pygraphblas_tpu_torch import _kernels as K
+    from pygraphblas_tpu_torch.core import esc as E
+
+    calls = []
+    orig_s, orig_g, orig_d, orig_e = (E.segfold, E.esc_gather,
+                                      E._esc_device, E.esc_spgemm)
+
+    def settle():
+        if check is None or not calls or "check_s" in calls[-1]:
+            return
+        call, t = calls[-1], time.perf_counter()
+        before = dict(K.launches)
+        E.segfold, E.esc_gather = orig_s, orig_g
+        try:
+            check(len(calls) - 1, call)
+        finally:
+            E.segfold, E.esc_gather = seg, gat
+            K.launches.update(before)
+        call.update(scans=[], gathers=[],
+                    check_s=time.perf_counter() - t)
+
+    def dev(*a, **kw):
+        calls.append(dict(F=a[6], scans=[], gathers=[]))
+        return orig_d(*a, **kw)
+
+    def spgemm(*a, **kw):
+        out = orig_e(*a, **kw)
+        settle()
+        return out
+
+    def seg(v, f, add):
+        calls[-1]["scans"].append((v, f, add))
+        return orig_s(v, f, add)
+
+    def gat(*a):
+        calls[-1]["gathers"].append(a)
+        return orig_g(*a)
+
+    E.segfold, E.esc_gather, E._esc_device, E.esc_spgemm = (seg, gat, dev,
+                                                            spgemm)
+    try:
+        out = run()
+    finally:
+        E.segfold, E.esc_gather, E._esc_device, E.esc_spgemm = (
+            orig_s, orig_g, orig_d, orig_e)
+    return out, calls
+
+
+def spgemm_routes(run):
+    """run() with the route of every unmasked product logged, in call
+    order: "diag" (gustavson.spgemm's diagonal-B path), "dense" (the
+    compact-dense tier), "esc", or "host" (scipy or the generic tier);
+    Matrix._mxm_diag's (a known-diagonal operand) as "mxm_diag".
+    Returns (run's result, the routes)."""
+    from pygraphblas_tpu_torch import matrix as MX
+    from pygraphblas_tpu_torch.core import esc as E, gustavson as G
+
+    routes, dense_hits = [], []
+    orig_sp, orig_dense, orig_diag = G.spgemm, G.dense_spgemm, \
+        MX.Matrix._mxm_diag
+
+    def dense(*a, **kw):
+        out = orig_dense(*a, **kw)
+        dense_hits.append(out is not None)
+        return out
+
+    def spgemm(ra, ca, va, rb, cb, vb, *a, **kw):
+        e0, d0 = E.stats["calls"], len(dense_hits)
+        out = orig_sp(ra, ca, va, rb, cb, vb, *a, **kw)
+        if len(rb) and bool(np.all(rb == cb)):
+            routes.append("diag")
+        elif any(dense_hits[d0:]):
+            routes.append("dense")
+        elif E.stats["calls"] > e0:
+            routes.append("esc")
+        else:
+            routes.append("host")
+        return out
+
+    def mxm_diag(self, *a, **kw):
+        routes.append("mxm_diag")
+        return orig_diag(self, *a, **kw)
+
+    G.spgemm, G.dense_spgemm, MX.Matrix._mxm_diag = spgemm, dense, mxm_diag
+    try:
+        out = run()
+    finally:
+        G.spgemm, G.dense_spgemm, MX.Matrix._mxm_diag = (orig_sp, orig_dense,
+                                                         orig_diag)
+    return out, routes
+
+
+def gdnn_coo_path(torch, ck, drv, card, nimages, nlayers=120):
+    """algorithms.dnn and hyperdnn (over hypergraph(layers) and
+    hypergraph(biases, diag=True)) on the COO tier (bitmap_max_cells =
+    vector_max_cells = 1, as tests/test_dnn.py forces it), 1024 neurons,
+    120 layers, `nimages` images (run_fullscale's network at that image
+    count): each layer's products logged by route.  dnn's Y @ W takes
+    the compact-dense tier (torch.matmul), its bias Matrix._mxm_diag;
+    hyperdnn's Y @ HW takes ESC (4 segfold and 1 esc_gather a call;
+    every call's launches held against their plain versions as the call
+    ends, bit-exact over the live slots), its
+    Y @ HB the diagonal-B path (the user-defined ReLU multiply on host
+    arrays, on the CPU).  Categories equal to the scipy oracle of the
+    recurrence; dnn's and hyperdnn's outputs equal."""
+    from pygraphblas_tpu_torch import (Matrix, algorithms, options_set,
+                                       testing, types)
+    from pygraphblas_tpu_torch.core import esc as E
+
+    t = time.perf_counter()
+    options_set(bitmap_max_cells=1, vector_max_cells=1)
+    try:
+        n, layers, biases, Y, (r, c, v) = dnn_net(torch, 1024, nlayers,
+                                                  nimages, "cuda")
+        HW = algorithms.hypergraph(layers)
+        HB = algorithms.hypergraph(biases, diag=True)
+        Yh = Matrix.sparse(types.FP32, nimages, HW.ncols, device="cuda")
+        Yh._build(r, c, v)
+        build_s = time.perf_counter() - t
+        secs, res = {}, {}
+
+        def timed(name, call):
+            t = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            return out
+
+        D, routes_d = spgemm_routes(lambda: drv.drive(
+            "gdnn_coo dnn", lambda: timed(
+                "algorithms.dnn", lambda: algorithms.dnn(layers, biases, Y)),
+            EXPECTED["gdnn_coo dnn"]))
+        def check(i, call):
+            if len(call["scans"]) != 4 or len(call["gathers"]) != 1:
+                raise AssertionError(f"gdnn_coo: ESC call {i} made "
+                                     f"{len(call['scans'])} scans and "
+                                     f"{len(call['gathers'])} gathers")
+            check_esc_kernels(torch, ck, "gdnn_coo", f"call {i} ",
+                              call["scans"], call["gathers"], call["F"],
+                              timed=False)
+
+        ck.quiet = True
+        try:
+            (H, routes_h), calls = record_esc_calls(
+                lambda: spgemm_routes(lambda: drv.drive_esc(
+                    "gdnn_coo hyperdnn", lambda: timed(
+                        "algorithms.hyperdnn",
+                        lambda: algorithms.hyperdnn(nlayers, HW, HB, Yh)))),
+                check=check)
+        finally:
+            ck.quiet = False
+        res["esc_host_s"] = dict(E.stats["seconds"])
+    finally:
+        options_set(bitmap_max_cells=1 << 26, vector_max_cells=1 << 27)
+    if len(calls) != drv.counts["gdnn_coo hyperdnn"]["esc_calls"]:
+        raise AssertionError(f"gdnn_coo: {len(calls)} ESC calls recorded, "
+                             f"{drv.counts['gdnn_coo hyperdnn']['esc_calls']}"
+                             " counted")
+    # every call was checked inside hyperdnn's timed window
+    check_s = sum(x["check_s"] for x in calls)
+    secs["algorithms.hyperdnn"] -= check_s
+    nchk = sum(1 for row in ck.rows if row["path"] == "gdnn_coo")
+    F_by_call = [int(x["F"]) for x in calls]
+    del calls
+    t = time.perf_counter()
+    truth = testing.scipy_dnn_oracle(r, c, v, [w._coo() for w in layers],
+                                     nimages, n, -0.25)
+    oracle_s = time.perf_counter() - t
+    cats = set(np.flatnonzero(np.diff(truth.indptr)).tolist())
+    dr, dc, dv = D._coo()
+    hr, hc, hv = H._coo()
+    got = dict(dnn=set(dr.tolist()), hyperdnn=set(hr.tolist()))
+    same = bool(np.array_equal(dr, hr) and np.array_equal(dc, hc - nlayers * n)
+                and np.array_equal(dv, hv))
+
+    def count(routes):
+        out = {}
+        for x in routes:
+            out[x] = out.get(x, 0) + 1
+        return out
+
+    res.update(nimages=nimages, nlayers=nlayers, image_entries=len(r),
+               output_entries=len(dr), categories=len(cats), seconds=secs,
+               build_s=build_s, oracle_s=oracle_s, check_s=check_s,
+               esc_checks=nchk, routes_dnn=count(routes_d),
+               routes_hyperdnn=count(routes_h),
+               esc_calls=len(F_by_call), F_max=max(F_by_call),
+               F_first=F_by_call[:3],
+               esc_launches={k: x for k, x in drv.counts[
+                   "gdnn_coo hyperdnn"]["counts"].items() if x})
+    log(f"gdnn_coo: COO tier, {nimages} images x {n} neurons x {nlayers} "
+        f"layers ({len(r)} image entries, {len(dr)} output entries, "
+        f"{len(cats)} categories): algorithms.dnn "
+        f"{secs['algorithms.dnn']:.4f} s, routes {count(routes_d)}; "
+        f"hyperdnn {secs['algorithms.hyperdnn']:.4f} s, routes "
+        f"{count(routes_h)}; {len(F_by_call)} ESC calls (F up to "
+        f"{res['F_max']}), launches {res['esc_launches']}, host seconds by "
+        f"phase {res['esc_host_s']}; {nchk} checks of every ESC call's "
+        f"launches against their plain versions as each call ended "
+        f"({check_s:.1f} s, taken out of hyperdnn's); categories equal the scipy oracle's "
+        f"({oracle_s:.1f} s): { {k: x == cats for k, x in got.items()} }; "
+        f"dnn == hyperdnn: {same}; net {build_s:.1f} s; card {card}")
+    if not (same and all(x == cats for x in got.values())) \
+            or len(cats) in (0, nimages):
+        raise AssertionError(f"gdnn_coo: outputs equal {same}, categories "
+                             f"{ {k: x == cats for k, x in got.items()} }")
+    return res
+
+
+def gio_binfile(torch, drv, card, A):
+    """Matrix.binwrite / binread of pr20's kron-20 matrix in a temporary
+    directory the call deletes: the read-back matrix iseq the original;
+    seconds and file bytes.  Host I/O and one iseq on the card."""
+    import tempfile
+
+    from pygraphblas_tpu_torch import Matrix
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "kron20.grb")
+
+        def run():
+            t = time.perf_counter()
+            A.binwrite(path)
+            w = time.perf_counter() - t
+            t = time.perf_counter()
+            B = Matrix.binread(path, device="cuda")
+            return B, w, time.perf_counter() - t
+
+        B, w_s, r_s = drv.drive("gio binfile", run, EXPECTED["gio binfile"])
+        nbytes = os.path.getsize(path)
+    same = bool(B.iseq(A))
+    log(f"gio: binwrite of kron-20 ({A.nvals} entries, {A.type.__name__}) "
+        f"{w_s:.4f} s, {nbytes} bytes; binread {r_s:.4f} s; iseq the "
+        f"original: {same}; card {card}")
+    if not same:
+        raise AssertionError("gio: binread of kron-20 differs")
+    return dict(entries=A.nvals, write_s=w_s, read_s=r_s, bytes=nbytes)
+
+
+def gio_mm(torch, drv, card, A):
+    """Matrix.to_mm / from_mm of bfs18's kron-18 matrix (BOOL: a pattern
+    file) through the port's native parser (csrc/fastio.cpp, built with
+    g++ at first use) in a temporary directory the call deletes: the
+    read-back matrix iseq the original."""
+    import tempfile
+
+    from pygraphblas_tpu_torch import Matrix
+    from pygraphblas_tpu_torch.io import native
+
+    t = time.perf_counter()
+    native.lib()
+    build_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "kron18.mtx")
+
+        def run():
+            t = time.perf_counter()
+            with open(path, "w") as f:
+                A.to_mm(f)
+            w = time.perf_counter() - t
+            t = time.perf_counter()
+            B = Matrix.from_mm(path, device="cuda")
+            return B, w, time.perf_counter() - t
+
+        B, w_s, r_s = drv.drive("gio mm", run, EXPECTED["gio mm"])
+        nbytes = os.path.getsize(path)
+    same = bool(B.iseq(A))
+    log(f"gio: to_mm of kron-18 ({A.nvals} entries, BOOL pattern) "
+        f"{w_s:.4f} s, {nbytes} bytes; from_mm (native parser, built in "
+        f"{build_s:.1f} s) {r_s:.4f} s; iseq the original: {same}; card "
+        f"{card}")
+    if not same:
+        raise AssertionError("gio: from_mm of kron-18 differs")
+    return dict(entries=A.nvals, write_s=w_s, read_s=r_s, bytes=nbytes,
+                native_build_s=build_s)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200,
@@ -3157,8 +3722,13 @@ def main():
     # 3a''. extract and assign over index sets on the same matrix
     t0 = time.perf_counter()
     e2e["gx20"] = gx20_path(torch, drv, card, A, n)
-    del A
     phase_s["gx20"] = time.perf_counter() - t0
+
+    # 3a (iii). the binary checkpoint of the same matrix
+    t0 = time.perf_counter()
+    e2e["gio"] = dict(binfile=gio_binfile(torch, drv, card, A))
+    del A
+    phase_s["gio binfile"] = time.perf_counter() - t0
 
     # 3b. PageRank at kron-21: level 1 streams, mono_rows, no cascade
     t0 = time.perf_counter()
@@ -3258,8 +3828,17 @@ def main():
     # 3d'. the container API's SSSP and BFS (vxm) on the same matrices
     t0 = time.perf_counter()
     e2e["gsp18"] = gsp18_path(torch, drv, card, A, Aw, s0)
-    del A, Aw
     phase_s["gsp18"] = time.perf_counter() - t0
+
+    # 3d (iii). the direction-optimised BFS and the BFS parents on
+    # bfs18's matrix, and its MatrixMarket round trip
+    t0 = time.perf_counter()
+    e2e["gbfs18"] = gbfs18_path(torch, ck, drv, card, A, *kron18)
+    phase_s["gbfs18"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e2e["gio"]["mm"] = gio_mm(torch, drv, card, A)
+    del A, Aw
+    phase_s["gio mm"] = time.perf_counter() - t0
 
     # 3e. BC4 at kron-16 symmetrised (bench.py:285-299, 386-401)
     t0 = time.perf_counter()
@@ -3324,6 +3903,17 @@ def main():
         for tag in ("profile", "profile_chain"):
             if tag in e2e[path]:
                 in_path[path + tag[7:]] = e2e[path][tag]["per_kernel"]
+        phase_s[path] = time.perf_counter() - t0
+
+    # 3g. slice 12: the frontier BFS on a lattice, the sparse DNN dense
+    # and on the COO tier
+    for path, run in (
+            ("groad", lambda: groad_path(torch, drv, card)),
+            ("gdnn1024", lambda: gdnn1024_path(torch, drv, card)),
+            ("gdnn_coo", lambda: gdnn_coo_path(torch, ck, drv, card,
+                                               DNN_COO_IMAGES))):
+        t0 = time.perf_counter()
+        e2e[path] = run()
         phase_s[path] = time.perf_counter() - t0
 
     # 4. small cases of every kernel (MIN/MAX folds, muls, int32)

@@ -12,11 +12,15 @@ monoid and semiring name of the JAX package); the gather-free semiring
 SpMV (``core/xspmv.py``) and the fused loops over it
 (``fused.pagerank``, ``bfs_level``, ``bfs_batch``, ``sssp``, ``bc``);
 the masked SpGEMM (``core/spgemm.py``) with the container algorithms
-(``algorithms.pagerank``, ``sssp``, ``bfs_level_vxm``,
-``bfs_parents_vxm``, ``triangle_count``, ``triangle_centrality``,
-``betweenness_centrality``, ``k_truss``); and the unmasked SpGEMM
-(``core/gustavson.py``, with the expand/sort/compact engine
-``core/esc.py`` and the dense tier ``core/dense.py``).  Thirteen
+(``algorithms.pagerank``, ``sssp``, ``bfs_level``, ``bfs_parents`` and
+their vxm forms, ``triangle_count``, ``triangle_centrality``,
+``betweenness_centrality``, ``k_truss``, ``louvain_cluster``); the
+unmasked SpGEMM (``core/gustavson.py``, with the expand/sort/compact
+engine ``core/esc.py`` and the dense tier ``core/dense.py``); the
+frontier BFS (``fused.bfs_frontier``) and the GraphChallenge sparse DNN
+(``fused.dnn``, ``algorithms.dnn``, ``hyperdnn``); and the I/O
+(``io/``: MatrixMarket, TSV/CSV, the binary checkpoint) with the
+drawing helpers (``gviz``).  Thirteen
 hand-written CUDA kernels for Hopper (``csrc/*.cu``), one for each
 Pallas kernel of the JAX package, carry them.  Entry points run on the
 CUDA card unless the caller passes ``device="cpu"`` (a container's
@@ -122,5 +126,36 @@ __all__ = [
     "INT32", "INT16", "INT8", "UINT64", "UINT32", "UINT16", "UINT8",
     "descriptor", "selectop", "binary_op", "unary_op", "select_op",
     "options_set", "options_get", "types", "config", "resolve_device",
-    "perf_report",
+    "perf_report", "run_doctests",
 ]
+
+
+def run_doctests(raise_on_error=False):
+    """Run every docstring example of the package's user modules (the
+    JAX package's ``run_doctests``, over the port's modules); returns
+    the number that failed.  The examples run on the CPU where they name
+    ``device="cpu"``."""
+    import doctest
+    import sys
+
+    from . import algorithms as algorithms_module
+    from . import base as base_module
+    from . import gviz as gviz_module
+    from . import matrix as matrix_module
+    from . import scalar as scalar_module
+    from . import vector as vector_module
+
+    this = sys.modules[__name__]
+    failures = 0
+    for mod in (this, selectop, unaryop, binaryop, matrix_module,
+                vector_module, scalar_module, monoid, semiring, types,
+                gviz_module, algorithms_module, descriptor, base_module):
+        extraglobs = dict(
+            Matrix=Matrix, Vector=Vector, Scalar=Scalar, types=types,
+            descriptor=descriptor, GxB_INDEX_MAX=GxB_INDEX_MAX,
+        )
+        r = doctest.testmod(mod, optionflags=doctest.ELLIPSIS,
+                            raise_on_error=raise_on_error,
+                            extraglobs=extraglobs)
+        failures += r.failed
+    return failures

@@ -1,6 +1,8 @@
-"""Host-side native routing (``csrc/benes.cpp``) through ctypes.
+"""Host-side native code through ctypes: the Benes routing
+(``csrc/benes.cpp``) here, and the MatrixMarket parser and COO
+canonicaliser (``csrc/fastio.cpp``) for ``io/native.py``.
 
-The library is built with ``g++`` at first use into ``_build/`` (listed
+Each library is built with ``g++`` at first use into ``_build/`` (listed
 in ``.gitignore``) under a name that carries a hash of the source, so an
 edited source is rebuilt and concurrent builds (test workers) never
 load a half-written file."""
@@ -15,16 +17,20 @@ import tempfile
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "csrc", "benes.cpp")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 _lib = None
 
 
-def _build():
-    with open(_SRC, "rb") as f:
+def build(source):
+    """The shared library built from ``csrc/<source>`` (built now if this
+    source's hash has none yet); a failed build raises
+    CalledProcessError."""
+    src = os.path.join(_HERE, "csrc", source)
+    with open(src, "rb") as f:
         tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"libpgb_benes_{tag}.so")
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(BUILD_DIR, f"libpgb_{stem}_{tag}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -32,7 +38,7 @@ def _build():
         try:
             subprocess.run(
                 ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-                 "-o", tmp, _SRC], check=True, capture_output=True)
+                 "-o", tmp, src], check=True, capture_output=True)
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
@@ -48,7 +54,7 @@ def available():
 def lib():
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(_build())
+        L = ctypes.CDLL(build("benes.cpp"))
         p = ctypes.c_void_p
         i64 = ctypes.c_int64
         L.pgb_benes_color.argtypes = [p, p, i64, i64, i64, ctypes.c_int, p]

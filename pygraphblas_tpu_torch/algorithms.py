@@ -23,12 +23,14 @@ from . import descriptor, types
 from ._device import resolve_device
 from .core import spgemm as gk
 from .core.coosparse import build as _cbuild
+from .core.spmspv import expand_segments
 from .matrix import Matrix
 from .vector import Vector
 
-__all__ = ["bfs_level_vxm", "bfs_parents_vxm", "pagerank", "sssp",
-           "triangle_count", "betweenness_centrality", "k_truss",
-           "triangle_centrality", "louvain_cluster"]
+__all__ = ["bfs_level", "bfs_level_vxm", "bfs_parents", "bfs_parents_vxm",
+           "pagerank", "sssp", "triangle_count", "betweenness_centrality",
+           "k_truss", "triangle_centrality", "louvain_cluster", "dnn",
+           "hypergraph", "hyperdnn", "relu_neuron_semiring"]
 
 # host seconds by phase ("relabel+build"; Louvain's "louvain extract",
 # "louvain mxm", "louvain moves" and "louvain contract") summed over
@@ -48,6 +50,69 @@ def _device_of(A, device):
         A._dev = dev
         return dev
     return A._device()
+
+
+def bfs_level(A, start, device=None):
+    """Level-synchronous BFS: a vector of 1-based levels.  For 32768 to
+    2**31 entries, the device frontier loop (``fused.bfs_frontier``);
+    otherwise the host push/pull loop: small frontiers expand by sorted
+    search and neighbour dedup, large ones by O(n) marking."""
+    dev = _device_of(A, device)
+    n = A.nrows
+    if 32768 <= A.nvals < 2**31 and n < 2**31:
+        from . import fused
+
+        return fused.bfs_frontier(A, start, device=dev)
+    u, s, d, outs, _ = A._host_csr(in_is_col=False)
+    levels = np.zeros(n, np.int64)
+    visited = np.zeros(n, bool)
+    frontier = np.asarray([start], np.int64)
+    visited[start] = True
+    level = 1
+    while frontier.size:
+        levels[frontier] = level
+        st, dg = gk._row_lookup(u, s, d, frontier)
+        _, offs = expand_segments(st, dg)
+        nbr = outs[offs]
+        if nbr.size * 32 < n:           # push: dedup the neighbour list
+            nxt = np.unique(nbr)
+            nxt = nxt[~visited[nxt]]
+        else:                           # pull-ish: O(n) marking
+            mark = np.zeros(n, bool)
+            mark[nbr] = True
+            nxt = np.nonzero(mark & ~visited)[0]
+        visited[nxt] = True
+        frontier = nxt
+        level += 1
+    i = np.nonzero(levels)[0]
+    v = Vector.sparse(types.INT64, n, device=dev)
+    v._build(i, levels[i])
+    return v
+
+
+def bfs_parents(A, start, device=None):
+    """BFS parent tree on the host CSR: 0-based parent ids (the start's
+    parent is itself); within a level later writes win, as numpy's
+    fancy assignment orders them ("ANY" parent semantics)."""
+    dev = _device_of(A, device)
+    n = A.nrows
+    u, s, d, outs, _ = A._host_csr(in_is_col=False)
+    parents = np.full(n, -1, np.int64)
+    frontier = np.asarray([start], np.int64)
+    parents[start] = start
+    while frontier.size:
+        st, dg = gk._row_lookup(u, s, d, frontier)
+        ent, offs = expand_segments(st, dg)
+        nbr = outs[offs]
+        src = frontier[ent]
+        new = parents[nbr] < 0
+        nbr, src = nbr[new], src[new]
+        parents[nbr] = src
+        frontier = np.unique(nbr)
+    i = np.nonzero(parents >= 0)[0]
+    pi = Vector.sparse(types.INT64, n, device=dev)
+    pi._build(i, parents[i])
+    return pi
 
 
 def bfs_level_vxm(A, start, device=None):
@@ -429,3 +494,79 @@ def louvain_cluster(A, max_iters=20, max_levels=10, seed=None, device=None):
     out = Vector.sparse(types.INT64, n, device=dev)
     out._build(np.arange(n, dtype=np.int64), mapping.astype(np.int64))
     return out
+
+
+# ---------------------------------------------------------------------------
+# GraphChallenge sparse DNN inference over the containers
+# ---------------------------------------------------------------------------
+
+def hypergraph(mt, size=None, typ=None, diag=False):
+    """Assemble a list of matrices into one hypersparse block matrix:
+    block row l holds layer l, shifted one block column right, so that
+    one mxm advances activations through every layer at once.  With
+    ``diag=True`` block l sits at (l+1, l+1) instead: the layout for
+    per-layer bias matrices, applied in place to activations that just
+    hopped into block l+1.  On the first matrix's device."""
+    if size is None:
+        size = sum(m.nrows for m in mt) + mt[-1].nrows
+    typ = typ or mt[0].type
+    rows_all, cols_all, vals_all = [], [], []
+    ioffset = 0
+    joffset = 0
+    for m in mt:
+        joffset += m.nrows
+        r, c, v = m._coo()
+        rows_all.append(r + (joffset if diag else ioffset))
+        cols_all.append(c + joffset)
+        vals_all.append(v)
+        ioffset += m.nrows
+    R = Matrix.sparse(typ, size, size, device=mt[0].device)
+    R._build(np.concatenate(rows_all), np.concatenate(cols_all),
+             np.concatenate(vals_all).astype(typ._numpy_t))
+    return R
+
+
+def relu_neuron_semiring(clip=32.0):
+    """The GraphChallenge ReLU semiring: mul(x, b) = min(max(x + b, 0),
+    clip) applies the bias, the ReLU and the clip inside the mxm; the
+    add monoid is MAX."""
+    import torch
+
+    from .binaryop import binary_op
+
+    clip32 = float(np.float32(clip))
+
+    @binary_op(types.FP32)
+    def RELU_TIMES(x, y):
+        return torch.clamp(x + y, 0.0, clip32)
+
+    mon = types.FP32.new_monoid(types.FP32.MAX, types.FP32.default_one)
+    return types.FP32.new_semiring(mon, RELU_TIMES)
+
+
+def hyperdnn(nlayers, W, B, Y):
+    """Hypersparse DNN inference: W and B are whole-net `hypergraph`
+    block matrices (B built with ``diag=True``); each iteration moves
+    every image one layer on by two mxms, with the bias, the ReLU and
+    the clip inside the second (`relu_neuron_semiring`)."""
+    sem = relu_neuron_semiring()
+    for _ in range(nlayers):
+        Y = Y @ W
+        Y = Y.mxm(B, semiring=sem)
+        Y = Y.select(">0")
+    return Y
+
+
+def dnn(W, B, Y):
+    """GraphChallenge sparse DNN inference: each layer Y @ W, the bias
+    through PLUS_PLUS, the ReLU as a select, the clip at 32 as a masked
+    assign."""
+    for w, b in zip(W, B):
+        Y = Y @ w
+        with types.FP32.PLUS_PLUS:
+            Y = Y.mxm(b)
+        Y = Y.select(">0")
+        M = Y.select(">", 32)
+        if len(M):
+            Y[M] = 32
+    return Y

@@ -33,7 +33,8 @@ from .core import csr8
 from .core import xspmv as xs
 from .vector import Vector
 
-__all__ = ["pagerank", "bfs_level", "bfs_batch", "sssp", "bc"]
+__all__ = ["pagerank", "bfs_level", "bfs_batch", "bfs_frontier", "sssp",
+           "bc", "dnn"]
 
 
 def _xspmv_ok(A, semiring, dtype):
@@ -315,3 +316,226 @@ def bc(A, sources, device=None):
         bcm = bcm + w2 * paths
     cent = torch.sum(bcm, dim=0) - np.float32(ns)
     return Vector._from_parts(types.FP32, cent)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident frontier BFS (the push half of direction optimisation)
+# ---------------------------------------------------------------------------
+
+def _frontier_csr(A, dev):
+    """Dense-indptr CSR over the out-edges on `dev`: indptr int64 (n+1),
+    indices int32 (nnz); cached on the matrix per device (resolved, so
+    that "cuda" and "cuda:0" share one copy)."""
+    dev = resolve_device(dev)
+    cache = A._cache()
+    key = ("frontier_csr", str(dev))
+    if key not in cache:
+        u, s, d, outs, _ = A._host_csr(in_is_col=False)
+        degs = np.zeros(A.nrows + 1, np.int64)
+        degs[u + 1] = d
+        cache[key] = (torch.from_numpy(np.cumsum(degs)).to(dev),
+                      torch.from_numpy(outs.astype(np.int32)).to(dev))
+    return cache[key]
+
+
+def _frontier_degrees(indptr, fids, fcnt, slot):
+    """Per frontier slot: its out-degree (0 past the frontier's `fcnt`
+    ids), the inclusive running sum, and each slot's CSR base less its
+    run start."""
+    act = slot < fcnt
+    fi = torch.where(act, fids, 0)
+    base = indptr[fi]
+    deg = torch.where(act, indptr[fi + 1] - base, 0)
+    cum = torch.cumsum(deg, 0)
+    return deg, cum, base - (cum - deg)
+
+
+def _frontier_expand(indices, visited, levels, owner, deg, cum, adj, slot,
+                     E, P, n, level):
+    """One level's push (fused.py:_bfs_frontier_loop's tier body) in an
+    edge buffer of E slots: expand the frontier's edge lists, keep one
+    unvisited destination each (the slot whose write to `owner` stuck:
+    of duplicate writes one lands, on the card as in XLA), mark and
+    level them, and compact them into a frontier buffer of P ids.
+    `visited`, `levels` and `owner` are n + 1 long: slot n takes the
+    dropped writes.  Returns (new frontier ids, their count as a 0-d
+    tensor)."""
+    dev = deg.device
+    total = cum[-1]
+    # slot index of each edge: mark each nonempty run's start with slot
+    # + 1, then carry it forward (cummax)
+    mk = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+    mk.scatter_reduce_(0, torch.where(deg > 0, cum - deg, E), slot + 1,
+                       "amax")
+    ent = torch.cummax(mk[:E], 0).values - 1
+    ar = torch.arange(E, dtype=torch.int64, device=dev)
+    valid = ar < total
+    off = adj[ent.clamp_min(0)] + ar
+    dst = indices[off.clamp(0, indices.shape[0] - 1)].long()
+    dstc = torch.where(valid, dst, 0)
+    unvis = valid & ~visited[dstc]
+    owner.index_put_((torch.where(unvis, dstc, n),), ar)
+    win = unvis & (owner[dstc] == ar)
+    pos = torch.cumsum(win, 0)
+    sel = torch.where(win, dstc, n)
+    visited[sel] = True
+    levels[sel] = level + 1
+    fn = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    fn[torch.where(win & (pos <= P), pos - 1, P)] = dstc
+    return fn[:P], pos[-1]
+
+
+def _bfs_frontier_loop(indptr, indices, n, start, p_bits, e_tiers):
+    """The level loop over the frontier as an id buffer of 2**p_bits
+    ids: each level expands in the smallest edge tier of `e_tiers` that
+    holds its edges.  One host read a level (the new frontier's size
+    and its edge total, together) picks the next tier and ends the
+    loop.  Returns (int32 levels, overflow, the last level reached):
+    overflow when a frontier outgrows the id buffer or its edges every
+    tier."""
+    dev = indptr.device
+    P = 1 << p_bits
+    tiers = [1 << eb for eb in e_tiers]
+    visited = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    levels = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    owner = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    visited[start] = True
+    levels[start] = 1
+    slot = torch.arange(P, dtype=torch.int64, device=dev)
+    fids = torch.zeros(P, dtype=torch.int64, device=dev)
+    fids[0] = start
+    fcnt = torch.ones((), dtype=torch.int64, device=dev)
+    deg, cum, adj = _frontier_degrees(indptr, fids, fcnt, slot)
+    count, total = 1, int(cum[-1])
+    level = 1
+    while count > 0 and level <= n:
+        E = next((t for t in tiers if total <= t), None)
+        if E is None:
+            return levels[:n], True, level
+        fids, fcnt = _frontier_expand(indices, visited, levels, owner, deg,
+                                      cum, adj, slot, E, P, n, level)
+        deg, cum, adj = _frontier_degrees(indptr, fids, fcnt, slot)
+        count, total = torch.stack([fcnt, cum[-1]]).tolist()
+        level += 1
+        if count > P:
+            return levels[:n], True, level
+    return levels[:n], False, level - 1
+
+
+# route of the last bfs_frontier call: "frontier", "retry" (the frontier
+# loop with budgets 4x) or "dense" (fused.bfs_level), with its levels
+# run and seconds
+last_frontier = {}
+
+
+def bfs_frontier(A, start, p_bits=None, device=None):
+    """BFS with O(frontier edges) device work a level: the push half of
+    direction optimisation, for high-diameter graphs (road networks)
+    where the dense ``bfs_level`` does O(nnz) a level.
+
+    Returns an INT64 Vector of 1-based levels (unreached absent).  A
+    budget overflow (giant frontiers: kron graphs) retries once with
+    budgets 4x larger, then falls back to the dense ``bfs_level``
+    (fused.py:bfs_frontier)."""
+    import time
+
+    dev = resolve_device(device)
+    n = A.nrows
+    if n >= 2**31 or A.nvals >= 2**31 or A.nvals == 0:
+        from . import algorithms
+
+        return algorithms.bfs_level(A, start, device=dev)
+    t0 = time.perf_counter()
+    indptr, indices = _frontier_csr(A, dev)
+    nnz_len = int(indices.shape[0])
+    if p_bits is None:
+        p_bits = max(12, int(np.ceil(np.log2(4.0 * np.sqrt(n)))))
+    last_frontier.clear()
+    for attempt in ("frontier", "retry"):
+        p_bits = min(p_bits, max(int(np.ceil(np.log2(n))), 4))
+        e_tiers = tuple(min(eb, max(int(np.ceil(np.log2(nnz_len))), 6))
+                        for eb in (p_bits, p_bits + 2, p_bits + 4))
+        e_tiers = tuple(dict.fromkeys(e_tiers))  # dedup, keep order
+        lv, ovf, ran = _bfs_frontier_loop(indptr, indices, n, int(start),
+                                          p_bits, e_tiers)
+        last_frontier.update(route=attempt, p_bits=p_bits, levels_run=ran)
+        if not ovf:
+            break
+        p_bits += 2
+    else:
+        out = bfs_level(A, start, device=dev)
+        last_frontier.update(route="dense",
+                             seconds=time.perf_counter() - t0)
+        return out
+    lv = lv.to(torch.int64)
+    last_frontier["seconds"] = time.perf_counter() - t0
+    return Vector._from_parts(types.INT64, lv, lv > 0)
+
+
+# ---------------------------------------------------------------------------
+# GraphChallenge sparse DNN inference, dense (fused.py:589-650)
+# ---------------------------------------------------------------------------
+
+def _dense_f32(mat, dev):
+    """A matrix's values as a dense float32 tensor on `dev` (zero where
+    absent), scattered from its host COO triples."""
+    r, c, v = mat._coo()
+    out = torch.zeros((mat.nrows, mat.ncols), dtype=torch.float32,
+                      device=dev)
+    out[torch.from_numpy(r).to(dev), torch.from_numpy(c).to(dev)] = \
+        torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+    return out
+
+
+def _dnn_loop(wstack, biases, y, clip):
+    """y <- min(max(y @ W_l + b_l, 0), clip) over the layers, in full
+    float32 (no TF32).  Adding the (negative) bias to absent (zero)
+    cells and clamping at 0 reproduces the sparse recurrence exactly:
+    the products are nonnegative, so a cell survives iff a product
+    exceeded -bias.  Two buffers take turns: no allocation a layer."""
+    from .core.dense import _full_fp32
+
+    buf = torch.empty_like(y)
+    with _full_fp32():
+        for w, b in zip(wstack, biases):
+            torch.matmul(y, w, out=buf)
+            buf.add_(b).clamp_(0.0, clip)
+            y, buf = buf, y
+    return y
+
+
+def dnn(W, B, Y, clip=32.0, device=None):
+    """GraphChallenge DNN inference over dense operands: the weights
+    stacked (L, n, n) float32 on the device, the images (m, n), one
+    matmul a layer with the bias add and the clamp in place on its
+    output.  The same result as :func:`algorithms.dnn` for nonnegative
+    weights and images (the challenge's domain); returns an FP32
+    Matrix, on the bitmap tier where it fits and on the COO tier where
+    the containers' options put it (the JAX package's ``_is_huge``)."""
+    from .matrix import Matrix
+
+    dev = resolve_device(device)
+    n, m = W[0].nrows, Y.nrows
+    ws = torch.zeros((len(W), n, n), dtype=torch.float32, device=dev)
+    for l, w in enumerate(W):
+        r, c, v = w._coo()
+        ws[l, torch.from_numpy(r).to(dev), torch.from_numpy(c).to(dev)] = \
+            torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+    bv = []    # float32 values, as the JAX package's bias vector holds
+    for b in B:
+        if not isinstance(b, (int, float)):
+            # a bias diagonal (Matrix.identity(..., value=bias))
+            dv = b._coo()[2]
+            b = dv[0] if len(dv) else 0.0
+        bv.append(float(np.float32(b)))
+    yv = _dnn_loop(ws, bv, _dense_f32(Y, dev), float(np.float32(clip)))
+    del ws
+    out = Matrix.sparse(types.FP32, m, n, device=dev)
+    if out._is_huge:
+        keep = yv != 0
+        rr, cc = torch.nonzero(keep, as_tuple=True)
+        out._build(rr.cpu().numpy(), cc.cpu().numpy(),
+                   yv[rr, cc].cpu().numpy())
+    else:
+        out._set_dense(yv, yv != 0)
+    return out

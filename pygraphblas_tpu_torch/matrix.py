@@ -45,6 +45,7 @@ import random as _stdlib_random
 import types as _pytypes
 from array import array
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -350,6 +351,133 @@ class Matrix:
         if k == 0:
             m._diag_c = True
         return m
+
+    @classmethod
+    def from_mm(cls, mm_file, device=None):
+        """From a MatrixMarket file or file-like object (coordinate
+        format; INT64, FP64, BOOL or FC64 by its field).
+
+        >>> import io
+        >>> mm = io.StringIO(
+        ...     "%%MatrixMarket matrix coordinate integer general\\n"
+        ...     "2 2 2\\n1 2 7\\n2 1 9\\n")
+        >>> print(Matrix.from_mm(mm))
+              0  1
+          0|     7|  0
+          1|  9   |  1
+              0  1
+        """
+        from .io.mm import read_mm
+
+        I, J, V, nrows, ncols, typ = read_mm(mm_file)
+        m = cls.sparse(typ, nrows, ncols, device=device)
+        m._build(I, J, V)
+        return m
+
+    @classmethod
+    def from_tsv(cls, tsv_file, typ, nrows, ncols, device=None, **kwargs):
+        """From a tab-separated file of `row col val` lines (see
+        `from_csv`).
+
+        >>> import io
+        >>> f = io.StringIO("1\\t2\\t7\\n2\\t1\\t9\\n")
+        >>> print(Matrix.from_tsv(f, types.INT64, 2, 2))
+              0  1
+          0|     7|  0
+          1|  9   |  1
+              0  1
+        """
+        return cls.from_csv(tsv_file, typ, nrows, ncols, delimiter="\t",
+                            device=device, **kwargs)
+
+    @classmethod
+    def from_csv(cls, csv_file, typ, nrows, ncols, one_based=True,
+                 delimiter=",", device=None, **reader_args):
+        """From a CSV file of `row, col, val` lines (1-based indices
+        unless `one_based` is false; a line whose first field is not an
+        integer, such as a header, is skipped).
+
+        >>> import io
+        >>> f = io.StringIO("1,2,7\\n2,1,9\\n")
+        >>> print(Matrix.from_csv(f, types.INT64, 2, 2))
+              0  1
+          0|     7|  0
+          1|  9   |  1
+              0  1
+        """
+        import csv as csv_module
+
+        if isinstance(csv_file, (str, Path)):
+            fh = open(csv_file)
+        else:
+            fh = csv_file
+        I, J, V = [], [], []
+        kind = np.dtype(typ._numpy_t).kind
+        cast = bool if kind == "b" else (float if kind in "fc" else int)
+        try:
+            rd = csv_module.reader(fh, delimiter=delimiter, **reader_args)
+            for row in rd:
+                if not row or len(row) < 3:
+                    continue
+                try:
+                    i = int(row[0])
+                except ValueError:
+                    continue  # header
+                j = int(row[1])
+                if one_based:
+                    i -= 1
+                    j -= 1
+                I.append(i)
+                J.append(j)
+                V.append(cast(row[2]))
+        finally:
+            if fh is not csv_file:
+                fh.close()
+        m = cls.sparse(typ, nrows, ncols, device=device)
+        m._build(np.asarray(I, np.int64), np.asarray(J, np.int64),
+                 np.asarray(V))
+        return m
+
+    @classmethod
+    def binread(cls, bin_file, opener=Path.open, device=None):
+        """Load a Matrix from a binary checkpoint written by `binwrite`
+        (the JAX package's format: either package reads the other's).
+
+        >>> import tempfile, os
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9], device="cpu")
+        >>> path = os.path.join(tempfile.mkdtemp(), "m.binfile")
+        >>> M.binwrite(path)
+        >>> Matrix.binread(path, device="cpu").iseq(M)
+        True
+        """
+        from .io.binfile import binread as _binread
+
+        return _binread(cls, bin_file, opener, device=device)
+
+    from_binfile = binread
+
+    @classmethod
+    def ssget(cls, name_or_id=None, binary_cache_dir=None, device=None):
+        """Matrices of the SuiteSparse collection through the optional
+        ``ssgetpy`` package (which downloads them): yields ``(filename,
+        Matrix)`` pairs.  With `binary_cache_dir`, each MatrixMarket file
+        is cached beside the download as a `.grb` binfile, and later
+        calls skip the MatrixMarket parse."""
+        import ssgetpy
+
+        result = ssgetpy.search(name_or_id)[0]
+        mm_path, _ = result.download(extract=True)
+        mm_path = Path(mm_path)
+        for m in sorted(mm_path.glob("*.mtx")):
+            Mbin = mm_path / (m.name + ".grb")
+            if binary_cache_dir and Mbin.exists():
+                M = cls.from_binfile(Mbin, device=device)
+            else:
+                M = cls.from_mm(m, device=device)
+                if binary_cache_dir:
+                    M.to_binfile(Mbin)
+            M.wait()
+            yield m.name, M
 
     # ------------------------------------------------------------------
     # internal storage plumbing
@@ -1034,6 +1162,40 @@ class Matrix:
         arr = np.zeros(self.shape, self.type._numpy_t)
         arr[r, c] = v
         return arr
+
+    def binwrite(self, filename, comments="", opener=Path.open):
+        """Write this Matrix to a binary checkpoint file (see `binread`).
+
+        >>> import tempfile, os
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9], device="cpu")
+        >>> path = os.path.join(tempfile.mkdtemp(), "m.binfile")
+        >>> M.binwrite(path)
+        >>> Matrix.binread(path, device="cpu").iseq(M)
+        True
+        """
+        from .io.binfile import binwrite as _binwrite
+
+        return _binwrite(self, filename, comments, opener)
+
+    to_binfile = binwrite
+
+    def to_mm(self, fileobj):
+        """Write this Matrix to a MatrixMarket file or file-like object
+        (coordinate, general; a bit view's values unsigned).
+
+        >>> import io
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> f = io.StringIO()
+        >>> M.to_mm(f)
+        >>> print(f.getvalue(), end="")
+        %%MatrixMarket matrix coordinate integer general
+        2 2 2
+        1 2 7
+        2 1 9
+        """
+        from .io.mm import write_mm
+
+        write_mm(self, fileobj)
 
     # ------------------------------------------------------------------
     # rendering (the JAX package's layouts; a bit view prints its

@@ -1,8 +1,12 @@
 """Hand-made kernel inputs, shared by the GPU tests
 (tests/test_torch_cuda.py) and chip_smoke.py, which hold the kernels
 against their plain versions on them (numpy arrays: the callers move
-them to the device they test), and the index recipe by which one
-``torch.take`` computes a kernel that only moves data (`take_index`)."""
+them to the device they test), the index recipe by which one
+``torch.take`` computes a kernel that only moves data (`take_index`),
+and the GraphChallenge DNN's test data: RadiX-Net layers, biases and
+images from a seed (`radix_net`, `build_biases`, `fullscale_images`; the
+same matrices as the JAX package's ``demo/dnn``) with the scipy oracle
+of the challenge's recurrence (`scipy_dnn_oracle`)."""
 
 import numpy as np
 import torch
@@ -430,3 +434,107 @@ PAIR_FOLD_CODES = [(add, mul, typ)
     ("ANY", "TIMES", "INT32"), ("ANY", "PLUS", "FP32"),
     ("ANY", "MINUS", "INT8"), ("MIN", "DIV", "UINT32"),
     ("MAX", "TIMES", "UINT16"), ("PLUS", "TIMES", "UINT8")]
+
+
+# ---------------------------------------------------------------------------
+# GraphChallenge sparse DNN test data (demo/dnn/radix.py, challenge.py)
+# ---------------------------------------------------------------------------
+
+def radix_topology(radices):
+    """A list of (rows, cols) edge lists, one per layer, of a RadiX-Net
+    with the given mixed radices (n = prod(radices) neurons): each
+    layer a permuted butterfly, so that every input reaches every output
+    in len(radices) layers with uniform in- and out-degree."""
+    n = int(np.prod(radices))
+    layers = []
+    stride = 1
+    for r in radices:
+        src = np.arange(n)
+        # each neuron connects to r neighbours in its radix group
+        offsets = np.arange(r) * stride
+        group = (src // (stride * r)) * (stride * r)
+        pos = src % stride
+        dst = group[:, None] + pos[:, None] + offsets[None, :]
+        rows = np.repeat(src, r)
+        cols = dst.reshape(-1)
+        layers.append((rows, cols % n))
+        stride *= r
+    return n, layers
+
+
+def radix_net(radices, nlayers, typ=None, weight=None, seed=42,
+              device=None):
+    """`nlayers` weight matrices cycling over the butterfly topology:
+    (n, [Matrix, ...]), values `weight` or uniform in [0, 1) from
+    `seed`."""
+    from . import types
+    from .matrix import Matrix
+
+    typ = typ or types.FP32
+    n, topo = radix_topology(radices)
+    rng = np.random.RandomState(seed)
+    mats = []
+    for layer in range(nlayers):
+        rows, cols = topo[layer % len(topo)]
+        if weight is None:
+            vals = rng.rand(len(rows)).astype(typ._numpy_t)
+        else:
+            vals = np.full(len(rows), weight, typ._numpy_t)
+        W = Matrix.sparse(typ, n, n, device=device)
+        W._build(rows, cols, vals)
+        mats.append(W)
+    return n, mats
+
+
+def build_biases(nneurons, nlayers, bias, device=None):
+    """One bias diagonal a layer (``Matrix.identity`` at `bias`)."""
+    from . import types
+    from .matrix import Matrix
+
+    return [Matrix.identity(types.FP32, nneurons, value=bias, device=device)
+            for _ in range(nlayers)]
+
+
+def fullscale_radices(nneurons):
+    """The radices of ``run_fullscale``'s exact-radix network (largest
+    radix of 32, 16, 8, 4, 2 first) and its weight, 4 / the smallest
+    radix: an exact binary fraction."""
+    radices = []
+    n = nneurons
+    while n > 1:
+        for r in (32, 16, 8, 4, 2):
+            if n % r == 0:
+                radices.append(r)
+                n //= r
+                break
+    return radices, 4.0 / min(radices)
+
+
+def fullscale_images(nimages, n, seed=7):
+    """``run_fullscale``'s binary images: row fill uniform in [0, 0.3)
+    of n, columns uniform, duplicates dropped.  (rows, cols, vals) as
+    numpy int64, int64, float32."""
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(0, max(2, int(0.3 * n)), nimages)
+    img_r = np.repeat(np.arange(nimages), counts)
+    img_c = rng.randint(0, n, counts.sum())
+    keys = img_r.astype(np.int64) * n + img_c
+    _, first = np.unique(keys, return_index=True)
+    img_r, img_c = img_r[first], img_c[first]
+    return (img_r.astype(np.int64), img_c.astype(np.int64),
+            np.ones(len(img_r), np.float32))
+
+
+def scipy_dnn_oracle(img_r, img_c, img_v, layer_triples, nfeat, n, bias):
+    """The GraphChallenge recurrence Y = clip32(relu(Y @ W + bias on the
+    product's pattern)) in scipy (challenge.py:_scipy_dnn_oracle)."""
+    from scipy import sparse as sp
+
+    Y = sp.coo_matrix((img_v, (img_r, img_c)), shape=(nfeat, n)).tocsr()
+    for (wr, wc, wv) in layer_triples:
+        W = sp.coo_matrix((wv, (wr, wc)), shape=(n, n)).tocsr()
+        Y = (Y @ W).tocsr()
+        Y.data += np.float32(bias)      # bias on the product pattern
+        Y.data = np.minimum(np.maximum(Y.data, 0), 32).astype(np.float32)
+        Y.eliminate_zeros()
+    return Y

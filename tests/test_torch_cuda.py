@@ -1038,3 +1038,89 @@ def test_louvain_on_card(card, coo_tier):
     assert got.to_lists() == want
     assert calls > 0 and _kernels.launches["segfold"] == 4 * calls
     assert _kernels.launches["esc_gather"] == calls
+
+
+@pytest.mark.parametrize("tier", ["bitmap", "coo"])
+def test_uint64_user_predicate_on_card(card, tier):
+    """A user select predicate at UINT64 compares unsigned values on the
+    card, Matrix and Vector, on both tiers; arithmetic raises."""
+    from pygraphblas_tpu_torch import Matrix, Vector
+
+    big = 2**63 + 2048
+    if tier == "coo":
+        options_set(bitmap_max_cells=1, vector_max_cells=1)
+    try:
+        A = Matrix.from_lists([0, 1, 2], [0, 1, 2], [big, 1, 0],
+                              typ=types.UINT64, device="cuda")
+        v = Vector.from_lists([0, 1, 2], [big, 1, 0], typ=types.UINT64,
+                              device="cuda")
+        for c, want in ((A, [[0], [0], [big]]), (v, [[0], [big]])):
+            assert c.select(lambda i, j, x, t: x > t, 8).to_lists() == want
+            assert c.select(lambda i, j, x, t: x >= t, big).to_lists() == \
+                want
+            with pytest.raises(TypeError, match="UINT64"):
+                c.select(lambda i, j, x, t: x + 1 > t, 8)
+    finally:
+        options_set(bitmap_max_cells=1 << 26, vector_max_cells=1 << 27)
+
+
+def test_bfs_frontier_on_card(card):
+    """fused.bfs_frontier on a 300 x 300 4-neighbour lattice from its
+    centre: levels equal the closed form and the CPU run's; a frontier
+    CSR built for "cuda" is the one the call reuses; a p_bits of 4
+    takes the dense fallback (the xspmv kernels) with equal levels."""
+    from pygraphblas_tpu_torch import Matrix
+
+    s = 300
+    idx = np.arange(s * s).reshape(s, s)
+    r = np.concatenate([idx[:, :-1].ravel(), idx[:, 1:].ravel(),
+                        idx[:-1, :].ravel(), idx[1:, :].ravel()])
+    c = np.concatenate([idx[:, 1:].ravel(), idx[:, :-1].ravel(),
+                        idx[1:, :].ravel(), idx[:-1, :].ravel()])
+    A = Matrix.sparse(types.BOOL, s * s, s * s, device="cuda")
+    A._build(r, c, np.ones(len(r), np.bool_))
+    start = 150 * s + 150
+    fused._frontier_csr(A, "cuda")
+    got = fused.bfs_frontier(A, start)
+    assert fused.last_frontier["route"] == "frontier"
+    assert len([k for k in A._cache() if isinstance(k, tuple)
+                and k[0] == "frontier_csr"]) == 1
+    i, j = np.divmod(np.arange(s * s), s)
+    want = np.abs(i - 150) + np.abs(j - 150) + 1
+    assert np.array_equal(got._vals.cpu().numpy(), want)
+    B = Matrix.sparse(types.BOOL, s * s, s * s, device="cpu")
+    B._build(r, c, np.ones(len(r), np.bool_))
+    assert got.to_lists() == fused.bfs_frontier(B, start,
+                                                device="cpu").to_lists()
+    _kernels.reset_launches()
+    dense = fused.bfs_frontier(A, start, p_bits=4)
+    torch.cuda.synchronize()
+    assert fused.last_frontier["route"] == "dense"
+    assert dense.to_lists() == got.to_lists()
+    assert sum(_kernels.launches.values()) > 0
+
+
+def test_fused_dnn_on_card(card):
+    """fused.dnn and algorithms.dnn on a 256-neuron RadiX net of 12
+    layers on the card: equal to each other, to the CPU run and to the
+    scipy oracle of the recurrence (every value a binary fraction)."""
+    from pygraphblas_tpu_torch import Matrix, testing
+
+    radices, w = testing.fullscale_radices(256)
+    n, W = testing.radix_net(radices, 12, weight=w, seed=7, device="cuda")
+    _, Wc = testing.radix_net(radices, 12, weight=w, seed=7, device="cpu")
+    r, c, v = testing.fullscale_images(500, n, seed=7)
+    outs = []
+    for dev, L in (("cuda", W), ("cpu", Wc)):
+        Bs = testing.build_biases(n, 12, -0.25, device=dev)
+        Y = Matrix.sparse(types.FP32, 500, n, device=dev)
+        Y._build(r, c, v)
+        outs.append(fused.dnn(L, Bs, Y, device=dev).to_lists())
+        outs.append(algorithms.dnn(L, Bs, Y).to_lists())
+    assert outs[0] == outs[1] == outs[2] == outs[3]
+    truth = testing.scipy_dnn_oracle(r, c, v, [x._coo() for x in Wc], 500,
+                                      n, -0.25)
+    truth.sort_indices()
+    truth = truth.tocoo()
+    assert outs[0] == [truth.row.tolist(), truth.col.tolist(),
+                       truth.data.tolist()]

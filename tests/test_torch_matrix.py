@@ -376,11 +376,10 @@ def test_build_out_of_bounds_raises_dimension_mismatch():
 
 
 def test_matrix_lacks_only_io_and_shard():
-    """The port's Matrix has every name of the JAX package's but the I/O
-    constructors (ROADMAP item 11) and shard (item 12)."""
-    assert set(dir(J.Matrix)) - set(dir(T.Matrix)) == {
-        "from_mm", "from_tsv", "from_csv", "binread", "from_binfile",
-        "binwrite", "to_binfile", "to_mm", "ssget", "shard"}
+    """The port's Matrix has every name of the JAX package's but shard
+    (the distributed tier, ROADMAP item 12); the I/O constructors are
+    ported."""
+    assert set(dir(J.Matrix)) - set(dir(T.Matrix)) == {"shard"}
 
 
 PRINT_VALUES = {"INT64": [-7, 42, 0, 123456], "FP32": [1.5, -0.25, 3.0, 1e6],
@@ -415,12 +414,15 @@ def _uint_selects(ns, tname, kw, vector=True):
     A = ns.M.from_lists([0, 1, 2, 2], [0, 1, 2, 0], [big, 1, 0, 7], typ=t,
                         **kw)
     out = [A.select(">0"), A.select(">=", 2), A.select("<", big),
-           A.select("<=", 1), A.select("<0"), A.select(">=0"), A > 0, A < 5]
-    if tname != "UINT64":     # torch has no uint64 comparisons
-        out.append(A.select(lambda i, j, x, th: x > th, 8))
+           A.select("<=", 1), A.select("<0"), A.select(">=0"), A > 0, A < 5,
+           A.select(lambda i, j, x, th: x > th, 8),
+           A.select(lambda i, j, x, th: x >= th, big),
+           A.select(lambda i, j, x, th: (x < th) & (x != 0), big)]
     if vector:
         v = ns.V.from_lists([0, 1, 2, 4], [big, 1, 0, 7], typ=t, **kw)
-        out += [v.select(">0"), v.select("<=", 1), v > 0, v < 5]
+        out += [v.select(">0"), v.select("<=", 1), v > 0, v < 5,
+                v.select(lambda i, j, x, th: x > th, 8),
+                v.select(lambda i, j, x, th: x <= th, big - 1)]
     return [x.to_lists() for x in out]
 
 
@@ -505,3 +507,21 @@ def test_device_ewise_engine_matches_jax(tname, name):
         for pkg in (J, T):
             pkg.options_set(ewise_engine="auto")
         _set_tier("bitmap")
+
+
+@pytest.mark.parametrize("pred", [lambda i, j, x, th: x + 1 > th,
+                                  lambda i, j, x, th: x.float() > 0,
+                                  lambda i, j, x, th: x > 0.5,
+                                  lambda i, j, x, th: x > -1],
+                         ids=["add", "method", "float", "negative"])
+def test_uint64_user_predicate_refuses_the_view(tier, pred):
+    """At UINT64 a user predicate gets values that compare as unsigned;
+    arithmetic or a comparison that would read the signed bit view
+    raises a TypeError that names UINT64."""
+    A = T.Matrix.from_lists([0, 1], [0, 1], [2**63 + 2048, 1],
+                            typ=T.types.UINT64, device="cpu")
+    v = T.Vector.from_lists([0, 1], [2**63 + 2048, 1], typ=T.types.UINT64,
+                            device="cpu")
+    for c in (A, v):
+        with pytest.raises(TypeError, match="UINT64"):
+            c.select(pred, 10)

@@ -152,7 +152,9 @@ def test_port_never_imports_jax():
             "pygraphblas_tpu_torch.unaryop, pygraphblas_tpu_torch.monoid, "
             "pygraphblas_tpu_torch.semiring, pygraphblas_tpu_torch.selectop, "
             "pygraphblas_tpu_torch.descriptor, pygraphblas_tpu_torch.scalar, "
-            "pygraphblas_tpu_torch.base;"
+            "pygraphblas_tpu_torch.base, pygraphblas_tpu_torch.gviz, "
+            "pygraphblas_tpu_torch.io.mm, pygraphblas_tpu_torch.io.binfile, "
+            "pygraphblas_tpu_torch.io.native;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pygraphblas_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -161,11 +163,13 @@ def test_port_never_imports_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-# the modules slice 11 adds to or changes, and the calls that reach their
-# new code
+# the modules slices 11 and 12 add to or change, and the calls that reach
+# their new code
 SLICE_MODULES = ["__init__.py", "algorithms.py", "base.py", "matrix.py",
                  "selectop.py", "vector.py", "core/coosem.py",
-                 "core/dense.py"]
+                 "core/dense.py", "fused.py", "gviz.py", "testing.py",
+                 "_native.py", "io/__init__.py", "io/binfile.py", "io/mm.py",
+                 "io/native.py"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -180,8 +184,10 @@ def test_slice_module_never_imports_jax(module):
 
 def test_slice_calls_never_import_jax(tmp_path):
     """Louvain, extract/assign over ranges, Kronecker, the diagonals,
-    the printers, the unsigned selects and the profiler, run in a fresh
-    interpreter on the CPU, load neither jax nor the JAX package."""
+    the printers, the unsigned selects and the profiler (slice 11), and
+    the frontier BFS, the DNN, the I/O and gviz (slice 12), run in a
+    fresh interpreter on the CPU, load neither jax nor the JAX
+    package."""
     code = f"""
 import sys
 import numpy as np
@@ -197,6 +203,27 @@ U = T.Matrix.from_lists([0], [0], [3000000000], typ=T.UINT32, device="cpu")
 assert (U > 0).nvals == 1
 base.profile_stop()
 algorithms.louvain_cluster(A.eadd(A.T), device="cpu")
+from pygraphblas_tpu_torch import fused, gviz, testing
+B = T.Matrix.from_lists(list(range(99)), list(range(1, 100)), [True] * 99,
+                        nrows=100, ncols=100, device="cpu")
+fused.bfs_frontier(B, 0, device="cpu"); algorithms.bfs_level(B, 0)
+algorithms.bfs_parents(B, 0)
+n, W = testing.radix_net([4, 4], 2, weight=0.5, device="cpu")
+Bs = testing.build_biases(n, 2, -0.25, device="cpu")
+Y = T.Matrix.from_lists([0, 1], [3, 5], [1.0, 1.0], nrows=2, ncols=n,
+                        device="cpu")
+fused.dnn(W, Bs, Y, device="cpu"); algorithms.dnn(W, Bs, Y)
+algorithms.hyperdnn(2, algorithms.hypergraph(W),
+                    algorithms.hypergraph(Bs, diag=True),
+                    T.Matrix.from_lists([0], [3], [1.0], nrows=1,
+                                        ncols=3 * n, device="cpu"))
+p = {str(tmp_path)!r} + "/m.mtx"
+with open(p, "w") as f:
+    A.to_mm(f)
+T.Matrix.from_mm(p, device="cpu"); A.binwrite(p + ".grb")
+T.Matrix.binread(p + ".grb", device="cpu"); gviz.draw_cy(A)
+U64 = T.Matrix.from_lists([0], [0], [2**63 + 2048], typ=T.UINT64, device="cpu")
+assert U64.select(lambda i, j, x, t: x > t, 1).nvals == 1
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygraphblas_tpu')]
 print(bad)
 sys.exit(1 if bad else 0)
