@@ -132,6 +132,28 @@ Phases, in order; any failure exits non-zero:
               esc_gather a call, every call's launches held against
               their plain versions), each layer's route counted;
               categories equal to the scipy oracle's;
+     then the distributed tier (parallel/dist.py): make_mesh() with no
+     device, a world of one over NCCL and a (1, 1) mesh on the card; no
+     hand kernel may launch (torch ops and collectives); the process
+     group is destroyed after:
+       gdpr20 A.shard(mesh).pagerank and dist_pagerank on pr20's
+              matrix, 20 iterations, within 1e-3 x the largest rank of
+              fused.pagerank's 20; ms an iteration beside pr20's;
+       gdsp18 bfs_level and sssp from 213,770 on bfs18's and sssp18's
+              matrices, equal to gsp18's levels and distances;
+       gdtc16 triangle_count on tc16's graph (= tc16's count), k_truss
+              on kt14's (= algorithms.k_truss), mxm(W, mask=W) on
+              val16's weights under FP32 PLUS_TIMES (rtol 1e-5) and
+              INT32 MIN_PLUS (exact) against masked_spgemm;
+       gdmxv  mxv on kron-18 under FP32 PLUS_TIMES, INT32 MIN_PLUS,
+              UINT32 BOR_BAND and INT32 MIN_FIRSTI1 against Matrix.mxv
+              on the card (integers exact);
+       gdckpt dist_pagerank on kron-18: 10 iterations with a snapshot
+              every 5, resumed to 20: the resume starts from the
+              snapshot's ranks bit for bit and ends equal bit for bit to
+              an uninterrupted run, as two uninterrupted runs are;
+     each with its seconds, the host share (balance, tiling, the rings'
+     host build) and the bytes it placed on the card;
      before each path, every kernel it runs is held against its plain
      PyTorch version on the card at the path's own shapes (bit-exact,
      but pair_fold's float32 PLUS within rtol 1e-5: another fold order),
@@ -2622,6 +2644,7 @@ def gsp18_path(torch, drv, card, A, Aw, s0):
         return out
 
     dv, lv0, lvs = drv.drive("gsp18", run, EXPECTED["gsp18"])
+    drv.results["gsp18"] = (dv, lvs)     # the distributed tier's yardstick
     if dv.to_lists() != fused.sssp(Aw, s0).to_lists():
         raise AssertionError("gsp18: algorithms.sssp differs from "
                              "fused.sssp")
@@ -3578,6 +3601,332 @@ def gio_mm(torch, drv, card, A):
                 native_build_s=build_s)
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the distributed tier (parallel/dist.py) in a world of one over
+# NCCL on a (1, 1) mesh; it launches no hand kernel (torch ops and
+# collectives), and each path is driven with the kernel counters at 0 to
+# show it
+# ---------------------------------------------------------------------------
+
+
+def gd_call(torch, call):
+    """One call of the tier: (result, wall s, the tier's seconds by phase,
+    the bytes it placed on the card)."""
+    from pygraphblas_tpu_torch.parallel import dist as pdist
+
+    pdist.seconds.clear()
+    pdist.held_bytes.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t, dict(pdist.seconds),
+            dict(pdist.held_bytes))
+
+
+def gd_calls(torch, drv, path, calls):
+    """Drive a path's calls ((name, call) pairs) with the counters at 0;
+    no kernel may launch."""
+    return drv.drive(path, lambda: [gd_call(torch, c) for _, c in calls], {})
+
+
+def gd_line(path, name, wall, secs, nbytes, card, note=""):
+    host = sum(secs.get(k, 0.0) for k in ("balance", "tiling", "ring_host"))
+    log(f"  {path} {name}: {wall:.4f} s; host {host:.4f} s (balance "
+        f"{secs.get('balance', 0.0):.4f}, tiling {secs.get('tiling', 0.0):.4f}"
+        f", ring host {secs.get('ring_host', 0.0):.4f}), device loop "
+        f"{secs.get('device', 0.0):.4f} s; on the card {nbytes} bytes; "
+        f"{note}card {card}")
+    return dict(seconds=wall, host_s=host, phase_s=secs, bytes=nbytes)
+
+
+def same_coo(got, want, rtol=None):
+    """Indices equal; values equal, or within rtol of the want's."""
+    *gi, gv = got
+    *wi, wv = want
+    if not all(np.array_equal(a, b) for a, b in zip(gi, wi)):
+        return False
+    if rtol is None:
+        return np.array_equal(gv, wv)
+    return bool(np.all(np.abs(gv - wv) <= rtol * np.abs(wv)))
+
+
+def gdpr20_path(torch, drv, card, mesh, kron20, ref, pr20_ms, iters=20):
+    """A.shard(mesh).pagerank and dist_pagerank on pr20's kron-20 matrix,
+    20 iterations each, within 1e-3 x the largest rank of fused.pagerank's
+    20 iterations (`ref`); ms an iteration = the device loop's seconds
+    (the loop, the d_inv upload, the final gather) / iterations."""
+    from pygraphblas_tpu_torch import types
+    from pygraphblas_tpu_torch.generators import to_matrix
+    from pygraphblas_tpu_torch.parallel import dist as pdist
+
+    rows, cols, n = kron20
+    A = to_matrix(rows, cols, n, types.FP32)
+    lim = 1e-3 * float(np.abs(ref).max())
+    calls = (("shard.pagerank", lambda: A.shard(mesh).pagerank(
+        itermax=iters, tol=0).to_numpy()),
+             ("dist_pagerank", lambda: pdist.dist_pagerank(
+                 mesh, n, rows, cols, itermax=iters, tol=0)))
+    res = {}
+    for (name, _), (r, wall, secs, nb) in zip(
+            calls, gd_calls(torch, drv, "gdpr20", calls)):
+        err = float(np.abs(r - ref).max())
+        if r.shape != (n,) or not np.isfinite(r).all() or not err < lim:
+            raise AssertionError(f"gdpr20 {name}: max |dist - fused| {err} "
+                                 f"(limit {lim}), shape {r.shape}")
+        ms = secs["device"] / iters * 1e3
+        res[name] = gd_line(
+            "gdpr20", name, wall, secs, nb, card,
+            f"max |dist - fused| {err:.3e} (limit {lim:.3e}); {ms:.4f} ms "
+            f"an iteration (pr20's fused loop {pr20_ms:.4f}); ")
+        res[name].update(max_abs_err=err, ms_per_iteration=ms,
+                         iterations=iters)
+    return res
+
+
+def gdsp18_path(torch, drv, card, mesh, kron18, wts, s0, want):
+    """bfs_level and sssp from s0 on bfs18's and sssp18's kron-18
+    matrices, equal to gsp18's levels and distances (`want`: its
+    algorithms.sssp and bfs_level_vxm from s0)."""
+    from pygraphblas_tpu_torch import types
+    from pygraphblas_tpu_torch.generators import to_matrix
+
+    rows, cols, n = kron18
+    A = to_matrix(rows, cols, n, types.BOOL)
+    Aw = to_matrix(rows, cols, n, types.FP32, vals=wts)
+    want_d, want_l = want
+    calls = (("bfs_level", lambda: A.shard(mesh).bfs_level(s0)._coo()),
+             ("sssp", lambda: Aw.shard(mesh).sssp(s0)._coo()))
+    res = {}
+    for (name, _), w, (v, wall, secs, nb) in zip(
+            calls, (want_l._coo(), want_d._coo()),
+            gd_calls(torch, drv, "gdsp18", calls)):
+        if not same_coo(v, w):
+            raise AssertionError(f"gdsp18 {name} from {s0} differs from "
+                                 "gsp18's")
+        res[name] = gd_line("gdsp18", name, wall, secs, nb, card,
+                            f"from {s0}: {len(v[0])} reached, equal to "
+                            "gsp18's; ")
+        res[name]["reached"] = len(v[0])
+    return res
+
+
+def gdtc16_path(torch, drv, card, mesh, kron16s, tc16_count):
+    """triangle_count on tc16's graph (equal to tc16's count), k_truss(4)
+    on kt14's (equal to algorithms.k_truss), and mxm(W, mask=W) on
+    val16's weighted L under FP32 PLUS_TIMES (within 1e-5 relative) and
+    INT32 MIN_PLUS (exact), against masked_spgemm's val16 calls."""
+    from pygraphblas_tpu_torch import algorithms, types
+    from pygraphblas_tpu_torch.core import spgemm as SG
+    from pygraphblas_tpu_torch.generators import to_matrix
+
+    rows, cols, n = kron16s
+    S = to_matrix(rows, cols, n, types.INT64)
+    r14, c14, n14 = graph(14, sym=True)
+    K = to_matrix(r14, c14, n14, types.INT64)
+    kt_want = algorithms.k_truss(K, 4)._coo()
+    W = degree_lower(*kron16s)
+    W.data = np.random.RandomState(7).randint(1, 5, W.nnz).astype(np.float64)
+    lr, lc, lv = csr_coo(W)
+    tr, tc, tv = csr_coo(W.T)
+    sems = (("FP32.PLUS_TIMES", types.FP32.PLUS_TIMES, types.FP32,
+             np.float32, 1e-5),
+            ("INT32.MIN_PLUS", types.INT32.MIN_PLUS, types.INT32, np.int32,
+             None))
+    wants, mats = {}, {}
+    for name, sem, typ, dt, _ in sems:
+        wants[name] = SG.masked_spgemm(lr, lc, lv.astype(dt), tr, tc,
+                                       tv.astype(dt), lr, lc, sem, dt)
+        mats[name] = to_matrix(lr, lc, n, typ, vals=lv.astype(dt))
+    calls = [("triangle_count", lambda: S.shard(mesh).triangle_count()),
+             ("k_truss", lambda: K.shard(mesh).k_truss(4)._coo())]
+    for name, sem, _, _, _ in sems:
+        calls.append((f"mxm {name}", lambda M=mats[name], sem=sem: M.shard(
+            mesh).mxm(M, semiring=sem, mask=M)._coo()))
+    got = gd_calls(torch, drv, "gdtc16", calls)
+    res = {}
+    (ntri, *t_tc), (kt, *t_kt), *mxm = got
+    if ntri != tc16_count:
+        raise AssertionError(f"gdtc16: {ntri} triangles, tc16 {tc16_count}")
+    res["triangle_count"] = gd_line("gdtc16", "triangle_count", *t_tc, card,
+                                    f"{ntri} triangles = tc16's; ")
+    if not same_coo(kt, kt_want):
+        raise AssertionError("gdtc16: k_truss(4) differs from "
+                             "algorithms.k_truss")
+    res["k_truss"] = gd_line("gdtc16", "k_truss", *t_kt, card,
+                             f"keeps {len(kt[0])} of {len(r14)} edges = "
+                             "algorithms.k_truss; ")
+    for (name, _, _, _, rtol), (c, *t_m) in zip(sems, mxm):
+        if not same_coo(c, wants[name], rtol):
+            raise AssertionError(f"gdtc16: mxm {name} differs from "
+                                 "masked_spgemm")
+        res[f"mxm {name}"] = gd_line(
+            "gdtc16", f"mxm {name}", *t_m, card,
+            f"{len(c[0])} entries = masked_spgemm's "
+            f"({'exact' if rtol is None else f'rtol {rtol}'}); ")
+    return res
+
+
+def gdmxv_path(torch, drv, card, mesh, kron18):
+    """DistMatrix.mxv on kron-18 under FP32 PLUS_TIMES, INT32 MIN_PLUS,
+    UINT32 BOR_BAND (the per-bit collective) and INT32 MIN_FIRSTI1 (a
+    positional mul, on a shard without the balance relabel, whose ids a
+    positional mul would report), each against Matrix.mxv on the card:
+    FP32 within 1e-5 relative, the integers exact."""
+    from pygraphblas_tpu_torch import Vector, types
+    from pygraphblas_tpu_torch.generators import to_matrix
+
+    rows, cols, n = kron18
+    rng = np.random.RandomState(11)
+    nnz = len(rows)
+    u32 = lambda k: rng.randint(0, 1 << 32, k, dtype=np.uint64).astype(
+        np.uint32)
+    cases = (("FP32.PLUS_TIMES", types.FP32,
+              rng.randint(1, 256, nnz).astype(np.float32),
+              rng.rand(n).astype(np.float32), True, 1e-5),
+             ("INT32.MIN_PLUS", types.INT32,
+              rng.randint(1, 256, nnz).astype(np.int32),
+              rng.randint(0, 1000, n).astype(np.int32), True, None),
+             ("UINT32.BOR_BAND", types.UINT32, u32(nnz), u32(n), True, None),
+             ("INT32.MIN_FIRSTI1", types.INT32, np.ones(nnz, np.int32),
+              rng.randint(0, 1000, n).astype(np.int32), False, None))
+    wants, calls = {}, []
+    for name, typ, v, x, bal, _ in cases:
+        sem = getattr(typ, name.split(".")[1])
+        M = to_matrix(rows, cols, n, typ, vals=v)
+        xv = Vector.sparse(typ, n)
+        xv._build(np.arange(n, dtype=np.int64), x)
+        wants[name] = M.mxv(xv, semiring=sem)._coo()
+        calls.append((name, lambda M=M, x=x, sem=sem, bal=bal: M.shard(
+            mesh, balance=bal).mxv(x, semiring=sem)._coo()))
+    res = {}
+    for (name, *_, rtol), (y, *t) in zip(
+            cases, gd_calls(torch, drv, "gdmxv", calls)):
+        if not same_coo(y, wants[name], rtol):
+            raise AssertionError(f"gdmxv {name}: differs from Matrix.mxv")
+        res[name] = gd_line("gdmxv", name, *t, card,
+                            f"{len(y[0])} rows = Matrix.mxv's "
+                            f"({'exact' if rtol is None else f'rtol {rtol}'})"
+                            "; ")
+    return res
+
+
+def gdckpt_path(torch, drv, card, mesh, kron18):
+    """dist_pagerank on kron-18: 10 iterations with a snapshot every 5,
+    then resumed to 20.  Gates: the resumed run starts from the
+    snapshot's ranks bit for bit (a resume to 10 runs no iteration and
+    returns them; the 10-iteration run returned the same), and ends
+    equal bit for bit to an uninterrupted 20-iteration run, as two
+    uninterrupted runs are (a gate of 1e-6 relative, tightened: the
+    float folds run each row in order)."""
+    import shutil
+    import tempfile
+
+    from pygraphblas_tpu_torch.parallel import dist as pdist
+
+    rows, cols, n = kron18
+    d = tempfile.mkdtemp(prefix="gdckpt_")
+    ck = os.path.join(d, "pagerank.npz")
+    kw = dict(tol=0, checkpoint_path=ck, checkpoint_every=5)
+    try:
+        calls = (("uninterrupted 20", lambda: pdist.dist_pagerank(
+            mesh, n, rows, cols, itermax=20, tol=0)),
+                 ("10, snapshots at 5 and 10", lambda: pdist.dist_pagerank(
+                     mesh, n, rows, cols, itermax=10, **kw)),
+                 ("resume to 10", lambda: pdist.dist_pagerank(
+                     mesh, n, rows, cols, itermax=10, **kw)),
+                 ("resume to 20", lambda: pdist.dist_pagerank(
+                     mesh, n, rows, cols, itermax=20, **kw)),
+                 ("uninterrupted 20 again", lambda: pdist.dist_pagerank(
+                     mesh, n, rows, cols, itermax=20, tol=0)))
+        got = gd_calls(torch, drv, "gdckpt", calls)
+        snap = np.load(ck)
+        step, snap_r = int(snap["__step__"]), snap["r"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    (full, *t_full), (part, *t_part), (start, *t_start), (res20, *t_res), \
+        (again, *t_again) = got
+    perm = np.random.RandomState(0x5EED).permutation(n)
+    if step != 20:
+        raise AssertionError(f"gdckpt: the last snapshot is of step {step}")
+    # the snapshot of step 10 was overwritten by the resumed run's; its
+    # ranks are what "resume to 10" returned, as the 10-iteration run did
+    if not np.array_equal(start, part):
+        raise AssertionError("gdckpt: the resume does not start from the "
+                             "snapshot's ranks bit for bit")
+    if not np.array_equal(snap_r[perm], res20):
+        raise AssertionError("gdckpt: the last snapshot is not the resumed "
+                             "run's result")
+    # the tiles' float folds run each row in order (segment_reduce), so
+    # a 1e-6 relative gate is tightened to bit equality
+    rel = float(np.max(np.abs(res20 - full) / np.abs(full)))
+    bits = dict(resumed_vs_uninterrupted=bool(np.array_equal(res20, full)),
+                two_uninterrupted_runs=bool(np.array_equal(full, again)))
+    if not all(bits.values()):
+        raise AssertionError(f"gdckpt: not bit for bit: {bits}; resumed "
+                             f"run {rel:.3e} relative from the "
+                             "uninterrupted run")
+    res = {}
+    for name, t in (("uninterrupted 20", t_full),
+                    ("10, snapshots at 5 and 10", t_part),
+                    ("resume to 10", t_start), ("resume to 20", t_res),
+                    ("uninterrupted 20 again", t_again)):
+        res[name] = gd_line("gdckpt", name, *t, card)
+    log(f"  gdckpt: resume starts from the snapshot's ranks bit for bit; "
+        f"resumed vs uninterrupted max relative {rel:.3e}; bit for bit: "
+        f"{bits}; card {card}")
+    res.update(max_rel_err=rel, bit_equal=bits)
+    return res
+
+
+def gd_phase(torch, drv, card, kron20, pr20_ref, pr20_ms, kron18, wts18, s0,
+             gsp18, kron16s, tc16_count):
+    """make_mesh() with no device: a world of one over NCCL, a (1, 1)
+    mesh on the card; the five distributed paths; the process group
+    destroyed at the end.  Returns (results, seconds a path)."""
+    import torch.distributed as dist
+
+    from pygraphblas_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    if (dist.get_backend() != "nccl" or mesh.device_type != "cuda"
+            or tuple(mesh.shape) != (1, 1)):
+        raise AssertionError(f"gd: make_mesh() gave {mesh} over "
+                             f"{dist.get_backend()}")
+    t_mesh = time.perf_counter() - t0
+    # NCCL sets its communicators up at their first collective: one
+    # all_reduce a group, timed apart from the paths
+    t0 = time.perf_counter()
+    for group in (None, mesh.get_group("i"), mesh.get_group("j")):
+        dist.all_reduce(torch.ones(1, device="cuda"), group=group)
+    torch.cuda.synchronize()
+    t_nccl = time.perf_counter() - t0
+    log(f"gd: make_mesh() {t_mesh:.2f} s: a world of "
+        f"{dist.get_world_size()} over {dist.get_backend()}, mesh "
+        f"{tuple(mesh.shape)} {mesh.mesh_dim_names} on {mesh.device_type}; "
+        f"first collectives (NCCL set-up) {t_nccl:.2f} s; card {card}")
+    res, secs = {}, {}
+    try:
+        for path, run in (
+                ("gdpr20", lambda: gdpr20_path(torch, drv, card, mesh, kron20,
+                                               pr20_ref, pr20_ms)),
+                ("gdsp18", lambda: gdsp18_path(torch, drv, card, mesh, kron18,
+                                               wts18, s0, gsp18)),
+                ("gdtc16", lambda: gdtc16_path(torch, drv, card, mesh,
+                                               kron16s, tc16_count)),
+                ("gdmxv", lambda: gdmxv_path(torch, drv, card, mesh, kron18)),
+                ("gdckpt", lambda: gdckpt_path(torch, drv, card, mesh,
+                                               kron18))):
+            t = time.perf_counter()
+            res[path] = run()
+            secs[path] = time.perf_counter() - t
+            log(f"  {path}: {secs[path]:.1f} s in all; card {card}")
+    finally:
+        dist.destroy_process_group()
+    return res, secs
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200,
@@ -3710,6 +4059,10 @@ def main():
         f"torch CSR SpMV (A^T w) {lib_spmv_ms:.4f} ms")
     e2e["pr20"].update(coo_ms_per_iteration=coo_ms,
                        torch_csr_spmv_ms=lib_spmv_ms)
+    # the distributed tier's yardstick (gdpr20): fused.pagerank's first 20
+    # iterations on the same matrix
+    pr20_ref20 = fused.pagerank(A, itermax=20, tol=-1.0)._vals.cpu().numpy()
+    kron20 = (rows, cols, n)
     del At, rows_d, cols_d, rows, cols
     phase_s["pr20"] = time.perf_counter() - t0
 
@@ -3915,6 +4268,15 @@ def main():
         t0 = time.perf_counter()
         e2e[path] = run()
         phase_s[path] = time.perf_counter() - t0
+
+    # 3h. slice 13: the distributed tier in a world of one over NCCL
+    gd, gd_s = gd_phase(torch, drv, card, kron20, pr20_ref20,
+                        e2e["pr20"]["ms_per_iteration"], kron18, wts, s0,
+                        drv.results["gsp18"], kron16s,
+                        e2e["tc16"]["triangles"])
+    e2e.update(gd)
+    phase_s.update(gd_s)
+    del kron20
 
     # 4. small cases of every kernel (MIN/MAX folds, muls, int32)
     t0 = time.perf_counter()

@@ -6,7 +6,9 @@ them to the device they test), the index recipe by which one
 and the GraphChallenge DNN's test data: RadiX-Net layers, biases and
 images from a seed (`radix_net`, `build_biases`, `fullscale_images`; the
 same matrices as the JAX package's ``demo/dnn``) with the scipy oracle
-of the challenge's recurrence (`scipy_dnn_oracle`)."""
+of the challenge's recurrence (`scipy_dnn_oracle`); and `RankPool`,
+spawned gloo ranks on the CPU that run the distributed tier's jobs
+(``job_*``) in lockstep for its tests."""
 
 import numpy as np
 import torch
@@ -538,3 +540,304 @@ def scipy_dnn_oracle(img_r, img_c, img_v, layer_triples, nfeat, n, bias):
         Y.data = np.minimum(np.maximum(Y.data, 0), 32).astype(np.float32)
         Y.eliminate_zeros()
     return Y
+
+
+# ---------------------------------------------------------------------------
+# spawned ranks for the distributed tier's CPU tests
+# ---------------------------------------------------------------------------
+
+
+class RankPool:
+    """`world` spawned processes, the ranks of one gloo process group
+    (over a FileStore in a temporary directory: no TCP port), each on a
+    (pi, pj) mesh of ``parallel.make_mesh(world, device="cpu")`` and one
+    CPU thread.  ``pool.run(name, **kw)`` hands every rank the job
+    ``job_<name>(mesh, **kw)`` of this module and returns the ranks'
+    results in rank order.  A job that raises on any rank makes `run`
+    raise with that rank's traceback, and the pool restarts at its next
+    job.  The children import neither jax nor a test module."""
+
+    def __init__(self, world=4, timeout=300.0):
+        self.world = world
+        self.timeout = timeout
+        self._procs = []
+
+    def start(self):
+        import multiprocessing
+        import tempfile
+
+        ctx = multiprocessing.get_context("spawn")
+        self._dir = tempfile.mkdtemp(prefix="pygb_ranks_")
+        self._jobs = [ctx.Queue() for _ in range(self.world)]
+        self._results = ctx.Queue()
+        self._procs = [ctx.Process(
+            target=_rank_main, daemon=True,
+            args=(r, self.world, f"{self._dir}/store", self._jobs[r],
+                  self._results)) for r in range(self.world)]
+        for proc in self._procs:
+            proc.start()
+
+    def run(self, name, **kw):
+        import queue
+        import time
+
+        if not self._procs:
+            self.start()
+        for q in self._jobs:
+            q.put((name, kw))
+        out = {}
+        deadline = time.monotonic() + self.timeout
+        while len(out) < self.world:
+            try:
+                rank, ok, val = self._results.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                self.close()
+                raise TimeoutError(f"job {name}: ranks {sorted(out)} of "
+                                   f"{self.world} answered") from None
+            if not ok:
+                self.close()
+                raise RuntimeError(f"job {name} failed on rank {rank}:\n"
+                                   f"{val}")
+            out[rank] = val
+        return [out[r] for r in range(self.world)]
+
+    def close(self):
+        import shutil
+
+        if not self._procs:
+            return
+        for q in self._jobs:
+            q.put(None)
+        for proc in self._procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+        self._procs = []
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def _rank_main(rank, world, store_path, jobs, results):
+    """A rank of RankPool: join the group, then run jobs until None."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from .parallel import dist as pdist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    mesh = pdist.make_mesh(world, device="cpu")
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        name, kw = job
+        try:
+            results.put((rank, True, globals()["job_" + name](mesh, **kw)))
+        except Exception:  # noqa: BLE001 — reported to the test process
+            results.put((rank, False, traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+def _semiring(name):
+    """"FP32.PLUS_TIMES" -> the port's semiring object."""
+    from . import types
+
+    typ, sem = name.split(".")
+    return getattr(getattr(types, typ), sem)
+
+
+def _matrix(A):
+    """(type name, nrows, ncols, rows, cols, vals) -> a port Matrix on
+    the CPU."""
+    from . import Matrix, types
+
+    typ, n, m, r, c, v = A
+    M = Matrix.sparse(getattr(types, typ), n, m, device="cpu")
+    M._build(np.asarray(r, np.int64), np.asarray(c, np.int64),
+             np.asarray(v))
+    return M
+
+
+def job_mesh(mesh):
+    """The mesh as a rank sees it."""
+    import torch.distributed as dist
+
+    from .parallel import dist as pdist
+
+    try:
+        pdist.make_mesh(dist.get_world_size() - 1, device="cpu")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return dict(shape=pdist.mesh_shape(mesh), rank=dist.get_rank(),
+                coordinate=(mesh.get_local_rank("i"),
+                            mesh.get_local_rank("j")),
+                ranks=mesh.mesh.tolist(), device=mesh.device_type,
+                same=pdist.make_mesh(device="cpu") is mesh,
+                refused=refused)
+
+
+def job_spmv(mesh, n, m, rows, cols, vals, x, cases):
+    """DistSpMV over each (add, mul, dtype name) of `cases` on the same
+    triples: the whole y of each, as numpy values of its dtype."""
+    from .parallel import dist as pdist
+
+    out = []
+    for add, mul, dt in cases:
+        s = pdist.DistSpMV(mesh, n, m, rows, cols,
+                           np.asarray(vals).astype(dt), add=add, mul=mul,
+                           dtype=dt)
+        xp = np.zeros(s.ncols_p, dt)
+        xp[:len(x)] = x
+        out.append(s.to_numpy(s.gather(s(xp))))
+    return out
+
+
+def job_pagerank(mesh, nrows, rows, cols, **kw):
+    from .parallel import dist as pdist
+
+    return pdist.dist_pagerank(mesh, nrows, rows, cols, **kw)
+
+
+def job_pagerank_step(mesh, n, rows, cols, r, d_inv, teleport):
+    """One dist_pagerank_step on DistSpMV(A^T, PLUS_SECOND) from the whole
+    padded vectors `r` and `d_inv`: the whole new ranks and the
+    residual."""
+    from .parallel import dist as pdist
+
+    s = pdist.DistSpMV(mesh, n, n, cols, rows, np.ones(len(rows), np.float32),
+                       add="PLUS", mul="SECOND")
+    lo = s.ri * s.rb
+    block = lambda a: torch.from_numpy(a[lo:lo + s.rb].copy())
+    r_new, rdiff = pdist.dist_pagerank_step(s, block(r), block(d_inv),
+                                            teleport)
+    return s.to_numpy(s.gather(r_new)), float(rdiff)
+
+
+def job_triangles(mesh, nrows, rows, cols, width_cap=None):
+    from .parallel import dist as pdist
+
+    old = pdist._TC_WIDTH_CAP
+    pdist._TC_WIDTH_CAP = width_cap or old
+    try:
+        return pdist.dist_triangle_count(mesh, nrows, rows, cols)
+    finally:
+        pdist._TC_WIDTH_CAP = old
+
+
+def job_all_to_all(mesh, idx, val, dest, cap):
+    from .parallel import dist as pdist
+
+    ri, rv = pdist.frontier_all_to_all(mesh, torch.from_numpy(idx),
+                                       torch.from_numpy(val),
+                                       torch.from_numpy(dest), cap)
+    return ri.numpy(), rv.numpy()
+
+
+def job_vector_ops(mesh):
+    """DistVector's elementwise ops, reductions and layouts."""
+    from . import types
+    from .parallel.dist import DistVector
+
+    out = {}
+    for spec in (None, "i", "j"):
+        a = DistVector.dense(mesh, 10, 16, 3, types.INT64, spec)
+        b = DistVector.dense(mesh, 10, 16, 4, types.INT64, spec)
+        out[spec] = dict(
+            eadd=a.eadd(b, "PLUS").to_numpy(),
+            emult=a.emult(b, "TIMES").to_numpy(),
+            ainv=a.apply("AINV").to_numpy(),
+            sum10=a.apply(lambda z: z * 10).reduce("PLUS"),
+            bmax=b.reduce("MAX"), bor=a.reduce("BOR"),
+            float_sum=a.reduce_float())
+    return out
+
+
+def job_checkpoint(mesh, path, signature):
+    """save_state / load_state across the ranks (rank 0 writes), and
+    elastic_run restarting from a snapshot after injected failures."""
+    import torch.distributed as dist
+
+    from .parallel.checkpoint import elastic_run, load_state, save_state
+
+    save_state(path, signature, 3, x=np.arange(4) * (dist.get_rank() + 1))
+    step, arrays = load_state(path, signature)
+    refused = load_state(path, signature + ":other")
+    fails = {"left": 2}
+
+    def step_fn(i, state):
+        if i == 3 and fails["left"] > 0:
+            fails["left"] -= 1
+            raise RuntimeError("injected fault")
+        return {"x": state["x"] + 1}
+
+    state = elastic_run(step_fn, {"x": np.zeros(4)}, 6,
+                        checkpoint_path=path + ".elastic.npz",
+                        signature="elastic", checkpoint_every=2)
+    return dict(step=step, x=arrays["x"], refused=refused,
+                elastic=state["x"], fails_left=fails["left"])
+
+
+def job_shard(mesh, A, op, balance=True, **kw):
+    """``Matrix.shard(mesh, balance)`` of the matrix `A` (see `_matrix`),
+    then one operation: its host result as numpy (vectors and matrices
+    as their coordinate triples)."""
+    from .parallel import dist as pdist
+
+    D = _matrix(A).shard(mesh, balance=balance)
+    if op == "mxv":
+        y = D.mxv(kw["x"], semiring=_semiring(kw["semiring"]),
+                  transpose=kw.get("transpose", False))
+        return y._coo()
+    if op == "mxv_mask_accum":
+        prev = D.vector(fill=2.0, typ=_semiring(kw["semiring"]).ztype)
+        y = D.mxv(kw["x"], semiring=_semiring(kw["semiring"]),
+                  mask=kw["mask"], accum="PLUS", out=prev, out_dist=True)
+        return y.to_numpy(), y.reduce_float()
+    if op == "chain":
+        from . import types
+
+        y = D.vector(fill=1.0, typ=types.FP32)
+        for _ in range(kw["steps"]):
+            y = D.mxv(y, semiring=_semiring("FP32.PLUS_TIMES"))
+            if not isinstance(y, pdist.DistVector):
+                raise TypeError(f"mxv of a DistVector gave {type(y)}")
+        return y.to_numpy(), y.to_vector()._coo()
+    if op == "pagerank":
+        return D.pagerank(**kw).to_numpy()
+    if op == "triangle_count":
+        return D.triangle_count()
+    if op in ("bfs_level", "sssp"):
+        return getattr(D, op)(kw["source"])._coo()
+    if op == "k_truss":
+        return D.k_truss(kw["k"])._coo()
+    if op == "mxm":
+        C = D.mxm(_matrix(kw["B"]), semiring=_semiring(kw["semiring"]),
+                  mask=_matrix(kw["M"]))
+        return C._coo()
+    if op == "mxm_heavy":
+        old = pdist._TC_WIDTH_CAP
+        pdist._TC_WIDTH_CAP = kw["width_cap"]
+        try:
+            B = _matrix(kw["B"])
+            return D.mxm(B, semiring=_semiring(kw["semiring"]),
+                         mask=_matrix(kw["M"]))._coo()
+        finally:
+            pdist._TC_WIDTH_CAP = old
+    if op == "ring_cache":
+        M = _matrix(kw["M"])
+        B = _matrix(A)
+        sem = _semiring(kw["semiring"])
+        pdist._RING_CACHE.clear()
+        pdist._STATS["block_csr_builds"] = 0
+        C1 = D.mxm(B, semiring=sem, mask=M)
+        first = pdist._STATS["block_csr_builds"]
+        C2 = D.mxm(B, semiring=sem, mask=M)
+        return first, pdist._STATS["block_csr_builds"], C1.iseq(C2)
+    raise ValueError(op)

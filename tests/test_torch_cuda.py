@@ -1124,3 +1124,126 @@ def test_fused_dnn_on_card(card):
     truth = truth.tocoo()
     assert outs[0] == [truth.row.tolist(), truth.col.tolist(),
                        truth.data.tolist()]
+
+
+# the distributed tier in a world of one over NCCL: a (1, 1) mesh on the
+# card, every collective to a group of one
+
+
+@pytest.fixture
+def mesh(card):
+    from pygraphblas_tpu_torch.parallel import make_mesh
+
+    m = make_mesh()
+    assert m.device_type == "cuda" and tuple(m.shape) == (1, 1)
+    return m
+
+
+def _dist_graph(scale=10, sym=True):
+    rows, cols, n = generators.rmat_edges(scale, 8, seed=5)
+    if sym:
+        rows, cols = np.concatenate([rows, cols]), np.concatenate([cols,
+                                                                   rows])
+    keys = np.unique(rows.astype(np.int64) * n + cols)
+    return keys // n, keys % n, n
+
+
+@pytest.mark.parametrize("add,mul,dt", [
+    ("PLUS", "TIMES", "float32"), ("MIN", "PLUS", "int32"),
+    ("BOR", "BAND", "uint32"), ("MIN", "FIRSTI1", "int64"),
+    ("PLUS", "TIMES", "int16"), ("LOR", "LAND", "bool"),
+    ("TIMES", "PLUS", "int64"), ("BXOR", "MINUS", "int8")])
+def test_dist_spmv_world_of_one(mesh, add, mul, dt):
+    """DistSpMV on the card over NCCL (the per-bit, widened and gathered
+    collectives too) equal to the same executor on the CPU's plain
+    torch ops: the fold and the collective of a group of one."""
+    from pygraphblas_tpu_torch.parallel import dist as pdist
+
+    r, c, n = _dist_graph()
+    rng = np.random.RandomState(3)
+    v = rng.randint(1, 9, len(r))
+    x = rng.randint(1, 9, n)
+    s = pdist.DistSpMV(mesh, n, n, r, c, v.astype(dt), add=add, mul=mul,
+                       dtype=dt)
+    got = s.to_numpy(s.gather(s(x.astype(dt))))
+    xt = pdist._to_work(x.astype(dt), np.dtype(dt), "cpu")
+    vt = pdist._to_work(v.astype(dt), np.dtype(dt), "cpu")
+    prod = (s._mul(vt, xt[torch.from_numpy(c)]) if s._mul is not None
+            else torch.from_numpy(r + 1))
+    want = pdist._ADDS[add](prod.to(vt.dtype), torch.from_numpy(r), n)
+    assert np.array_equal(got[:n], s.to_numpy(want))
+
+
+def test_dist_matrix_world_of_one(mesh):
+    """Matrix.shard on the card: mxv, BFS, SSSP, triangles, k-truss and
+    masked mxm equal to the single-device container results; PageRank
+    (on the pattern) within 1e-5 of algorithms.pagerank."""
+    from pygraphblas_tpu_torch import Matrix
+
+    r, c, n = _dist_graph()
+    w = np.random.RandomState(4).randint(1, 9, len(r)).astype(np.float32)
+    A = Matrix.sparse(types.FP32, n, n)
+    A._build(r, c, w)
+    D = A.shard(mesh)
+    x = np.random.RandomState(5).rand(n).astype(np.float32)
+    from pygraphblas_tpu_torch import Vector
+
+    xv = Vector.from_lists(list(range(n)), list(x), n)
+    want = A.mxv(xv, semiring=types.FP32.PLUS_TIMES)
+    got = D.mxv(x, semiring=types.FP32.PLUS_TIMES)
+    gi, gv = got._coo()
+    wi, wv = want._coo()
+    assert np.array_equal(gi, wi) and np.allclose(gv, wv, rtol=1e-5)
+    B = A.pattern(types.BOOL)
+    for a, b in ((D.bfs_level(3), algorithms.bfs_level(B, 3)),
+                 (D.sssp(3), algorithms.sssp(A, 3))):
+        assert all(np.array_equal(p, q) for p, q in zip(a._coo(), b._coo()))
+    I = Matrix.sparse(types.INT64, n, n)
+    I._build(r, c, np.ones(len(r), np.int64))
+    DI = I.shard(mesh)
+    assert DI.triangle_count() == algorithms.triangle_count(I)
+    kt_got, kt_want = DI.k_truss(4)._coo(), algorithms.k_truss(I, 4)._coo()
+    assert all(np.array_equal(p, q) for p, q in zip(kt_got, kt_want))
+    got = D.mxm(A, semiring=types.FP32.PLUS_TIMES, mask=A)._coo()
+    want = A.mxm(A, semiring=types.FP32.PLUS_TIMES, mask=A)._coo()
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1],
+                                                              want[1])
+    assert np.allclose(got[2], want[2], rtol=1e-5)
+    P = Matrix.sparse(types.FP32, n, n)
+    P._build(r, c, np.ones(len(r), np.float32))
+    pr = P.shard(mesh).pagerank(itermax=20, tol=0).to_numpy()
+    assert np.allclose(pr, algorithms.pagerank(P, itermax=20,
+                                               tol=0).to_numpy(), atol=1e-5)
+
+
+def test_dist_pagerank_checkpoint_world_of_one(mesh, tmp_path):
+    """An interrupted run on the card resumed from its snapshot equals
+    the uninterrupted run bit for bit: the tiles' float folds run each
+    row in order (segment_reduce), not by atomic adds."""
+    from pygraphblas_tpu_torch.parallel import dist as pdist
+
+    r, c, n = _dist_graph(sym=False)
+    full = pdist.dist_pagerank(mesh, n, r, c, itermax=20, tol=0)
+    ck = str(tmp_path / "pr.npz")
+    pdist.dist_pagerank(mesh, n, r, c, itermax=10, tol=0,
+                        checkpoint_path=ck, checkpoint_every=5)
+    resumed = pdist.dist_pagerank(mesh, n, r, c, itermax=20, tol=0,
+                                  checkpoint_path=ck, checkpoint_every=5)
+    assert np.array_equal(resumed, full)
+
+
+def test_frontier_all_to_all_world_of_one(mesh):
+    """At P == 1 every packet stays: the first cap slots in order."""
+    from pygraphblas_tpu_torch.parallel import dist as pdist
+
+    idx = torch.arange(16, device="cuda")
+    val = torch.arange(16, device="cuda", dtype=torch.float32) / 2
+    dest = torch.zeros(16, dtype=torch.int32, device="cuda")
+    dest[::3] = -1
+    ri, rv = pdist.frontier_all_to_all(mesh, idx, val, dest, 16)
+    keep = (dest >= 0).cpu().numpy()
+    want = np.full(16, -1)
+    want[:keep.sum()] = np.arange(16)[keep]
+    assert np.array_equal(ri.cpu().numpy()[0], want)
+    assert np.array_equal(rv.cpu().numpy()[0][:keep.sum()],
+                          np.arange(16)[keep] / 2)

@@ -78,39 +78,6 @@ def _same(got, want, rtol=None):
         np.testing.assert_allclose(got[2], want[2], rtol=rtol)
 
 
-@pytest.mark.parametrize("sem,typ,scale", [("PLUS_TIMES", "FP32", 10),
-                                           ("PLUS_PAIR", "INT32", 9),
-                                           ("MIN_PLUS", "INT32", 9),
-                                           ("MAX_TIMES", "INT32", 9)])
-def test_esc_spgemm_matches_jax(sem, typ, scale):
-    """A @ A on an RMAT graph (integer values 1..4 for INT32)."""
-    r, c, v = _kron(scale)
-    dt = getattr(types, typ).numpy_dtype
-    v = v.astype(dt) if dt == np.float32 else (v + 1).astype(dt)
-    want = jesc.esc_spgemm(r, c, v, r, c, v,
-                           getattr(getattr(jtypes, typ), sem), dt)
-    got = esc.esc_spgemm(r, c, v, r, c, v,
-                         getattr(getattr(types, typ), sem), dt, device=CPU)
-    assert len(want[0]) > 10000
-    _same(got, want, 1e-5 if dt == np.float32 else None)
-
-
-def test_esc_rectangular_operands_match_jax():
-    """A (rows of one kron graph) times B (another), hypersparse ids."""
-    r, c, v = _kron(9, seed=1)
-    rb, cb, vb = _kron(9, seed=2)
-    big = 10 ** 12
-    ra, cb2 = r * 1_000_003 % big, cb * 7 + big
-    o = np.lexsort((c, ra))
-    ra, ca, va = ra[o], c[o], v[o].astype(np.float32)
-    vb = vb.astype(np.float32)
-    want = jesc.esc_spgemm(ra, ca, va, rb, cb2, vb, jtypes.FP32.PLUS_TIMES,
-                           np.float32)
-    got = esc.esc_spgemm(ra, ca, va, rb, cb2, vb, types.FP32.PLUS_TIMES,
-                         np.float32, device=CPU)
-    _same(got, want, 1e-5)
-
-
 def test_esc_explicit_zero_kept():
     """1*1 + (-1)*1 = 0 stays a stored entry (test_spgemm_engines.py:111)."""
     args = (np.array([5, 5]), np.array([1, 2]),

@@ -1,8 +1,8 @@
 """The port's drawing helpers (``gviz``) against the JAX package's on the
 CPU (graphviz sources equal as strings, PIL images equal byte for
 byte), ``run_doctests`` over the port's modules, and the public names:
-the port lacks, of the JAX package's, only the distributed tier
-(``parallel`` and ``Matrix.shard``)."""
+the port lacks none of the JAX package's, the distributed tier
+(``parallel`` and ``Matrix.shard``) included."""
 
 import doctest
 import importlib
@@ -107,10 +107,13 @@ def _public(pkg):
 
 def test_port_lacks_only_the_distributed_tier():
     """Of the JAX package's public names (top level, submodules, and the
-    names of Matrix, Vector, Scalar, algorithms and fused), the port
-    lacks only `parallel` and `Matrix.shard` (the distributed tier)."""
-    assert _public(J) - _public(T) == {"parallel"}
-    for mod in ("gviz", "io", "io.mm", "io.binfile", "io.native"):
+    names of Matrix, Vector, Scalar, algorithms, fused, gviz, io and the
+    distributed tier's modules), the port lacks none: the distributed
+    tier (`parallel`, `Matrix.shard`) was the last (the test keeps the
+    name it had while that tier was missing)."""
+    assert _public(J) - _public(T) == set()
+    for mod in ("gviz", "io", "io.mm", "io.binfile", "io.native",
+                "parallel", "parallel.dist", "parallel.checkpoint"):
         importlib.import_module(f"pygraphblas_tpu_torch.{mod}")
     missing = {}
     for name in ("Matrix", "Vector", "Scalar"):
@@ -118,12 +121,14 @@ def test_port_lacks_only_the_distributed_tier():
             - set(dir(getattr(T, name)))
         if gone:
             missing[name] = gone
-    assert missing == {"Matrix": {"shard"}}
-    for mod in ("algorithms", "fused", "gviz", "io.mm", "io.binfile"):
+    assert missing == {}
+    for mod in ("algorithms", "fused", "gviz", "io.mm", "io.binfile",
+                "parallel", "parallel.dist", "parallel.checkpoint"):
         jm = importlib.import_module(f"pygraphblas_tpu.{mod}")
         tm = importlib.import_module(f"pygraphblas_tpu_torch.{mod}")
         want = set(getattr(jm, "__all__", [n for n in dir(jm)
                                             if not n.startswith("_")
                                             and callable(getattr(jm, n))]))
-        want -= {"jax", "jnp", "partial"}
+        # JAX's own names, imported into the modules
+        want -= {"jax", "jnp", "partial", "Mesh", "P", "NamedSharding"}
         assert want <= set(dir(tm)), (mod, want - set(dir(tm)))

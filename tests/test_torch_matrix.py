@@ -376,10 +376,10 @@ def test_build_out_of_bounds_raises_dimension_mismatch():
 
 
 def test_matrix_lacks_only_io_and_shard():
-    """The port's Matrix has every name of the JAX package's but shard
-    (the distributed tier, ROADMAP item 12); the I/O constructors are
-    ported."""
-    assert set(dir(J.Matrix)) - set(dir(T.Matrix)) == {"shard"}
+    """The port's Matrix has every name of the JAX package's: the I/O
+    constructors and, since the distributed tier, ``shard`` (the test
+    keeps the name it had while those two were missing)."""
+    assert set(dir(J.Matrix)) - set(dir(T.Matrix)) == set()
 
 
 PRINT_VALUES = {"INT64": [-7, 42, 0, 123456], "FP32": [1.5, -0.25, 3.0, 1e6],
