@@ -126,8 +126,8 @@ Phases, in order; any failure exits non-zero:
               algorithms.dnn (bitmap tier) equal entry for entry to a
               float64 oracle on the card, categories equal (no kernel:
               torch.matmul without TF32);
-       gdnn_coo the same net at 1024 images (DNN_COO_IMAGES) on the COO
-              tier: algorithms.dnn (the compact-dense tier) and
+       gdnn_coo the same net at 1024 images (DNN_COO_IMAGES) and 60
+              layers (DNN_COO_LAYERS) on the COO tier: algorithms.dnn (the compact-dense tier) and
               hyperdnn (its products through ESC: 4 segfold and 1
               esc_gather a call, every call's launches held against
               their plain versions), each layer's route counted;
@@ -154,6 +154,14 @@ Phases, in order; any failure exits non-zero:
               an uninterrupted run, as two uninterrupted runs are;
      each with its seconds, the host share (balance, tiling, the rings'
      host build) and the bytes it placed on the card;
+     then the user-facing entry points (gallery_phase), each with the
+     kernel counters at 0 around it: run_doctests() with the card as the
+     examples' default device (0 failures of at least 446), every
+     demo_torch script's main (OK last), the GraphChallenge harness
+     (synthetic; a small dataset in the challenge's layout against its
+     truth file), gap_torch/bcmark.py at its defaults and
+     gap_torch/prmark.py --scale 18 --rounds 2 (gprmark18: bfs18's
+     launches an xspmv), each with its seconds and launches;
      before each path, every kernel it runs is held against its plain
      PyTorch version on the card at the path's own shapes (bit-exact,
      but pair_fold's float32 PLUS within rtol 1e-5: another fold order),
@@ -355,7 +363,15 @@ EXPECTED = {
     "gdnn_coo dnn": {},
     "gio binfile": {},
     "gio mm": {},
+    # slice 14: gap_torch/prmark.py at kron-18, fused.pagerank on A^T
+    # (bfs18's plan shape: the plan is the pattern's)
+    "gprmark18": {"mono_span": 2, "mono_cascade": 1, "lane_gather_tdesc": 2,
+                  "mid_pass": 1, "lane_gather_tasc": 2},
 }
+# the JAX package's docstring examples that run_doctests must try on the
+# card at least (its __init__, matrix, vector, base, binaryop, unaryop
+# and selectop hold 440, its scalar 6)
+GALLERY_MIN_EXAMPLES = 446
 # masked-SpGEMM paths: the kernel each masked_spgemm call of the path
 # launches, once per width bucket of its light edges ("bucket"), or once
 # per chunk of (1 << 24) // W edges of each bucket ("chunk"); counted
@@ -1390,6 +1406,11 @@ UNSIGNED_BIG = {"UINT16": 40000, "UINT32": 3000000000,
 # but at 4096 the path took 438 s of host-bound work on the card (ESC's
 # host relabel and plan 1.26 s a call: PERF.md), so it runs at 1024
 DNN_COO_IMAGES = 1024
+# and its depth: ESC's host relabel runs over all of the whole-net
+# matrix's rows, so hyperdnn's seconds grow with the square of the
+# layers (156 s at 120 layers on an H100 80GB HBM3 at 700 W, in a whole
+# run of 1017.7 s); 60 layers keep the whole run well inside its 1200 s
+DNN_COO_LAYERS = 60
 
 
 def check_unsigned_selects():
@@ -3420,7 +3441,7 @@ def gdnn_coo_path(torch, ck, drv, card, nimages, nlayers=120):
     """algorithms.dnn and hyperdnn (over hypergraph(layers) and
     hypergraph(biases, diag=True)) on the COO tier (bitmap_max_cells =
     vector_max_cells = 1, as tests/test_dnn.py forces it), 1024 neurons,
-    120 layers, `nimages` images (run_fullscale's network at that image
+    `nlayers` layers, `nimages` images (run_fullscale's network at that image
     count): each layer's products logged by route.  dnn's Y @ W takes
     the compact-dense tier (torch.matmul), its bias Matrix._mxm_diag;
     hyperdnn's Y @ HW takes ESC (4 segfold and 1 esc_gather a call;
@@ -3927,6 +3948,139 @@ def gd_phase(torch, drv, card, kron20, pr20_ref, pr20_ms, kron18, wts18, s0,
     return res, secs
 
 
+def gallery_phase(torch, drv, card):
+    """Slice 14: the user-facing entry points on the card, each with the
+    kernel counters at 0 just before it and read just after (its
+    launches land in drv.counts as "gallery <name>"): run_doctests()
+    (0 failures, at least GALLERY_MIN_EXAMPLES tried), every
+    demo_torch/NN_*.py main (each must print OK last), the GraphChallenge
+    harness (its synthetic net, and a small dataset in the challenge's
+    layout against its truth file), gap_torch/bcmark.py at its defaults
+    and gap_torch/prmark.py --scale 18 --rounds 2, driven: every xspmv
+    kernel of its plan launched EXPECTED["gprmark18"] times an xspmv
+    call.  Each entry point's output goes to chiprun_out/
+    chip_smoke_gallery.log.  Returns {entry point: its record}."""
+    import contextlib
+    import doctest
+    import importlib.util
+    import io
+    import tempfile
+
+    import pygraphblas_tpu_torch as T
+    from pygraphblas_tpu_torch import _kernels as K, testing
+    from demo_torch.dnn import challenge
+    from gap_torch import bcmark, prmark
+
+    out = {}
+    logf = open(os.path.join(OUT_DIR, "chip_smoke_gallery.log"), "w")
+
+    def entry(name, call, record=True):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = call()
+            torch.cuda.synchronize()
+        finally:
+            logf.write(f"==== {name}\n{buf.getvalue()}\n")
+            logf.flush()
+        secs = time.perf_counter() - t
+        counts = dict(K.launches)
+        if record:              # (a driven path records its own)
+            drv.counts[f"gallery {name}"] = dict(counts=counts)
+        text = buf.getvalue().strip().splitlines()
+        out[name] = dict(seconds=secs,
+                         launches={k: c for k, c in counts.items() if c},
+                         last_line=text[-1] if text else "")
+        log(f"  {name}: {secs:.2f} s; hand kernels "
+            f"{out[name]['launches'] or 'none'}; card {card}")
+        return res, buf.getvalue()
+
+    try:
+        # the docstring examples, on the card (their default device)
+        tried = {}
+        orig = doctest.testmod
+
+        def counting(mod, **kw):
+            r = orig(mod, **kw)
+            tried[mod.__name__] = (r.attempted, r.failed)
+            return r
+
+        doctest.testmod = counting
+        try:
+            failed, text = entry("run_doctests", T.run_doctests)
+        finally:
+            doctest.testmod = orig
+        attempted = sum(a for a, _ in tried.values())
+        out["run_doctests"].update(failed=failed, attempted=attempted,
+                                   by_module=tried)
+        log(f"    {attempted} examples tried, {failed} failed: {tried}"
+            + ("" if "pygraphblas_tpu_torch.gviz" in tried else
+               "; gviz's examples not run (graphviz or PIL absent)"))
+        if failed or attempted < GALLERY_MIN_EXAMPLES:
+            raise AssertionError(f"gallery: run_doctests() on the card: "
+                                 f"{failed} of {attempted} failed:\n"
+                                 f"{text[-3000:]}")
+
+        # the demo gallery
+        demos = sorted(f for f in os.listdir(os.path.join(HERE, "demo_torch"))
+                       if f[:2].isdigit() and f.endswith(".py"))
+        for f in demos:
+            spec = importlib.util.spec_from_file_location(
+                "demo_torch_" + f[:-3], os.path.join(HERE, "demo_torch", f))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            entry(f[:-3], lambda: mod.main(["--device", "cuda"]))
+            if out[f[:-3]]["last_line"] != "OK":
+                raise AssertionError(f"gallery: {f} ended with "
+                                     f"{out[f[:-3]]['last_line']!r}")
+
+        # the GraphChallenge harness: the synthetic net, and a small
+        # dataset in the challenge's layout
+        syn, _ = entry("challenge synthetic",
+                       lambda: challenge.main(["--device", "cuda"]))
+        if syn.nvals == 0 or syn._dense_pair()[0].device.type != "cuda":
+            raise AssertionError("gallery: the synthetic net gave nothing "
+                                 "on the card")
+        with tempfile.TemporaryDirectory() as d:
+            truth = testing.write_challenge_dataset(
+                d, 1024, 3, 64, challenge.BIAS[1024])
+            entry("challenge dataset", lambda: challenge.main(
+                ["--ndir", d, "--nneurons", "1024", "--nlayers", "3",
+                 "--device", "cuda"]))
+        out["challenge dataset"]["categories"] = len(truth)
+
+        # the GAP drivers
+        bstats, pstats = {}, {}
+        bc, _ = entry("bcmark", lambda: bcmark.run(
+            bcmark.parser().parse_args([]), bstats))
+        if not bool(torch.isfinite(bc._dense_pair()[0]).all()):
+            raise AssertionError("gallery: bcmark's centrality not finite")
+        out["bcmark"].update(bstats)
+        args = prmark.parser().parse_args(["--scale", "18", "--rounds", "2"])
+        pr, _ = entry("prmark", lambda: drv.drive(
+            "gprmark18", lambda: prmark.run(args, pstats),
+            EXPECTED["gprmark18"]), record=False)
+        vals = pr._dense_pair()[0]
+        if vals.shape != (1 << 18,) or not bool(torch.isfinite(vals).all()):
+            raise AssertionError("gallery: prmark's ranks not finite of "
+                                 "shape (2^18,)")
+        rounds = pstats["rounds_s"]
+        out["prmark"].update(
+            pstats, xspmv_calls=drv.counts["gprmark18"]["xspmv_calls"],
+            nnz_per_s=[pstats["nnz"] / r for r in rounds])
+        log(f"    prmark kron-18: rounds {rounds} s, "
+            f"{pstats['nnz']} entries, nnz/s "
+            + ", ".join(f"{pstats['nnz'] / r:.6e}" for r in rounds)
+            + f" ({drv.counts['gprmark18']['xspmv_calls']} xspmv); "
+            f"card {card}")
+    finally:
+        logf.close()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200,
@@ -4264,7 +4418,8 @@ def main():
             ("groad", lambda: groad_path(torch, drv, card)),
             ("gdnn1024", lambda: gdnn1024_path(torch, drv, card)),
             ("gdnn_coo", lambda: gdnn_coo_path(torch, ck, drv, card,
-                                               DNN_COO_IMAGES))):
+                                               DNN_COO_IMAGES,
+                                               DNN_COO_LAYERS))):
         t0 = time.perf_counter()
         e2e[path] = run()
         phase_s[path] = time.perf_counter() - t0
@@ -4277,6 +4432,15 @@ def main():
     e2e.update(gd)
     phase_s.update(gd_s)
     del kron20
+
+    # 3i. slice 14: the user-facing entry points (doctests, gallery,
+    # harness, GAP drivers), after gd_phase has closed its process group
+    # (demo 07 starts its own world of one)
+    t0 = time.perf_counter()
+    log("gallery:")
+    e2e["gallery"] = gallery_phase(torch, drv, card)
+    phase_s["gallery"] = time.perf_counter() - t0
+    log(f"  gallery phase {phase_s['gallery']:.1f} s; card {card}")
 
     # 4. small cases of every kernel (MIN/MAX folds, muls, int32)
     t0 = time.perf_counter()

@@ -10,9 +10,10 @@ xspmv plan is built and checked), ``gio`` (MatrixMarket at kron-18, the
 binary checkpoint at kron-20), ``groad`` (the
 frontier BFS on the 4096 x 4096 lattice), ``gdnn1024`` (the dense DNN
 at 1024 neurons, 120 layers, 60,000 images) and ``gdnn_coo`` (the
-COO-tier DNN at chip_smoke's ``DNN_COO_IMAGES``), each with its seconds, and writes their
-results to ``chiprun_out/slice12_paths.json``.  A quicker proof of these
-paths than the whole chip_smoke; its numbers are the same functions'.
+COO-tier DNN at chip_smoke's ``DNN_COO_IMAGES`` and
+``DNN_COO_LAYERS``), each with its seconds, and writes their results
+to ``chiprun_out/slice12_paths.json``.  A quicker proof of these paths
+than the whole chip_smoke; its numbers are the same functions'.
 Needs the card.
 """
 
@@ -79,7 +80,7 @@ def main():
     res["gdnn1024"] = step("gdnn1024", lambda: cs.gdnn1024_path(
         torch, drv, card))
     res["gdnn_coo"] = step("gdnn_coo", lambda: cs.gdnn_coo_path(
-        torch, ck, drv, card, cs.DNN_COO_IMAGES))
+        torch, ck, drv, card, cs.DNN_COO_IMAGES, cs.DNN_COO_LAYERS))
     os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(_ROOT, "chiprun_out", "slice12_paths.json"),
               "w") as f:

@@ -29,6 +29,15 @@ version.
 
 Imports torch, numpy and scipy only: nothing of JAX or of
 pygraphblas_tpu.
+
+>>> from pygraphblas_tpu_torch import Matrix, Vector, types
+>>> A = Matrix.from_lists([0, 1, 2], [1, 2, 0], [1, 2, 3])
+>>> print(A @ A)
+      0  1  2
+  0|        2|  0
+  1|  6      |  1
+  2|     3   |  2
+      0  1  2
 """
 
 from .base import (
@@ -130,12 +139,15 @@ __all__ = [
 ]
 
 
-def run_doctests(raise_on_error=False):
+def run_doctests(raise_on_error=False, device=None):
     """Run every docstring example of the package's user modules (the
     JAX package's ``run_doctests``, over the port's modules); returns
-    the number that failed.  The examples run on the CPU where they name
-    ``device="cpu"``."""
+    the number that failed.  The examples run on `device` (the card when
+    None): it is the default device for this call only.  ``gviz``'s
+    examples draw through its optional graphviz and PIL; where either is
+    absent they are not run."""
     import doctest
+    import importlib.util
     import sys
 
     from . import algorithms as algorithms_module
@@ -144,18 +156,23 @@ def run_doctests(raise_on_error=False):
     from . import matrix as matrix_module
     from . import scalar as scalar_module
     from . import vector as vector_module
+    from ._device import default_device
 
     this = sys.modules[__name__]
+    draws = all(importlib.util.find_spec(m) for m in ("graphviz", "PIL"))
     failures = 0
-    for mod in (this, selectop, unaryop, binaryop, matrix_module,
-                vector_module, scalar_module, monoid, semiring, types,
-                gviz_module, algorithms_module, descriptor, base_module):
-        extraglobs = dict(
-            Matrix=Matrix, Vector=Vector, Scalar=Scalar, types=types,
-            descriptor=descriptor, GxB_INDEX_MAX=GxB_INDEX_MAX,
-        )
-        r = doctest.testmod(mod, optionflags=doctest.ELLIPSIS,
-                            raise_on_error=raise_on_error,
-                            extraglobs=extraglobs)
-        failures += r.failed
+    with default_device(resolve_device(device)):
+        for mod in (this, selectop, unaryop, binaryop, matrix_module,
+                    vector_module, scalar_module, monoid, semiring, types,
+                    gviz_module, algorithms_module, descriptor, base_module):
+            if mod is gviz_module and not draws:
+                continue
+            extraglobs = dict(
+                Matrix=Matrix, Vector=Vector, Scalar=Scalar, types=types,
+                descriptor=descriptor, GxB_INDEX_MAX=GxB_INDEX_MAX,
+            )
+            r = doctest.testmod(mod, optionflags=doctest.ELLIPSIS,
+                                raise_on_error=raise_on_error,
+                                extraglobs=extraglobs)
+            failures += r.failed
     return failures

@@ -2,10 +2,31 @@
 
 Entry points run on the first CUDA card unless the caller names another
 device (the tests pass ``device="cpu"``).  With no card present and no
-device named, they raise rather than quietly running on the CPU."""
+device named, they raise rather than quietly running on the CPU.
+``default_device`` changes that default for the length of a block (the
+docstring examples run under it)."""
+
+import contextlib
 
 import numpy as np
 import torch
+
+# the device `resolve_device(None)` gives inside `default_device`;
+# None outside it (the card)
+_default = None
+
+
+@contextlib.contextmanager
+def default_device(device):
+    """Within the block, `resolve_device(None)` gives `device` (the
+    counterpart of ``jax.default_device``); the default before the block
+    comes back when it ends, also after an exception."""
+    global _default
+    before, _default = _default, torch.device(device)
+    try:
+        yield
+    finally:
+        _default = before
 
 
 def requires_cuda(what="this entry point"):
@@ -17,12 +38,13 @@ def requires_cuda(what="this entry point"):
 
 
 def resolve_device(device=None):
-    """``None`` -> the current CUDA card (raising when absent); anything
-    else is passed to ``torch.device``.  A CUDA device always carries
+    """``None`` -> the current CUDA card (raising when absent), or the
+    device of the enclosing `default_device` block; anything else is
+    passed to ``torch.device``.  A CUDA device always carries
     its index (``cuda`` -> ``cuda:0``), as a tensor's device does, so
     that devices compare equal by name."""
     if device is None:
-        device = "cuda"
+        device = "cuda" if _default is None else _default
     dev = torch.device(device)
     if dev.type == "cuda":
         requires_cuda()

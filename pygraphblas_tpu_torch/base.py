@@ -213,7 +213,17 @@ def options_set(nthreads=None, chunk=None, burble=None, hyper_switch=None,
 
 
 def options_get():
-    """Get global library options (the JAX package's keys)."""
+    """Get global library options (the JAX package's keys).
+
+    >>> from pprint import pprint
+    >>> pprint(options_get())
+    {'bitmap_switch': [...],
+     'burble': ...,
+     'chunk': ...,
+     'format': ...,
+     'hyper_switch': ...,
+     'nthreads': ...}
+    """
     return dict(nthreads=config.nthreads, chunk=config.chunk,
                 burble=config.burble, hyper_switch=config.hyper_switch,
                 bitmap_switch=list(config.bitmap_switch),

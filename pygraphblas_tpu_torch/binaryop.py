@@ -166,7 +166,19 @@ def build_binaryops(__pdoc__=None):
 
 def binary_op(arg_type, nopython=True, boolean=False):
     """Decorator turning a Python function over tensors into a
-    BinaryOp."""
+    BinaryOp.
+
+    >>> from pygraphblas_tpu_torch import Matrix, binary_op, types
+    >>> @binary_op(types.FP64)
+    ... def plus3(x, y):
+    ...     return x + y + 3
+    >>> A = Matrix.from_lists([0, 1], [1, 0], [1.0, 2.0])
+    >>> print(A.emult(A, plus3))
+          0  1
+      0|   5.0|  0
+      1|7.0   |  1
+          0  1
+    """
 
     def inner(func):
         return BinaryOp(func.__name__, arg_type.__name__, fn=func,

@@ -179,7 +179,15 @@ class Matrix:
     def sparse(cls, typ, nrows=None, ncols=None, fill=None, mask=None,
                device=None):
         """An empty sparse Matrix; unspecified dimensions default to
-        `GxB_INDEX_MAX` (hypersparse, O(nnz) memory)."""
+        `GxB_INDEX_MAX` (hypersparse, O(nnz) memory).
+
+        >>> M = Matrix.sparse(types.UINT8)
+        >>> M.nrows == GxB_INDEX_MAX and M.ncols == GxB_INDEX_MAX
+        True
+        >>> M = Matrix.sparse(types.UINT8, 3, 3)
+        >>> M.shape
+        (3, 3)
+        """
         if nrows is None:
             nrows = GxB_INDEX_MAX
         if ncols is None:
@@ -195,7 +203,14 @@ class Matrix:
     @classmethod
     def dense(cls, typ, nrows=None, ncols=None, fill=None, sparsity=None,
               device=None):
-        """A dense Matrix: all elements present."""
+        """A dense Matrix: all elements present.
+
+        >>> print(Matrix.dense(types.UINT8, 2, 2, fill=42))
+              0  1
+          0| 42 42|  0
+          1| 42 42|  1
+              0  1
+        """
         if nrows is None:
             nrows = GxB_INDEX_MAX
         if ncols is None:
@@ -224,7 +239,29 @@ class Matrix:
     @classmethod
     def iso(cls, value, nrows=None, ncols=None, device=None):
         """A dense Matrix where every element is `value` (type inferred);
-        past the dense budget the value is stored once (O(1))."""
+        past the dense budget the value is stored once (O(1)).
+
+        >>> M = Matrix.iso(3, 2, 2)
+        >>> print(M)
+              0  1
+          0|  3  3|  0
+          1|  3  3|  1
+              0  1
+        >>> M.nvals
+        4
+        >>> M.type == types.INT64
+        True
+
+        Past the dense budget the single value is stored once (O(1),
+        like SuiteSparse iso-full, reference matrix.py:233-266), so the
+        default `GxB_INDEX_MAX` dims work and any element reads back:
+
+        >>> M = Matrix.iso(3)
+        >>> M[42, 42]
+        3
+        >>> M.nrows == GxB_INDEX_MAX
+        True
+        """
         if nrows is None:
             nrows = GxB_INDEX_MAX
         if ncols is None:
@@ -240,7 +277,16 @@ class Matrix:
     def from_lists(cls, I, J, V=None, nrows=None, ncols=None, typ=None,
                    device=None):
         """A new matrix from lists of row indices, column indices and
-        values (dimensions default to one past the largest index)."""
+        values (dimensions default to one past the largest index).
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> print(M)
+              0  1  2
+          0|    42   |  0
+          1|      314|  1
+          2|4224      |  2
+              0  1  2
+        """
         if V is None:
             V = [True] * len(I)
             typ = types.BOOL if typ is None else typ
@@ -262,7 +308,12 @@ class Matrix:
                make_skew_symmetric=False, make_hermitian=True,
                no_diagonal=False, seed=None, device=None):
         """A random Matrix (the JAX package's stdlib-random draw order, so
-        seeded results agree)."""
+        seeded results agree).
+
+        >>> M = Matrix.random(types.UINT8, 10, 10, 10, seed=42)
+        >>> M.nvals <= 10
+        True
+        """
         M = cls.sparse(typ, nrows, ncols, device=device)
         if seed is not None:
             _stdlib_random.seed(seed)
@@ -305,7 +356,16 @@ class Matrix:
     @classmethod
     def identity(cls, typ, nrows, value=None, device=None):
         """A square identity Matrix with its diagonal set to `value`
-        (default: the type's one)."""
+        (default: the type's one).
+
+        >>> M = Matrix.identity(types.UINT8, 3, value=42)
+        >>> print(M)
+              0  1  2
+          0| 42      |  0
+          1|    42   |  1
+          2|       42|  2
+              0  1  2
+        """
         result = cls.sparse(typ, nrows, nrows, device=device)
         if value is None:
             value = typ.default_one
@@ -316,7 +376,12 @@ class Matrix:
 
     @classmethod
     def from_scipy_sparse(cls, m, device=None):
-        """From a scipy.sparse matrix; type inferred from its dtype."""
+        """From a scipy.sparse matrix; type inferred from its dtype.
+
+        >>> A = Matrix.from_lists([0, 1, 2], [1, 1, 2], [1, 2, 3])
+        >>> B = Matrix.from_scipy_sparse(A.to_scipy_sparse())
+        >>> assert A.iseq(B)
+        """
         ss = m.tocoo()
         nrows, ncols = ss.shape
         typ = types.MetaType._dtype_type_map[m.dtype.type]
@@ -327,7 +392,15 @@ class Matrix:
 
     @classmethod
     def from_numpy(cls, arr, device=None):
-        """A dense-pattern Matrix from a 2-D numpy array."""
+        """A dense-pattern Matrix from a 2-D numpy array.
+
+        >>> import numpy as np
+        >>> print(Matrix.from_numpy(np.array([[1, 2], [3, 4]])))
+              0  1
+          0|  1  2|  0
+          1|  3  4|  1
+              0  1
+        """
         arr = np.asarray(arr)
         typ = types.MetaType._dtype_type_map[arr.dtype.type]
         out = cls.sparse(typ, arr.shape[0], arr.shape[1], device=device)
@@ -339,7 +412,16 @@ class Matrix:
     def from_diag(cls, v, k=0, desc=None, device=None):
         """A square Matrix holding Vector `v`'s values along diagonal
         `k` (above the main one for k > 0); on `v`'s device unless one
-        is named."""
+        is named.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> print(Matrix.from_diag(v))
+              0  1  2
+          0|  1      |  0
+          1|     2   |  1
+          2|        3|  2
+              0  1  2
+        """
         n = v.size + abs(k)
         m = cls.sparse(v.type, n, n,
                        device=v.device if device is None else device)
@@ -444,10 +526,10 @@ class Matrix:
         (the JAX package's format: either package reads the other's).
 
         >>> import tempfile, os
-        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9], device="cpu")
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
         >>> path = os.path.join(tempfile.mkdtemp(), "m.binfile")
         >>> M.binwrite(path)
-        >>> Matrix.binread(path, device="cpu").iseq(M)
+        >>> Matrix.binread(path).iseq(M)
         True
         """
         from .io.binfile import binread as _binread
@@ -762,32 +844,62 @@ class Matrix:
 
     @property
     def gb_type(self):
-        """The GraphBLAS type object of the Matrix."""
+        """The GraphBLAS type object of the Matrix.
+
+        >>> M = Matrix.sparse(types.FP32, 2, 2)
+        >>> M.gb_type == types.FP32
+        True
+        """
         return self.type
 
     @property
     def nrows(self):
-        """Number of rows."""
+        """Number of rows.
+
+        >>> M = Matrix.sparse(types.UINT8, 3, 3)
+        >>> M.nrows
+        3
+        """
         return self._nrows
 
     @property
     def ncols(self):
-        """Number of columns."""
+        """Number of columns.
+
+        >>> Matrix.sparse(types.INT8, 3, 5).ncols
+        5
+        """
         return self._ncols
 
     @property
     def shape(self):
-        """Tuple of (nrows, ncols)."""
+        """Tuple of (nrows, ncols).
+
+        >>> M = Matrix.sparse(types.UINT8, 3, 4)
+        >>> M.shape
+        (3, 4)
+        """
         return (self._nrows, self._ncols)
 
     @property
     def square(self):
-        """True if the Matrix is square."""
+        """True if the Matrix is square.
+
+        >>> Matrix.sparse(types.INT8, 3, 3).square
+        True
+        >>> Matrix.sparse(types.INT8, 3, 5).square
+        False
+        """
         return self._nrows == self._ncols
 
     @property
     def nvals(self):
-        """Number of stored elements."""
+        """Number of stored elements.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> M.nvals
+        3
+        """
         self._flush()
         if self._nvals_c is None:
             if self._fmt == "iso":
@@ -800,7 +912,12 @@ class Matrix:
 
     @property
     def memory_usage(self):
-        """Bytes used by this matrix's storage."""
+        """Bytes used by this matrix's storage.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> M.memory_usage > 0
+        True
+        """
         self._flush()
         if self._fmt == "iso":
             return np.dtype(self.type._numpy_t).itemsize
@@ -812,22 +929,52 @@ class Matrix:
 
     @property
     def T(self):
-        """Transposed copy (see `Matrix.transpose`)."""
+        """Transposed copy (see `Matrix.transpose`).
+
+        >>> M = Matrix.from_lists([0, 0], [0, 1], [1, 2])
+        >>> print(M.T)
+              0
+          0|  1|  0
+          1|  2|  1
+              0
+        """
         return self.transpose()
 
     @property
     def M(self):
-        """The pattern mask of this matrix; see `Matrix.pattern`."""
+        """The pattern mask of this matrix; see `Matrix.pattern`.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> print(M.M)
+              0  1
+          0|     t|  0
+          1|  t   |  1
+              0  1
+        """
         return self.pattern()
 
     @property
     def S(self):
-        """The structure of this matrix; same as `Matrix.pattern()`."""
+        """The structure of this matrix; same as `Matrix.pattern()`.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> print(M.S)
+              0  1
+          0|     t|  0
+          1|  t   |  1
+              0  1
+        """
         return self.pattern()
 
     @property
     def hyper_switch(self):
-        """Hypersparsity switching threshold (parity knob)."""
+        """Hypersparsity switching threshold (parity knob).
+
+        >>> M = Matrix.sparse(types.INT8, 2, 2)
+        >>> M.hyper_switch = 0.5
+        >>> M.hyper_switch
+        0.5
+        """
         return self._hyper_switch
 
     @hyper_switch.setter
@@ -836,7 +983,11 @@ class Matrix:
 
     @property
     def format(self):
-        """Storage orientation: BY_ROW (0) or BY_COL (1)."""
+        """Storage orientation: BY_ROW (0) or BY_COL (1).
+
+        >>> Matrix.sparse(types.INT8, 2, 2).format
+        0
+        """
         return self._format
 
     @format.setter
@@ -846,7 +997,15 @@ class Matrix:
     @property
     def sparsity(self):
         """Sparsity control (1=hyper 2=sparse 4=bitmap 8=full,
-        15=auto)."""
+        15=auto).
+
+        >>> M = Matrix.sparse(types.INT8, 2, 2)
+        >>> M.sparsity
+        15
+        >>> M.sparsity = 4
+        >>> M.sparsity
+        4
+        """
         return self._sparsity
 
     @sparsity.setter
@@ -870,7 +1029,11 @@ class Matrix:
     @property
     def sparsity_status(self):
         """Current physical format: 1=hypersparse, 2=sparse, 4=bitmap,
-        8=full."""
+        8=full.
+
+        >>> Matrix.from_lists([0, 1], [1, 0], [7, 9]).sparsity_status
+        4
+        """
         self._flush()
         if self._fmt == "iso":
             return 8
@@ -882,7 +1045,22 @@ class Matrix:
 
     def pattern(self, typ=types.BOOL, out=None):
         """The pattern of the matrix: every present value set to the
-        identity value of `typ` (default BOOL)."""
+        identity value of `typ` (default BOOL).
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 142])
+        >>> print(M.pattern())
+              0  1  2
+          0|     t   |  0
+          1|        t|  1
+          2|  t      |  2
+              0  1  2
+        >>> print(Matrix.from_lists([0, 1], [1, 0], [7, 9]).pattern(
+        ...     types.INT8))
+              0  1
+          0|     1|  0
+          1|  1   |  1
+              0  1
+        """
         if out is None:
             out = Matrix.sparse(typ, self.nrows, self.ncols, device=self._dev)
         return self.apply(typ.ONE, out=out)
@@ -892,7 +1070,13 @@ class Matrix:
     # ------------------------------------------------------------------
 
     def dup(self, clear=False):
-        """A duplicate Matrix (or an empty same-shape one)."""
+        """A duplicate Matrix (or an empty same-shape one).
+
+        >>> A = Matrix.from_lists([0], [0], [42], 1, 1)
+        >>> B = A.dup()
+        >>> B.iseq(A)
+        True
+        """
         out = Matrix.sparse(self.type, self._nrows, self._ncols,
                             device=self._dev)
         if clear:
@@ -914,7 +1098,13 @@ class Matrix:
         return out
 
     def clear(self):
-        """Remove all elements (dimensions unchanged)."""
+        """Remove all elements (dimensions unchanged).
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> M.clear()
+        >>> M.nvals
+        0
+        """
         self._pending = []
         if self._fmt == "bitmap" and not self._staged:
             self._vals = torch.zeros_like(self._vals)
@@ -927,7 +1117,13 @@ class Matrix:
 
     def resize(self, nrows=GxB_INDEX_MAX, ncols=GxB_INDEX_MAX):
         """Resize in place; values outside the new bounds are dropped
-        (the tier follows the new dimensions)."""
+        (the tier follows the new dimensions).
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> M.resize(10, 10)
+        >>> M.shape
+        (10, 10)
+        """
         r, c, v = self._coo()
         keep = (r < nrows) & (c < ncols)
         self._nrows = int(nrows)
@@ -942,7 +1138,14 @@ class Matrix:
         self._build(r[keep], c[keep], v[keep])
 
     def wait(self):
-        """Barrier: complete all pending work on this Matrix."""
+        """Barrier: complete all pending work on this Matrix.
+
+        >>> M = Matrix.sparse(types.INT64, 2, 2)
+        >>> M[0, 1] = 7
+        >>> M.wait()
+        >>> M.nvals
+        1
+        """
         self._flush()
         if self._fmt == "bitmap" and not self._staged \
                 and self._vals.device.type == "cuda":
@@ -955,7 +1158,25 @@ class Matrix:
     def __setitem__(self, index, value):
         """Write an element, row, column or region: ``A[i, j] = v``,
         ``A[i] = vector``, ``A[:, j] = vector``, ``A[1:2, 0:3] = B``
-        (slices stop-inclusive), ``A[M] = s`` (M a mask)."""
+        (slices stop-inclusive), ``A[M] = s`` (M a mask).
+
+        >>> A = Matrix.sparse(types.INT64, 3, 3)
+        >>> A[0, 1] = 7
+        >>> A[2] = Vector.from_list([1, 2, 3])
+        >>> print(A)
+              0  1  2
+          0|     7   |  0
+          1|         |  1
+          2|  1  2  3|  2
+              0  1  2
+        >>> A[:, 0] = Vector.from_list([9, 9, 9])
+        >>> print(A)
+              0  1  2
+          0|  9  7   |  0
+          1|  9      |  1
+          2|  9  2  3|  2
+              0  1  2
+        """
         from .vector import Vector
 
         if _is_int(index):
@@ -1003,7 +1224,21 @@ class Matrix:
     def __getitem__(self, index):
         """Read an element (NoValue when absent), a row or column (a
         Vector) or a submatrix: ``A[i, j]``, ``A[i]``, ``A[1:3, 2]``,
-        ``A[0:1, :]`` (slices stop-inclusive), ``A[M]`` (M a mask)."""
+        ``A[0:1, :]`` (slices stop-inclusive), ``A[M]`` (M a mask).
+
+        >>> A = Matrix.from_lists([0, 1, 2], [1, 2, 0], [1, 2, 3])
+        >>> A[0, 1]
+        1
+        >>> print(A[:, 2])
+        0|
+        1| 2
+        2|
+        >>> print(A[0:1, :])
+              0  1  2
+          0|     1   |  0
+          1|        2|  1
+              0  1  2
+        """
         if _is_int(index):
             return self.extract_row(index, None)
         if isinstance(index, slice):
@@ -1038,7 +1273,13 @@ class Matrix:
         return self.type._to_value(v[i, j])
 
     def __delitem__(self, index):
-        """Remove a single stored element."""
+        """Remove a single stored element.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> del M[0, 1]
+        >>> M.to_lists()
+        [[1], [0], [9]]
+        """
         if (not isinstance(index, tuple) or not _is_int(index[0])
                 or not _is_int(index[1])):
             raise TypeError("__delitem__ only supports single element removal")
@@ -1056,7 +1297,14 @@ class Matrix:
         self._invalidate()
 
     def __contains__(self, index):
-        """True iff an element is stored at (i, j)."""
+        """True iff an element is stored at (i, j).
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> (0, 1) in M
+        True
+        >>> (0, 0) in M
+        False
+        """
         try:
             self[index]
             return True
@@ -1064,25 +1312,49 @@ class Matrix:
             return False
 
     def get(self, i, j, default=None):
-        """Element at (i, j), or `default` if not present."""
+        """Element at (i, j), or `default` if not present.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 0, 149])
+        >>> M.get(1, 2)
+        0
+        >>> M.get(0, 0) is None
+        True
+        >>> M.get(0, 0, 'foo')
+        'foo'
+        """
         try:
             return self[i, j]
         except NoValue:
             return default
 
     def __iter__(self):
-        """Iterate (row, col, value) triples."""
+        """Iterate (row, col, value) triples.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> sorted(list(iter(M)))
+        [(0, 1, 42), (1, 2, 314), (2, 0, 4224)]
+        """
         r, c, v = self._coo()
         return zip(map(int, r), map(int, c), map(self.type._to_value, v))
 
     def to_lists(self):
-        """(row indices, col indices, values) as Python lists."""
+        """(row indices, col indices, values) as Python lists.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> M.to_lists()
+        [[0, 1, 2], [1, 2, 0], [42, 314, 4224]]
+        """
         r, c, v = self._coo()
         return [list(map(int, r)), list(map(int, c)),
                 list(map(self.type._to_value, v))]
 
     def to_arrays(self):
-        """(rows, cols, vals) as stdlib array objects."""
+        """(rows, cols, vals) as stdlib array objects.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> M.to_arrays()
+        (array('L', [0, 1, 2]), array('L', [1, 2, 0]), array('q', [42, 314, 4224]))
+        """
         if self.type._typecode is None:
             raise TypeError("This matrix has no array typecode.")
         r, c, v = self._coo()
@@ -1091,37 +1363,72 @@ class Matrix:
 
     @property
     def rows(self):
-        """Array of row indices of stored elements (row-major order)."""
+        """Array of row indices of stored elements (row-major order).
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> list(M.rows)
+        [0, 1, 2]
+        """
         return array("L", map(int, self._coo()[0]))
 
     @property
     def I(self):
-        """Iterator over `Matrix.rows`."""
+        """Iterator over `Matrix.rows`.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> list(M.I)
+        [0, 1]
+        """
         return iter(self.rows)
 
     @property
     def npI(self):
-        """numpy array of row indices."""
+        """numpy array of row indices.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 314, 4224])
+        >>> M.npI
+        array([0, 1, 2], dtype=uint64)
+        """
         return self._coo()[0].astype(np.uint64)
 
     @property
     def cols(self):
-        """Array of column indices of stored elements."""
+        """Array of column indices of stored elements.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> list(M.cols)
+        [1, 0]
+        """
         return array("L", map(int, self._coo()[1]))
 
     @property
     def J(self):
-        """Iterator over `Matrix.cols`."""
+        """Iterator over `Matrix.cols`.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> list(M.J)
+        [1, 0]
+        """
         return iter(self.cols)
 
     @property
     def npJ(self):
-        """numpy array of column indices."""
+        """numpy array of column indices.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> M.npJ
+        array([1, 0], dtype=uint64)
+        """
         return self._coo()[1].astype(np.uint64)
 
     @property
     def vals(self):
-        """Array of stored values."""
+        """Array of stored values.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> list(M.vals)
+        [7, 9]
+        """
         v = self._coo()[2]
         if self.type._typecode is None:
             return list(map(self.type._to_value, v))
@@ -1129,16 +1436,32 @@ class Matrix:
 
     @property
     def V(self):
-        """Iterator over `Matrix.vals`."""
+        """Iterator over `Matrix.vals`.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> list(M.V)
+        [7, 9]
+        """
         return iter(self.vals)
 
     @property
     def npV(self):
-        """numpy array of stored values."""
+        """numpy array of stored values.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> M.npV
+        array([7, 9])
+        """
         return np.asarray(self._coo()[2])
 
     def to_scipy_sparse(self, format="csr"):
-        """A scipy sparse matrix copy of this Matrix."""
+        """A scipy sparse matrix copy of this Matrix.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> M.to_scipy_sparse().toarray()
+        array([[0, 7],
+               [9, 0]])
+        """
         from scipy import sparse
 
         r, c, v = self._coo()
@@ -1151,7 +1474,13 @@ class Matrix:
         return s.asformat(format)
 
     def to_numpy(self):
-        """A dense numpy array copy of this Matrix."""
+        """A dense numpy array copy of this Matrix.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [42, 149])
+        >>> M.to_numpy()
+        array([[  0,  42],
+               [149,   0]])
+        """
         self._flush()
         if self._fmt == "bitmap":
             v, m = self._host_pair()
@@ -1167,10 +1496,10 @@ class Matrix:
         """Write this Matrix to a binary checkpoint file (see `binread`).
 
         >>> import tempfile, os
-        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9], device="cpu")
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
         >>> path = os.path.join(tempfile.mkdtemp(), "m.binfile")
         >>> M.binwrite(path)
-        >>> Matrix.binread(path, device="cpu").iseq(M)
+        >>> Matrix.binread(path).iseq(M)
         True
         """
         from .io.binfile import binwrite as _binwrite
@@ -1205,7 +1534,12 @@ class Matrix:
     def to_string(self, format_string="{:>%s}", width=3, prec=5,
                   empty_char="", cell_sep=""):
         """ASCII grid rendering: a header of column numbers, one line a
-        row with the row number on both sides."""
+        row with the row number on both sides.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 0, 149])
+        >>> M.to_string()
+        '      0  1  2\\n  0|    42   |  0\\n  1|        0|  1\\n  2|149      |  2\\n      0  1  2'
+        """
         format_string = format_string % width
         header = (format_string.format("") + " "
                   + "".join(format_string.format(i)
@@ -1231,7 +1565,15 @@ class Matrix:
         return f"<Matrix({tname}, shape: {self.shape}, nvals: {self.nvals})>"
 
     def to_markdown_table(self, title="A", width=2):
-        """Markdown-table rendering."""
+        """Markdown-table rendering.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [7, 9])
+        >>> print(M.to_markdown_table())
+        A|0|1
+        ---|---|---
+        0||7
+        1|9|
+        """
         rows = []
         header = [title] + [str(j) for j in range(self.ncols)]
         rows.append("|".join(header))
@@ -1245,7 +1587,12 @@ class Matrix:
         return "\n".join(rows)
 
     def to_html_table(self, title="A", width=2):
-        """HTML-table rendering for notebooks."""
+        """HTML-table rendering for notebooks.
+
+        >>> M = Matrix.from_lists([0], [0], [7])
+        >>> print(M.to_html_table())
+        <table><tr><th>A</th><th>0</th></tr><tr><th>0</th><td>7</td></tr></table>
+        """
         out = [f"<table><tr><th>{title}</th>"]
         for j in range(self.ncols):
             out.append(f"<th>{j}</th>")
@@ -1280,7 +1627,21 @@ class Matrix:
     @_timed("Matrix.transpose")
     def transpose(self, cast=None, out=None, mask=None, accum=None, desc=None):
         """Transpose (and optionally cast) the Matrix; with desc=T0 a cast
-        or copy without transposing."""
+        or copy without transposing.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 0, 149])
+        >>> print(M.transpose())
+              0  1  2
+          0|      149|  0
+          1| 42      |  1
+          2|     0   |  2
+              0  1  2
+        >>> M.transpose(desc=descriptor.T0).iseq(M)
+        True
+        >>> A = Matrix.from_lists([0], [0], [3])
+        >>> A.transpose(cast=types.FP32).type is types.FP32
+        True
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         really_transpose = not desc.inp0
         if out is None:
@@ -1302,7 +1663,16 @@ class Matrix:
                                mask, accum, desc)
 
     def cast(self, cast, out=None):
-        """Cast this matrix to another type."""
+        """Cast this matrix to another type.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 0, 149])
+        >>> M.cast(types.FP32).type is types.FP32
+        True
+        >>> print(Matrix.from_lists([0], [0], [3]).cast(types.FP64))
+              0
+          0|3.0|  0
+              0
+        """
         return self.transpose(cast, out, desc=T0)
 
     # ------------------------------------------------------------------
@@ -1332,7 +1702,30 @@ class Matrix:
         """Element-wise union with `other`: the result pattern is the set
         union; the operator applies where both are present.  The operator
         may be a BinaryOp, a Monoid, a Semiring (its add monoid) or an
-        operator string."""
+        operator string.
+
+        >>> A = Matrix.from_lists([0, 1], [1, 0], [1, 2])
+        >>> B = Matrix.from_lists([0, 1], [1, 1], [10, 20])
+        >>> print(A.eadd(B))
+              0  1
+          0|    11|  0
+          1|  2 20|  1
+              0  1
+
+        The operator may be a BinaryOp, a Monoid, a Semiring (its add
+        monoid is taken), or an operator string:
+
+        >>> print(A.eadd(B, '+'))
+              0  1
+          0|    11|  0
+          1|  2 20|  1
+              0  1
+        >>> print(A.eadd(B, types.INT64.MIN))
+              0  1
+          0|     1|  0
+          1|  2 20|  1
+              0  1
+        """
         add_op = self._resolve_eop(add_op, lambda: None, True)
         mask, accum, desc = self._get_args(mask, accum, desc)
         if out is None:
@@ -1408,7 +1801,21 @@ class Matrix:
     def emult(self, other, mult_op=None, cast=None, out=None, mask=None,
               accum=None, desc=None):
         """Element-wise intersection with `other`: the result pattern is
-        the set intersection."""
+        the set intersection.
+
+        >>> A = Matrix.from_lists([0, 1], [1, 0], [1, 2])
+        >>> B = Matrix.from_lists([0, 1], [1, 1], [10, 20])
+        >>> print(A.emult(B))
+              0  1
+          0|    10|  0
+          1|      |  1
+              0  1
+        >>> print(A.emult(B, '+'))
+              0  1
+          0|    11|  0
+          1|      |  1
+              0  1
+        """
         mult_op = self._resolve_eop(mult_op, lambda: None, False)
         mask, accum, desc = self._get_args(mask, accum, desc)
         if out is None:
@@ -1435,7 +1842,12 @@ class Matrix:
 
     def all(self, other, op):
         """True iff the matrices have the same shape and pattern and `op`
-        holds for every matched pair of values."""
+        holds for every matched pair of values.
+
+        >>> A = Matrix.from_lists([0, 1], [1, 0], [1, 2])
+        >>> A.all(A, types.INT64.EQ)
+        True
+        """
         if self.shape != other.shape:
             return False
         if self.nvals != other.nvals:
@@ -1446,13 +1858,26 @@ class Matrix:
         return C.reduce_bool(types.BOOL.LAND_MONOID)
 
     def iseq(self, other):
-        """True iff structurally and numerically equal."""
+        """True iff structurally and numerically equal.
+
+        >>> A = Matrix.from_lists([0, 1], [1, 0], [1, 2])
+        >>> A.iseq(A.dup())
+        True
+        """
         if self.type != other.type:
             return False
         return self.all(other, self.type.EQ)
 
     def isne(self, other):
-        """True iff not equal; see `Matrix.iseq`."""
+        """True iff not equal; see `Matrix.iseq`.
+
+        >>> A = Matrix.from_lists([0], [0], [1])
+        >>> B = Matrix.from_lists([0], [0], [2])
+        >>> A.isne(B)
+        True
+        >>> A.isne(A)
+        False
+        """
         return not self.iseq(other)
 
     # ------------------------------------------------------------------
@@ -1461,7 +1886,15 @@ class Matrix:
 
     @_timed("Matrix.apply")
     def apply(self, op, out=None, mask=None, accum=None, desc=None):
-        """Apply a unary operator to every element."""
+        """Apply a unary operator to every element.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [-1, -2])
+        >>> print(M.apply(types.INT64.AINV))
+              0  1
+          0|     1|  0
+          1|  2   |  1
+              0  1
+        """
         if isinstance(op, _pytypes.FunctionType):
             from .unaryop import UnaryOp
 
@@ -1496,13 +1929,29 @@ class Matrix:
     def apply_first(self, first, op, out=None, mask=None, accum=None,
                     desc=None):
         """Apply a binary operator with the first operand bound to a
-        scalar."""
+        scalar.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [1, 2])
+        >>> print(M.apply_first(10, types.INT64.MINUS))
+              0  1
+          0|     9|  0
+          1|  8   |  1
+              0  1
+        """
         return self._apply_bound(first, op, True, out, mask, accum, desc)
 
     def apply_second(self, op, second, out=None, mask=None, accum=None,
                      desc=None):
         """Apply a binary operator with the second operand bound to a
-        scalar."""
+        scalar.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [1, 2])
+        >>> print(M.apply_second(types.INT64.MINUS, 10))
+              0  1
+          0|    -9|  0
+          1| -8   |  1
+              0  1
+        """
         return self._apply_bound(second, op, False, out, mask, accum, desc)
 
     def _apply_bound(self, scalar, op, bind_first, out, mask, accum, desc):
@@ -1549,7 +1998,24 @@ class Matrix:
         """Select elements matching a predicate.  `op` may be a SelectOp,
         a string (``>`` ``<`` ``>=`` ``<=`` ``!=`` ``==`` against the
         thunk, ``>0`` ``<0`` ``>=0`` ``<=0`` ``!=0`` ``==0`` against
-        zero), or 'min'/'max'."""
+        zero), or 'min'/'max'.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [-42, 0, 149])
+        >>> print(M.select('>', 0))
+              0  1  2
+          0|         |  0
+          1|         |  1
+          2|149      |  2
+              0  1  2
+        >>> print(M.select('<0'))
+              0  1  2
+          0|   -42   |  0
+          1|         |  1
+          2|         |  2
+              0  1  2
+        >>> M.select('!=0').nvals
+        2
+        """
         if out is None:
             out = Matrix.sparse(self.type, self.nrows, self.ncols,
                                 device=self._dev)
@@ -1609,37 +2075,85 @@ class Matrix:
                                mask, accum, desc)
 
     def tril(self, offset=None):
-        """Lower triangular selection."""
+        """Lower triangular selection.
+
+        >>> M = Matrix.dense(types.UINT8, 2, 2, fill=1)
+        >>> print(M.tril())
+              0  1
+          0|  1   |  0
+          1|  1  1|  1
+              0  1
+        """
         from . import selectop
 
         return self.select(selectop.TRIL, thunk=offset)
 
     def triu(self, offset=None):
-        """Upper triangular selection."""
+        """Upper triangular selection.
+
+        >>> M = Matrix.dense(types.UINT8, 2, 2, fill=1)
+        >>> print(M.triu())
+              0  1
+          0|  1  1|  0
+          1|     1|  1
+              0  1
+        >>> print(M.triu(1))
+              0  1
+          0|     1|  0
+          1|      |  1
+              0  1
+        """
         from . import selectop
 
         return self.select(selectop.TRIU, thunk=offset)
 
     def diag(self, offset=None):
-        """Diagonal selection."""
+        """Diagonal selection.
+
+        >>> M = Matrix.dense(types.UINT8, 2, 2, fill=3)
+        >>> print(M.diag())
+              0  1
+          0|  3   |  0
+          1|     3|  1
+              0  1
+        """
         from . import selectop
 
         return self.select(selectop.DIAG, thunk=offset)
 
     def offdiag(self, offset=None):
-        """Off-diagonal selection."""
+        """Off-diagonal selection.
+
+        >>> M = Matrix.dense(types.UINT8, 2, 2, fill=3)
+        >>> print(M.offdiag())
+              0  1
+          0|     3|  0
+          1|  3   |  1
+              0  1
+        """
         from . import selectop
 
         return self.select(selectop.OFFDIAG, thunk=offset)
 
     def nonzero(self):
-        """Select the non-zero entries."""
+        """Select the non-zero entries.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [42, 0])
+        >>> M.nonzero().nvals
+        1
+        """
         from . import selectop
 
         return self.select(selectop.NONZERO)
 
     def vector_diag(self, k=0, desc=None):
-        """Diagonal `k` as a Vector (GxB_Vector_diag)."""
+        """Diagonal `k` as a Vector (GxB_Vector_diag).
+
+        >>> M = Matrix.dense(types.UINT8, 2, 2, fill=7)
+        >>> print(M.vector_diag())
+        0| 7
+        1| 7
+        """
         from .vector import Vector
 
         if k >= 0:
@@ -1689,28 +2203,48 @@ class Matrix:
         return _reduce_accum(accum, typ.to_numpy(r), typ._numpy_t)
 
     def reduce_bool(self, mon=None, mask=None, accum=None, desc=None):
-        """Reduce to a boolean with the given monoid (default LOR)."""
+        """Reduce to a boolean with the given monoid (default LOR).
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [True, False])
+        >>> M.reduce_bool()
+        True
+        """
         if mon is None:
             mon = current_monoid.get(None) or types.BOOL.LOR_MONOID
         _, accum, desc = self._get_args(None, accum, desc)
         return bool(self._reduce_to(mon, types.BOOL, accum))
 
     def reduce_int(self, mon=None, mask=None, accum=None, desc=None):
-        """Reduce to an int with the given monoid (default PLUS)."""
+        """Reduce to an int with the given monoid (default PLUS).
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [4, 5])
+        >>> M.reduce_int()
+        9
+        """
         if mon is None:
             mon = current_monoid.get(None) or types.INT64.PLUS_MONOID
         _, accum, desc = self._get_args(None, accum, desc)
         return int(self._reduce_to(mon, types.INT64, accum))
 
     def reduce_float(self, mon=None, mask=None, accum=None, desc=None):
-        """Reduce to a float with the given monoid (default PLUS)."""
+        """Reduce to a float with the given monoid (default PLUS).
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [1.5, 2.5])
+        >>> M.reduce_float()
+        4.0
+        """
         if mon is None:
             mon = current_monoid.get(None) or self.type.PLUS_MONOID
         _, accum, desc = self._get_args(None, accum, desc)
         return float(self._reduce_to(mon, types.FP64, accum))
 
     def reduce(self, mon=None, accum=None, desc=None):
-        """Type-generic reduce to a scalar of this matrix's type."""
+        """Type-generic reduce to a scalar of this matrix's type.
+
+        >>> M = Matrix.from_lists([0, 1], [1, 0], [4, 5])
+        >>> M.reduce()
+        9
+        """
         if mon is None:
             mon = current_monoid.get(None)
             if mon is None:
@@ -1724,7 +2258,16 @@ class Matrix:
     @_timed("Matrix.reduce_vector")
     def reduce_vector(self, mon=None, out=None, cast=None, mask=None,
                       accum=None, desc=None):
-        """Reduce rows to a Vector (or columns with desc=T0)."""
+        """Reduce rows to a Vector (or columns with desc=T0).
+
+        >>> M = Matrix.from_lists([0, 0, 1], [0, 1, 0], [1, 2, 3])
+        >>> print(M.reduce_vector())
+        0| 3
+        1| 3
+        >>> print(M.reduce_vector(types.INT64.MAX_MONOID))
+        0| 2
+        1| 3
+        """
         from .vector import Vector
 
         mask, accum, desc = self._get_args(mask, accum, desc)
@@ -1779,7 +2322,53 @@ class Matrix:
         """Matrix-matrix multiply with a semiring (``A @ B``).  A mask
         bounds the output pattern; `accum` folds into `out`; `desc=T0`
         multiplies the transpose; a `with` semiring block changes the
-        operators of the enclosed `@`."""
+        operators of the enclosed `@`.
+
+        >>> A = Matrix.from_lists([0, 1], [1, 0], [2, 3])
+        >>> print(A.mxm(A))
+              0  1
+          0|  6   |  0
+          1|     6|  1
+              0  1
+        >>> print(A @ A)
+              0  1
+          0|  6   |  0
+          1|     6|  1
+              0  1
+
+        A mask bounds the output pattern; `accum` folds into `out`;
+        `desc=T0` multiplies the transpose; a `with` semiring block
+        changes the operators of the enclosed `@`:
+
+        >>> A = Matrix.from_lists([0, 0, 1], [0, 1, 1], [1, 2, 3])
+        >>> B = Matrix.from_lists([0, 1, 1], [0, 0, 1], [4, 5, 6])
+        >>> M = Matrix.from_lists([0], [0], [True], nrows=2, ncols=2)
+        >>> print(A.mxm(B, mask=M))
+              0  1
+          0| 14   |  0
+          1|      |  1
+              0  1
+        >>> C = Matrix.from_lists([0, 1], [0, 1], [10, 20])
+        >>> D = Matrix.from_lists([0, 1], [0, 1], [1, 2])
+        >>> print(D.mxm(D, out=C, accum=types.INT64.PLUS))
+              0  1
+          0| 11   |  0
+          1|    24|  1
+              0  1
+        >>> from pygraphblas_tpu_torch.descriptor import T0
+        >>> print(A.mxm(B, desc=T0))
+              0  1
+          0|  4   |  0
+          1| 23 18|  1
+              0  1
+        >>> from pygraphblas_tpu_torch import semiring
+        >>> with semiring.MIN_PLUS_INT64:
+        ...     print(A @ A)
+              0  1
+          0|  2  3|  0
+          1|     6|  1
+              0  1
+        """
         if semiring is None:
             semiring = current_semiring.get(None)
         mask, accum, desc = self._get_args(mask, accum, desc)
@@ -1902,7 +2491,22 @@ class Matrix:
     def mxv(self, other, semiring=None, cast=None, out=None, mask=None,
             accum=None, desc=None):
         """Matrix-vector multiply (``A @ v``); any registered semiring may
-        be passed."""
+        be passed.
+
+        >>> A = Matrix.from_lists([0, 1], [1, 0], [2, 3])
+        >>> v = Vector.from_list([1, 10])
+        >>> print(A.mxv(v))
+        0|20
+        1| 3
+
+        Any registered semiring may be passed explicitly:
+
+        >>> A = Matrix.from_lists([0, 0, 1], [0, 1, 1], [1, 2, 3])
+        >>> w = Vector.from_list([10, 20])
+        >>> print(A.mxv(w, semiring=types.INT64.MIN_PLUS))
+        0|11
+        1|23
+        """
         from .vector import Vector
 
         if semiring is None:
@@ -2172,7 +2776,16 @@ class Matrix:
     def kronpow(self, exponent):
         """Kronecker-power expansion (graph generation): each step
         squares the result, ``result = result.kronecker(result)``, as
-        the JAX package's does."""
+        the JAX package's does.
+
+        >>> I = Matrix.from_lists([0, 0, 1], [0, 1, 1], [1.0, 1.0, 1.0])
+        >>> I.kronpow(1).iseq(I)
+        True
+        >>> I.kronpow(2).shape
+        (4, 4)
+        >>> I.kronpow(2).nvals
+        9
+        """
         if exponent == 0:
             return self.__class__.identity(self.type, self.nrows,
                                            device=self._dev)
@@ -2190,7 +2803,16 @@ class Matrix:
         j*q + l] = op(A[i, j], B[k, l]) for B of shape (p, q).  The
         bitmap tier broadcasts `op` on the device (``dk.kronecker``); a
         huge operand or output takes the host triples
-        (``coosem.kron``)."""
+        (``coosem.kron``).
+
+        >>> A = Matrix.from_lists([0], [0], [2], 1, 1)
+        >>> B = Matrix.from_lists([0, 1], [1, 0], [3, 4])
+        >>> print(A.kronecker(B))
+              0  1
+          0|     6|  0
+          1|  8   |  1
+              0  1
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         typ = cast or promote(self.type, other.type)
         if op is None:
@@ -2251,7 +2873,30 @@ class Matrix:
         """Extract a submatrix (GrB_Matrix_extract): slices are
         stop-inclusive, a negative step selects backwards, a list picks
         rows in its order (repeats allowed).  `desc=T0` extracts from
-        the transpose."""
+        the transpose.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 0, 149])
+        >>> print(M.extract_matrix(0, 1))
+              0
+          0| 42|  0
+              0
+
+        Slices are stop-inclusive (``slice(1, 2)`` keeps rows 1 and 2);
+        a negative step reverses:
+
+        >>> A = Matrix.from_lists([0, 1, 2], [0, 1, 2], [1, 2, 3])
+        >>> print(A.extract_matrix(slice(1, 2), slice(1, 2)))
+              0  1
+          0|  2   |  0
+          1|     3|  1
+              0  1
+        >>> print(A.extract_matrix(slice(2, 0, -1), None))
+              0  1  2
+          0|        3|  0
+          1|     2   |  1
+          2|  1      |  2
+              0  1  2
+        """
         ta = desc is not None and desc.inp0
         mask, accum, desc = self._get_args(mask, accum, desc)
         result_nrows = self.ncols if ta else self.nrows
@@ -2281,7 +2926,14 @@ class Matrix:
 
     def extract_col(self, col_index, row_slice=None, out=None, mask=None,
                     accum=None, desc=None):
-        """Extract a column (or part of it) as a Vector."""
+        """Extract a column (or part of it) as a Vector.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 0, 149])
+        >>> print(M.extract_col(0))
+        0|
+        1|
+        2|149
+        """
         from .vector import Vector
 
         ta = desc is not None and desc.inp0
@@ -2312,7 +2964,21 @@ class Matrix:
     def extract_row(self, row_index, col_slice=None, out=None, mask=None,
                     accum=None, desc=None):
         """Extract a row (or part of it) as a Vector: the column extract
-        of the transpose."""
+        of the transpose.
+
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [42, 0, 149])
+        >>> print(M.extract_row(0))
+        0|
+        1|42
+        2|
+
+        A column slice (stop-inclusive) extracts part of the row:
+
+        >>> A = Matrix.from_lists([0, 0, 0], [0, 1, 2], [1, 2, 3])
+        >>> print(A.extract_row(0, slice(1, 2)))
+        0| 2
+        1| 3
+        """
         desc2 = desc if desc is not None else Default
         flipped = desc2 & T0 if not desc2.inp0 else desc2
         return self.extract_col(row_index, col_slice, out, mask=mask,
@@ -2349,7 +3015,28 @@ class Matrix:
 
     def assign_col(self, col_index, value, row_slice=None, mask=None,
                    accum=None, desc=None):
-        """Assign a Vector to a column (or part of it)."""
+        """Assign a Vector to a column (or part of it).
+
+        >>> M = Matrix.sparse(types.INT64, 3, 3)
+        >>> M.assign_col(1, Vector.from_list([9, 8, 7]))
+        >>> print(M)
+              0  1  2
+          0|     9   |  0
+          1|     8   |  1
+          2|     7   |  2
+              0  1  2
+
+        A row slice assigns into part of the column:
+
+        >>> N = Matrix.sparse(types.INT64, 3, 3)
+        >>> N.assign_col(0, Vector.from_list([7, 8]), slice(0, 1))
+        >>> print(N)
+              0  1  2
+          0|  7      |  0
+          1|  8      |  1
+          2|         |  2
+              0  1  2
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         stop_val = self.ncols if desc.inp0 else self.nrows
         iset = self._resolve_iset(row_slice, stop_val)
@@ -2364,7 +3051,28 @@ class Matrix:
 
     def assign_row(self, row_index, value, col_slice=None, mask=None,
                    accum=None, desc=None):
-        """Assign a Vector to a row (or part of it)."""
+        """Assign a Vector to a row (or part of it).
+
+        >>> M = Matrix.sparse(types.INT64, 3, 3)
+        >>> M.assign_row(1, Vector.from_list([9, 8, 7]))
+        >>> print(M)
+              0  1  2
+          0|         |  0
+          1|  9  8  7|  1
+          2|         |  2
+              0  1  2
+
+        A column slice assigns into part of the row:
+
+        >>> N = Matrix.sparse(types.INT64, 3, 3)
+        >>> N.assign_row(1, Vector.from_list([4, 5]), slice(1, 2))
+        >>> print(N)
+              0  1  2
+          0|         |  0
+          1|     4  5|  1
+          2|         |  2
+              0  1  2
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         iset = self._resolve_iset(col_slice, self.ncols)
         if iset.size != value.size:
@@ -2432,7 +3140,17 @@ class Matrix:
     def assign_matrix(self, value, rindex=None, cindex=None, mask=None,
                       accum=None, desc=None):
         """C(I, J)<M> (accum)= A (GrB_Matrix_assign): the whole matrix by
-        default; the mask applies over C, restricted to the region."""
+        default; the mask applies over C, restricted to the region.
+
+        >>> M = Matrix.sparse(types.INT64, 3, 3)
+        >>> M.assign_matrix(Matrix.identity(types.INT64, 3))
+        >>> print(M)
+              0  1  2
+          0|  1      |  0
+          1|     1   |  1
+          2|        1|  2
+              0  1  2
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         iset_r = self._resolve_iset(rindex, self.nrows)
         iset_c = self._resolve_iset(cindex, self.ncols)
@@ -2483,7 +3201,28 @@ class Matrix:
     def assign_scalar(self, value, row_slice=None, col_slice=None, mask=None,
                       accum=None, desc=None):
         """C(I, J)<M> (accum)= s: the whole matrix by default; with a
-        mask only the mask's pattern is written."""
+        mask only the mask's pattern is written.
+
+        >>> M = Matrix.sparse(types.BOOL, 3, 3)
+        >>> M.assign_scalar(True, 1)
+        >>> print(M)
+              0  1  2
+          0|         |  0
+          1|  t  t  t|  1
+          2|         |  2
+              0  1  2
+
+        With a mask, only the mask's pattern is written:
+
+        >>> A = Matrix.sparse(types.INT64, 2, 2)
+        >>> W = Matrix.from_lists([0, 1], [0, 1], [True, True])
+        >>> A.assign_scalar(5, mask=W)
+        >>> print(A)
+              0  1
+          0|  5   |  0
+          1|     5|  1
+              0  1
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         iset_r = self._resolve_iset(row_slice, self.nrows)
         iset_c = self._resolve_iset(col_slice, self.ncols)
@@ -2604,7 +3343,11 @@ class Matrix:
         return partial(attr, self)
 
     def __len__(self):
-        """Number of stored elements."""
+        """Number of stored elements.
+
+        >>> len(Matrix.from_lists([0], [0], [1]))
+        1
+        """
         return self.nvals
 
     def __and__(self, other):
@@ -2634,7 +3377,20 @@ class Matrix:
         return ewise(other, self, op)  # pragma: no cover
 
     def __add__(self, other):
-        """eadd with PLUS; a scalar operand binds apply_second."""
+        """eadd with PLUS; a scalar operand binds apply_second.
+
+        >>> A = Matrix.from_lists([0, 1], [0, 1], [1, 2])
+        >>> print(A + A)
+              0  1
+          0|  2   |  0
+          1|     4|  1
+              0  1
+        >>> print(A + 1)
+              0  1
+          0|  2   |  0
+          1|     3|  1
+              0  1
+        """
         return self._arith(other, "PLUS", Matrix.eadd)
 
     def __radd__(self, other):
@@ -2653,7 +3409,15 @@ class Matrix:
         return self._arith(other, "MINUS", Matrix.eadd, out=self)
 
     def __mul__(self, other):
-        """emult with TIMES; a scalar operand binds apply_second."""
+        """emult with TIMES; a scalar operand binds apply_second.
+
+        >>> A = Matrix.from_lists([0, 1], [0, 1], [1, 2])
+        >>> print(A * 3)
+              0  1
+          0|  3   |  0
+          1|     6|  1
+              0  1
+        """
         return self._arith(other, "TIMES", Matrix.emult)
 
     def __rmul__(self, other):
@@ -2672,15 +3436,31 @@ class Matrix:
         return self._arith(other, "DIV", Matrix.emult, out=self)
 
     def __invert__(self):
-        """Multiplicative inverse of every element."""
+        """Multiplicative inverse of every element.
+
+        >>> (~Matrix.from_lists([0], [0], [2.0]))[0, 0]
+        0.5
+        """
         return self.apply(self.type.MINV)
 
     def __neg__(self):
-        """Additive inverse of every element."""
+        """Additive inverse of every element.
+
+        >>> A = Matrix.from_lists([0, 1], [0, 1], [1, 2])
+        >>> print(-A)
+              0  1
+          0| -1   |  0
+          1|    -2|  1
+              0  1
+        """
         return self.apply(self.type.AINV)
 
     def __abs__(self):
-        """Absolute value of every element."""
+        """Absolute value of every element.
+
+        >>> abs(Matrix.from_lists([0], [0], [-2]))[0, 0]
+        2
+        """
         return self.apply(self.type.ABS)
 
     # ------------------------------------------------------------------
@@ -2708,14 +3488,26 @@ class Matrix:
         return DistMatrix(self, mesh, balance=balance)
 
     def out_degree(self, typ=types.UINT64, out=None):
-        """Vector of out-degrees (default UINT64)."""
+        """Vector of out-degrees (default UINT64).
+
+        >>> M = Matrix.from_lists([0, 1, 0, 2], [1, 2, 2, 0], [42, 0, 3, 149])
+        >>> print(M.out_degree())
+        0| 2
+        1| 1
+        2| 1
+        """
         from .vector import Vector
 
         return self.cast(typ).plus_pair(
             Vector.iso(1, self.nrows, device=self._dev), out=out)
 
     def gini(self, typ=types.FP64):
-        """Gini coefficient of the out-degree distribution."""
+        """Gini coefficient of the out-degree distribution.
+
+        >>> M = Matrix.random(types.UINT8, 10, 10, 10, seed=42)
+        >>> M.gini()
+        0.23333333333333334
+        """
         arr = np.sort(self.out_degree(typ).npV)
         n = arr.shape[0]
         index = np.arange(1, n + 1)

@@ -9,6 +9,14 @@ signed bit views, and a predicate reads them as their unsigned values.
 At UINT64, which torch cannot widen, a user predicate is handed
 :class:`Unsigned64` values: they compare as unsigned and refuse
 arithmetic.
+
+>>> from pygraphblas_tpu_torch import Matrix, selectop
+>>> A = Matrix.from_lists([0, 0, 1], [0, 1, 1], [-1, 0, 1])
+>>> print(A.select(selectop.LT_THUNK, 0))
+      0  1
+  0| -1   |  0
+  1|      |  1
+      0  1
 """
 
 __all__ = ["SelectOp", "Unsigned64", "select_op"]
@@ -204,7 +212,16 @@ def build_selectops(__pdoc__=None):
 
 def select_op(arg_type, thunk_type=None):
     """Decorator turning a Python predicate ``(i, j, x, thunk) -> bool``
-    into a SelectOp."""
+    into a SelectOp.
+
+    >>> from pygraphblas_tpu_torch import Matrix, select_op, types
+    >>> @select_op(types.FP64)
+    ... def rowcol_sum_gt(i, j, x, v):
+    ...     return (i + j) > v
+    >>> A = Matrix.dense(types.FP64, 3, 3, fill=1)
+    >>> A.select(rowcol_sum_gt, 2).nvals
+    3
+    """
 
     def inner(func):
         return SelectOp(func.__name__, func, needs_thunk=True)

@@ -542,6 +542,55 @@ def scipy_dnn_oracle(img_r, img_c, img_v, layer_triples, nfeat, n, bias):
     return Y
 
 
+def write_challenge_dataset(ndir, nneurons, nlayers, nimages, bias, seed=7):
+    """A small dataset in the GraphChallenge layout under `ndir` (TSV
+    lines ``row<TAB>col<TAB>value``, 1-based): ``run_fullscale``'s RadiX
+    net at `nneurons` as ``neuron{n}/n{n}-l{i}.tsv``, `nimages` of its
+    images as ``sparse-images-{n}.tsv`` (rows of the challenge's 60,000
+    features), and the categories ``scipy_dnn_oracle`` gives at `bias`
+    as ``DNN/neuron{n}-l{L}-categories.tsv`` (1-based lines).  Returns
+    the categories, 0-based.  An image that some neuron's input puts on
+    the ReLU threshold in exact arithmetic (within 1e-5 of it, computed
+    in float64) is left out: float32 rounding, in whatever order a
+    product sums, decides its category."""
+    import os
+
+    from scipy import sparse as sp
+
+    radices, weight = fullscale_radices(nneurons)
+    n, topo = radix_topology(radices)
+    os.makedirs(os.path.join(ndir, f"neuron{n}"), exist_ok=True)
+    os.makedirs(os.path.join(ndir, "DNN"), exist_ok=True)
+    triples = []
+    for i in range(nlayers):
+        r, c = topo[i % len(topo)]
+        v = np.full(len(r), weight, np.float32)
+        triples.append((r, c, v))
+        np.savetxt(os.path.join(ndir, f"neuron{n}", f"n{n}-l{i + 1}.tsv"),
+                   np.stack([r + 1, c + 1, v], 1), fmt="%d\t%d\t%g")
+    ir, ic, iv = fullscale_images(nimages, n, seed=seed)
+    Y = sp.csr_matrix((iv.astype(np.float64), (ir, ic)), (nimages, n))
+    tie = np.zeros(nimages, bool)
+    for r, c, v in triples:
+        P = (Y @ sp.csr_matrix((v.astype(np.float64), (r, c)), (n, n))) \
+            .tocoo()
+        pre = P.data + bias
+        tie[P.row[np.abs(pre) < 1e-5]] = True
+        Y = sp.csr_matrix((np.clip(pre, 0, 32), (P.row, P.col)),
+                          (nimages, n))
+        Y.eliminate_zeros()
+    keep = ~tie[ir]
+    ir, ic, iv = ir[keep], ic[keep], iv[keep]
+    np.savetxt(os.path.join(ndir, f"sparse-images-{n}.tsv"),
+               np.stack([ir + 1, ic + 1, iv], 1), fmt="%d\t%d\t%g")
+    Y = scipy_dnn_oracle(ir, ic, iv, triples, nimages, n, bias)
+    cats = np.flatnonzero(np.asarray(Y.sum(axis=1)).ravel() != 0)
+    np.savetxt(os.path.join(ndir, "DNN",
+                            f"neuron{n}-l{nlayers}-categories.tsv"),
+               cats + 1, fmt="%d")
+    return set(cats.tolist())
+
+
 # ---------------------------------------------------------------------------
 # spawned ranks for the distributed tier's CPU tests
 # ---------------------------------------------------------------------------

@@ -94,7 +94,19 @@ def build_unaryops(__pdoc__=None):
 
 def unary_op(arg_type):
     """Decorator turning a Python function over tensors into a
-    UnaryOp."""
+    UnaryOp.
+
+    >>> from pygraphblas_tpu_torch import Matrix, unary_op, types
+    >>> @unary_op(types.FP64)
+    ... def plus42(x):
+    ...     return x + 42
+    >>> A = Matrix.from_lists([0, 1], [1, 0], [1.0, 2.0])
+    >>> print(A.apply(plus42))
+          0  1
+      0|   43.0|  0
+      1|44.0   |  1
+          0  1
+    """
 
     def inner(func):
         return UnaryOp(func.__name__, arg_type.__name__, fn=func,

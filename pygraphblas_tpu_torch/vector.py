@@ -76,7 +76,14 @@ def _check_indices(idx, size):
 
 
 class Vector:
-    """GraphBLAS Vector."""
+    """GraphBLAS Vector.
+
+    >>> v = Vector.from_lists([0, 1, 2], [1, 2, 3])
+    >>> print(v)
+    0| 1
+    1| 2
+    2| 3
+    """
 
     __slots__ = (
         "type",
@@ -128,7 +135,12 @@ class Vector:
     @classmethod
     def sparse(cls, typ, size=None, fill=None, mask=None, device=None):
         """An empty sparse Vector (unbounded size defaults to
-        GxB_INDEX_MAX)."""
+        GxB_INDEX_MAX).
+
+        >>> v = Vector.sparse(types.INT64, 3)
+        >>> v.size
+        3
+        """
         if size is None:
             size = GxB_INDEX_MAX
         v = cls(typ, size, device=device)
@@ -138,7 +150,17 @@ class Vector:
 
     @classmethod
     def dense(cls, typ, size=None, fill=None, device=None):
-        """A dense Vector: all elements present."""
+        """A dense Vector: all elements present.
+
+        >>> print(Vector.dense(types.INT64, 3, fill=7))
+        0| 7
+        1| 7
+        2| 7
+        >>> print(Vector.dense(types.FP32, 3, fill=1.5))
+        0|1.5
+        1|1.5
+        2|1.5
+        """
         if size is None:
             size = GxB_INDEX_MAX
         fillv = typ.default_zero if fill is None else fill
@@ -161,7 +183,12 @@ class Vector:
     @classmethod
     def iso(cls, value, size=GxB_INDEX_MAX, device=None):
         """Dense Vector of one repeated value; type inferred.  Sizes past
-        the dense budget store the value once (O(1))."""
+        the dense budget store the value once (O(1)).
+
+        >>> print(Vector.iso(3, 2))
+        0| 3
+        1| 3
+        """
         typ = _type_from_value(value)
         if not cls._fits_bitmap(size, typ):
             v = cls(typ, size, fmt="iso", device=device)
@@ -171,7 +198,13 @@ class Vector:
 
     @classmethod
     def from_lists(cls, I, V=None, size=None, typ=None, device=None):
-        """From index and value lists."""
+        """From index and value lists.
+
+        >>> print(Vector.from_lists([0, 2], [1, 2]))
+        0| 1
+        1|
+        2| 2
+        """
         if V is None:
             V = [True] * len(I)
             typ = types.BOOL if typ is None else typ
@@ -187,7 +220,13 @@ class Vector:
 
     @classmethod
     def from_list(cls, I, device=None):
-        """A dense vector from a list of values."""
+        """A dense vector from a list of values.
+
+        >>> print(Vector.from_list([1, 2, 3]))
+        0| 1
+        1| 2
+        2| 3
+        """
         size = len(I)
         if size == 0:
             raise InvalidValue("from_list needs at least one value")
@@ -198,7 +237,14 @@ class Vector:
 
     @classmethod
     def from_1_to_n(cls, n, device=None):
-        """Vector of values 1..n."""
+        """Vector of values 1..n.
+
+        >>> v = Vector.from_1_to_n(3)
+        >>> print(v)
+        0| 1
+        1| 2
+        2| 3
+        """
         v = cls.sparse(types.INT64, n, device=device)
         v._build(np.arange(n, dtype=np.int64),
                  np.arange(1, n + 1, dtype=np.int64))
@@ -208,7 +254,12 @@ class Vector:
     def random(cls, typ, nvals, size=GxB_INDEX_MAX, make_pattern=False,
                seed=None, device=None):
         """Random vector (the JAX package's stdlib-random draw order, so
-        seeded results agree)."""
+        seeded results agree).
+
+        >>> v = Vector.random(types.INT64, 3, 10, seed=42)
+        >>> v.nvals <= 3 and v.size == 10
+        True
+        """
         from .matrix import _random_value_fn
 
         V = cls.sparse(typ, size, device=device)
@@ -224,7 +275,14 @@ class Vector:
 
     @classmethod
     def from_numpy(cls, arr, device=None):
-        """Dense vector from a 1-D numpy array."""
+        """Dense vector from a 1-D numpy array.
+
+        >>> import numpy as np
+        >>> print(Vector.from_numpy(np.array([1, 2, 3])))
+        0| 1
+        1| 2
+        2| 3
+        """
         arr = np.asarray(arr)
         typ = types.MetaType._dtype_type_map[arr.dtype.type]
         v = cls.sparse(typ, arr.shape[0], device=device)
@@ -551,17 +609,29 @@ class Vector:
 
     @property
     def size(self):
-        """Size of the vector."""
+        """Size of the vector.
+
+        >>> Vector.from_list([1, 2, 3]).size
+        3
+        """
         return self._size
 
     @property
     def shape(self):
-        """Tuple of (size,)."""
+        """Tuple of (size,).
+
+        >>> Vector.sparse(types.INT8, 7).shape
+        (7,)
+        """
         return (self._size,)
 
     @property
     def nvals(self):
-        """Number of stored elements."""
+        """Number of stored elements.
+
+        >>> Vector.from_lists([0, 2], [1, 2]).nvals
+        2
+        """
         self._flush()
         if self._nvals_c is None:
             if self._fmt == "iso":
@@ -574,7 +644,11 @@ class Vector:
 
     @property
     def memory_usage(self):
-        """Bytes used by this vector's storage."""
+        """Bytes used by this vector's storage.
+
+        >>> Vector.from_list([1, 2, 3]).memory_usage > 0
+        True
+        """
         self._flush()
         if self._fmt == "iso":
             return np.dtype(self.type._numpy_t).itemsize
@@ -585,7 +659,13 @@ class Vector:
 
     @property
     def hyper_switch(self):
-        """Hypersparsity switching threshold (parity knob)."""
+        """Hypersparsity switching threshold (parity knob).
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> v.hyper_switch = 0.5
+        >>> v.hyper_switch
+        0.5
+        """
         return self._hyper_switch
 
     @hyper_switch.setter
@@ -595,7 +675,15 @@ class Vector:
     @property
     def sparsity(self):
         """Sparsity control bitmask; defaults to GxB_AUTO_SPARSITY
-        (15)."""
+        (15).
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> v.sparsity
+        15
+        >>> v.sparsity = 4
+        >>> v.sparsity
+        4
+        """
         return self._sparsity
 
     @sparsity.setter
@@ -618,7 +706,15 @@ class Vector:
     @property
     def sparsity_status(self):
         """Current physical format: 1=hypersparse, 2=sparse, 4=bitmap,
-        8=full."""
+        8=full.
+
+        >>> Vector.from_lists([0, 2], [7, 9], 4).sparsity_status
+        4
+        >>> Vector.from_list([1, 2, 3]).sparsity_status
+        8
+        >>> Vector.sparse(types.INT64, 10**12).sparsity_status
+        1
+        """
         self._flush()
         if self._fmt == "iso":
             return 8
@@ -630,27 +726,48 @@ class Vector:
 
     @property
     def gb_type(self):
-        """The GraphBLAS type object of the Vector."""
+        """The GraphBLAS type object of the Vector.
+
+        >>> Vector.from_list([1, 2, 3]).gb_type == types.INT64
+        True
+        """
         return self.type
 
     @property
     def indices(self):
-        """Array of indices of stored elements."""
+        """Array of indices of stored elements.
+
+        >>> list(Vector.from_lists([0, 2], [1, 2]).indices)
+        [0, 2]
+        """
         return array("L", map(int, self._coo()[0]))
 
     @property
     def I(self):
-        """Iterator over `Vector.indices`."""
+        """Iterator over `Vector.indices`.
+
+        >>> v = Vector.from_lists([0, 2], [7, 9], 4)
+        >>> list(v.I)
+        [0, 2]
+        """
         return iter(self.indices)
 
     @property
     def npI(self):
-        """numpy array of indices."""
+        """numpy array of indices.
+
+        >>> Vector.from_lists([0, 2], [7, 9], 4).npI
+        array([0, 2], dtype=uint64)
+        """
         return self._coo()[0].astype(np.uint64)
 
     @property
     def vals(self):
-        """Array of stored values."""
+        """Array of stored values.
+
+        >>> list(Vector.from_lists([0, 2], [7, 9], 4).vals)
+        [7, 9]
+        """
         v = self._coo()[1]
         if self.type._typecode is None:
             return list(map(self.type._to_value, v))
@@ -658,22 +775,42 @@ class Vector:
 
     @property
     def V(self):
-        """Iterator over `Vector.vals`."""
+        """Iterator over `Vector.vals`.
+
+        >>> list(Vector.from_lists([0, 2], [7, 9], 4).V)
+        [7, 9]
+        """
         return iter(self.vals)
 
     @property
     def npV(self):
-        """numpy array of stored values."""
+        """numpy array of stored values.
+
+        >>> Vector.from_lists([0, 2], [7, 9], 4).npV
+        array([7, 9])
+        """
         return np.asarray(self._coo()[1])
 
     def pattern(self, typ=types.BOOL):
-        """BOOL pattern vector of stored elements."""
+        """BOOL pattern vector of stored elements.
+
+        >>> print(Vector.from_lists([0, 2], [1, 2]).pattern())
+        0| t
+        1|
+        2| t
+        """
         out = Vector.sparse(typ, self.size, device=self._dev)
         return self.apply(typ.ONE, out=out)
 
     @property
     def S(self):
-        """The vector structure; same as `Vector.pattern()`."""
+        """The vector structure; same as `Vector.pattern()`.
+
+        >>> print(Vector.from_lists([0, 2], [7, 9], 3).S)
+        0| t
+        1|
+        2| t
+        """
         return self.pattern()
 
     # ------------------------------------------------------------------
@@ -681,7 +818,19 @@ class Vector:
     # ------------------------------------------------------------------
 
     def dup(self):
-        """Duplicate this Vector (independent of the original)."""
+        """Duplicate this Vector (independent of the original).
+
+        >>> v = Vector.from_list([1, 2])
+        >>> v.dup().iseq(v)
+        True
+
+        The duplicate is independent of the original:
+
+        >>> w = v.dup()
+        >>> w[0] = 9
+        >>> v[0]
+        1
+        """
         out = Vector.sparse(self.type, self._size, device=self._dev)
         self._flush()
         if self._fmt == "bitmap" and not self._staged:
@@ -698,7 +847,17 @@ class Vector:
         return out
 
     def cast(self, cast, out=None):
-        """Cast this vector to another type."""
+        """Cast this vector to another type.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> w = v.cast(types.FP32)
+        >>> w.type is types.FP32
+        True
+        >>> print(w)
+        0|1.0
+        1|2.0
+        2|3.0
+        """
         if out is None:
             out = Vector.sparse(cast, self._size, device=self._dev)
         self._flush()
@@ -718,7 +877,13 @@ class Vector:
         return out
 
     def clear(self):
-        """Remove all elements."""
+        """Remove all elements.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> v.clear()
+        >>> v.nvals
+        0
+        """
         self._pending = []
         if self._fmt == "bitmap" and not self._staged:
             self._vals = torch.zeros_like(self._vals)
@@ -729,7 +894,13 @@ class Vector:
         self._invalidate()
 
     def resize(self, size=GxB_INDEX_MAX):
-        """Resize; values beyond the new size are dropped."""
+        """Resize; values beyond the new size are dropped.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> v.resize(10)
+        >>> v.size
+        10
+        """
         i, v = self._coo()
         keep = i < size
         self._size = int(size)
@@ -741,14 +912,30 @@ class Vector:
         self._build(i[keep], v[keep])
 
     def wait(self):
-        """Complete all pending work on this Vector."""
+        """Complete all pending work on this Vector.
+
+        >>> v = Vector.sparse(types.INT64, 3)
+        >>> v[1] = 7
+        >>> v.wait()
+        >>> v.nvals
+        1
+        """
         self._flush()
         if self._fmt == "bitmap" and not self._staged \
                 and self._vals.device.type == "cuda":
             torch.cuda.synchronize(self._vals.device)
 
     def __setitem__(self, index, value):
-        """Write an element or region."""
+        """Write an element or region.
+
+        >>> v = Vector.sparse(types.INT64, 3)
+        >>> v[0] = 7
+        >>> v[1:] = 9
+        >>> print(v)
+        0| 7
+        1| 9
+        2| 9
+        """
         if _is_int(index):
             if not 0 <= index < self._size:
                 raise InvalidIndex("index out of bounds")
@@ -771,7 +958,15 @@ class Vector:
         raise TypeError
 
     def __getitem__(self, index):
-        """Read an element or sub-vector."""
+        """Read an element or sub-vector.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> v[1]
+        2
+        >>> print(v[0:1])
+        0| 1
+        1| 2
+        """
         if _is_int(index):
             return self.extract_element(index)
         if not isinstance(index, (slice, list, np.ndarray, Vector)):
@@ -779,7 +974,13 @@ class Vector:
         return self.extract(index)
 
     def __delitem__(self, index):
-        """Remove a single stored element."""
+        """Remove a single stored element.
+
+        >>> v = Vector.from_lists([0, 2], [7, 9], 3)
+        >>> del v[0]
+        >>> v.to_lists()
+        [[2], [9]]
+        """
         if not _is_int(index):
             raise TypeError("only single element removal supported")
         self._flush()
@@ -796,7 +997,14 @@ class Vector:
         self._invalidate()
 
     def __contains__(self, index):
-        """True iff an element is stored at `index`."""
+        """True iff an element is stored at `index`.
+
+        >>> v = Vector.from_lists([0, 2], [7, 9], 3)
+        >>> 0 in v
+        True
+        >>> 1 in v
+        False
+        """
         try:
             self[index]
             return True
@@ -804,14 +1012,23 @@ class Vector:
             return False
 
     def get(self, i, default=None):
-        """Element at i or `default`."""
+        """Element at i or `default`.
+
+        >>> Vector.from_lists([0], [42], 2).get(1, 'foo')
+        'foo'
+        """
         try:
             return self[i]
         except NoValue:
             return default
 
     def extract_element(self, index):
-        """Extract a single element; raises NoValue if absent."""
+        """Extract a single element; raises NoValue if absent.
+
+        >>> v = Vector.from_lists([0, 2], [7, 9], 3)
+        >>> v.extract_element(2)
+        9
+        """
         if not 0 <= index < self._size:
             raise InvalidIndex("index out of bounds")
         self._flush()
@@ -829,7 +1046,20 @@ class Vector:
 
     def extract(self, index, mask=None, accum=None, desc=None):
         """Extract a sub-vector by slice (stop inclusive) or index
-        list."""
+        list.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> print(v.extract(slice(1, 2)))
+        0| 2
+        1| 3
+        >>> print(v.extract([0, 2]))
+        0| 1
+        1| 3
+        >>> print(v.extract(slice(2, 0, -1)))
+        0| 3
+        1| 2
+        2| 1
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         iset = _build_range(index if not _is_int(index)
                             else slice(index, index), self._size - 1)
@@ -851,17 +1081,29 @@ class Vector:
         return out._writeback(out, v[idx], m[idx], mask, accum, desc)
 
     def __iter__(self):
-        """Iterate (index, value) pairs."""
+        """Iterate (index, value) pairs.
+
+        >>> list(iter(Vector.from_lists([0, 2], [1, 2])))
+        [(0, 1), (2, 2)]
+        """
         i, v = self._coo()
         return zip(map(int, i), map(self.type._to_value, v))
 
     def to_lists(self):
-        """Return [indices, values] lists."""
+        """Return [indices, values] lists.
+
+        >>> Vector.from_lists([0, 2], [1, 2]).to_lists()
+        [[0, 2], [1, 2]]
+        """
         i, v = self._coo()
         return [list(map(int, i)), list(map(self.type._to_value, v))]
 
     def to_arrays(self):
-        """Return (indices, values) as stdlib arrays."""
+        """Return (indices, values) as stdlib arrays.
+
+        >>> Vector.from_lists([0, 2], [1, 2]).to_arrays()
+        (array('L', [0, 2]), array('q', [1, 2]))
+        """
         if self.type._typecode is None:
             raise TypeError("This vector has no array typecode.")
         i, v = self._coo()
@@ -869,7 +1111,11 @@ class Vector:
                 array(self.type._typecode, map(self.type._to_value, v)))
 
     def to_numpy(self):
-        """Dense numpy copy (absent entries read 0)."""
+        """Dense numpy copy (absent entries read 0).
+
+        >>> Vector.from_lists([0, 2], [7, 9], 3).to_numpy()
+        array([7, 0, 9])
+        """
         v, m = self._host_pair()
         return np.where(m, v, np.zeros((), v.dtype))
 
@@ -879,7 +1125,11 @@ class Vector:
 
     def to_string(self, format_string="{:>%s}", width=2, prec=3,
                   empty_char=""):
-        """String rendering (the JAX package's layout)."""
+        """String rendering (the JAX package's layout).
+
+        >>> Vector.from_lists([0, 2], [1, 2]).to_string()
+        '0| 1\\n1|\\n2| 2'
+        """
         format_string = format_string % width
         result = ""
         for row in range(self.size):
@@ -929,7 +1179,19 @@ class Vector:
     @_timed("Vector.eadd")
     def eadd(self, other, add_op=None, cast=None, out=None, mask=None,
              accum=None, desc=None):
-        """Element-wise union."""
+        """Element-wise union.
+
+        >>> u = Vector.from_lists([0, 1], [1, 2], 3)
+        >>> v = Vector.from_lists([1, 2], [10, 20], 3)
+        >>> print(u.eadd(v))
+        0| 1
+        1|12
+        2|20
+        >>> print(u.eadd(v, types.INT64.MAX))
+        0| 1
+        1|10
+        2|20
+        """
         add_op = self._resolve_eop(add_op, True)
         mask, accum, desc = self._get_args(mask, accum, desc)
         if out is None:
@@ -954,7 +1216,19 @@ class Vector:
     @_timed("Vector.emult")
     def emult(self, other, mult_op=None, cast=None, out=None, mask=None,
               accum=None, desc=None):
-        """Element-wise intersection."""
+        """Element-wise intersection.
+
+        >>> u = Vector.from_lists([0, 1], [1, 2], 3)
+        >>> v = Vector.from_lists([1, 2], [10, 20], 3)
+        >>> print(u.emult(v))
+        0|
+        1|20
+        2|
+        >>> print(u.emult(v, '+'))
+        0|
+        1|12
+        2|
+        """
         mult_op = self._resolve_eop(mult_op, False)
         mask, accum, desc = self._get_args(mask, accum, desc)
         if out is None:
@@ -980,7 +1254,14 @@ class Vector:
 
     def all(self, other, op):
         """True iff same size/pattern and op holds for all matched
-        values."""
+        values.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> v.all(Vector.from_list([1, 2, 3]), types.INT64.EQ)
+        True
+        >>> v.all(Vector.from_list([1, 2, 4]), types.INT64.LE)
+        True
+        """
         if self.size != other.size:
             return False
         if self.nvals != other.nvals:
@@ -991,7 +1272,14 @@ class Vector:
         return C.reduce_bool(types.BOOL.LAND_MONOID)
 
     def iseq(self, other, eq_op=None):
-        """True iff structurally and numerically equal."""
+        """True iff structurally and numerically equal.
+
+        >>> v = Vector.from_list([1, 2])
+        >>> v.iseq(v.dup())
+        True
+        >>> v.iseq(Vector.from_list([1, 3]))
+        False
+        """
         if eq_op is None:
             if self.type != other.type:
                 return False
@@ -999,12 +1287,27 @@ class Vector:
         return self.all(other, eq_op)
 
     def isne(self, other):
-        """Not `iseq`."""
+        """Not `iseq`.
+
+        >>> v = Vector.from_list([1, 2])
+        >>> v.isne(Vector.from_list([1, 3]))
+        True
+        >>> v.isne(v)
+        False
+        """
         return not self.iseq(other)
 
     @_timed("Vector.apply")
     def apply(self, op, out=None, mask=None, accum=None, desc=None):
-        """Apply a unary operator to every element."""
+        """Apply a unary operator to every element.
+
+        >>> print(Vector.from_list([-1, 2]).apply(types.INT64.AINV))
+        0| 1
+        1|-2
+        >>> print(Vector.from_list([-1, 2]).apply(types.INT64.ABS))
+        0| 1
+        1| 2
+        """
         if isinstance(op, _pytypes.FunctionType):
             from .unaryop import UnaryOp
 
@@ -1034,12 +1337,22 @@ class Vector:
 
     def apply_first(self, first, op, out=None, mask=None, accum=None,
                     desc=None):
-        """Binary op with bound first scalar operand."""
+        """Binary op with bound first scalar operand.
+
+        >>> print(Vector.from_list([1, 2]).apply_first(10, types.INT64.MINUS))
+        0| 9
+        1| 8
+        """
         return self._apply_bound(first, op, True, out, mask, accum, desc)
 
     def apply_second(self, op, second, out=None, mask=None, accum=None,
                      desc=None):
-        """Binary op with bound second scalar operand."""
+        """Binary op with bound second scalar operand.
+
+        >>> print(Vector.from_list([1, 2]).apply_second(types.INT64.MINUS, 10))
+        0|-9
+        1|-8
+        """
         return self._apply_bound(second, op, False, out, mask, accum, desc)
 
     def _apply_bound(self, scalar, op, bind_first, out, mask, accum, desc):
@@ -1081,7 +1394,20 @@ class Vector:
     def select(self, op, thunk=None, out=None, mask=None, accum=None,
                desc=None):
         """Select elements matching a predicate (same string table as
-        `Matrix.select`)."""
+        `Matrix.select`).
+
+        >>> v = Vector.from_lists([0, 1, 2], [-1, 0, 1])
+        >>> print(v.select('>0'))
+        0|
+        1|
+        2| 1
+        >>> v.select('<0').nvals
+        1
+        >>> print(v.select('>', 0))
+        0|
+        1|
+        2| 1
+        """
         if out is None:
             out = Vector.sparse(self.type, self.size, device=self._dev)
         if isinstance(op, str):
@@ -1119,7 +1445,13 @@ class Vector:
                                mask, accum, desc)
 
     def nonzero(self):
-        """Select the non-zero entries."""
+        """Select the non-zero entries.
+
+        >>> print(Vector.from_lists([0, 1, 2], [1, 0, 3], 3).nonzero())
+        0| 1
+        1|
+        2| 3
+        """
         from . import selectop
 
         return self.select(selectop.NONZERO)
@@ -1185,7 +1517,13 @@ class Vector:
 
     @_timed("Vector.reduce")
     def reduce(self, mon=None, accum=None, desc=None):
-        """Type-generic reduce to a scalar of this vector's type."""
+        """Type-generic reduce to a scalar of this vector's type.
+
+        >>> Vector.from_list([1, 2, 3]).reduce()
+        6
+        >>> Vector.from_list([1, 2, 3]).reduce(types.INT64.MIN_MONOID)
+        1
+        """
         if mon is None:
             mon = current_monoid.get(None)
             if mon is None:
@@ -1215,7 +1553,11 @@ class Vector:
             np.asarray(self._reduce_to(mon, self.type, accum)).astype(npt))
 
     def reduce_bool(self, mon=None, mask=None, accum=None, desc=None):
-        """Reduce to a bool (default LOR monoid)."""
+        """Reduce to a bool (default LOR monoid).
+
+        >>> Vector.from_list([False, True]).reduce_bool()
+        True
+        """
         if mon is None:
             mon = current_monoid.get(None) or types.BOOL.LOR_MONOID
         _, accum, desc = self._get_args(None, accum, desc)
@@ -1227,7 +1569,11 @@ class Vector:
         return bool(self._reduce_to(mon, types.BOOL, accum))
 
     def reduce_int(self, mon=None, mask=None, accum=None, desc=None):
-        """Reduce to an int (default PLUS monoid)."""
+        """Reduce to an int (default PLUS monoid).
+
+        >>> Vector.from_list([1, 2, 3]).reduce_int()
+        6
+        """
         if mon is None:
             mon = current_monoid.get(None) or types.INT64.PLUS_MONOID
         _, accum, desc = self._get_args(None, accum, desc)
@@ -1239,7 +1585,11 @@ class Vector:
         return int(self._reduce_to(mon, types.INT64, accum))
 
     def reduce_float(self, mon=None, mask=None, accum=None, desc=None):
-        """Reduce to a float (default PLUS monoid)."""
+        """Reduce to a float (default PLUS monoid).
+
+        >>> Vector.from_list([1.5, 2.5]).reduce_float()
+        4.0
+        """
         if mon is None:
             mon = current_monoid.get(None) or self.type.PLUS_MONOID
         _, accum, desc = self._get_args(None, accum, desc)
@@ -1252,7 +1602,11 @@ class Vector:
         return float(self._reduce_to(mon, types.FP64, accum))
 
     def max(self):
-        """Maximum stored value."""
+        """Maximum stored value.
+
+        >>> Vector.from_lists([0, 1, 2], [-42, 0, 149]).max()
+        149
+        """
         if self.type == types.BOOL:
             return self.reduce_bool(self.type.LOR_MONOID)
         if self.type in types._int_types:
@@ -1262,7 +1616,11 @@ class Vector:
         raise TypeError("Un-maxable type")
 
     def min(self):
-        """Minimum stored value."""
+        """Minimum stored value.
+
+        >>> Vector.from_lists([0, 1, 2], [-42, 0, 149]).min()
+        -42
+        """
         if self.type == types.BOOL:
             return self.reduce_bool(self.type.LAND_MONOID)
         if self.type in types._int_types:
@@ -1278,7 +1636,23 @@ class Vector:
     @_timed("Vector.vxm")
     def vxm(self, other, semiring=None, cast=None, out=None, mask=None,
             accum=None, desc=None):
-        """Vector-matrix multiply ("on the left"); ``v @ M``."""
+        """Vector-matrix multiply ("on the left"); ``v @ M``.
+
+        >>> from .matrix import Matrix
+        >>> M = Matrix.from_lists([0, 1, 2], [1, 2, 0], [1, 2, 3])
+        >>> v = Vector.from_lists([0, 1, 2], [2, 3, 4])
+        >>> print(v.vxm(M))
+        0|12
+        1| 2
+        2| 6
+
+        ``v @ M`` is the operator spelling:
+
+        >>> print(v @ M)
+        0|12
+        1| 2
+        2| 6
+        """
         from .matrix import Matrix
 
         if semiring is None:
@@ -1363,7 +1737,14 @@ class Vector:
         return ewise(other, self, op)  # pragma: no cover
 
     def __add__(self, other):
-        """eadd with PLUS; a scalar operand binds apply_second."""
+        """eadd with PLUS; a scalar operand binds apply_second.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> print(v + 1)
+        0| 2
+        1| 3
+        2| 4
+        """
         return self._arith(other, "PLUS", Vector.eadd)
 
     def __radd__(self, other):
@@ -1382,7 +1763,14 @@ class Vector:
         return self._arith(other, "MINUS", Vector.eadd, out=self)
 
     def __mul__(self, other):
-        """emult with TIMES; a scalar operand binds apply_second."""
+        """emult with TIMES; a scalar operand binds apply_second.
+
+        >>> v = Vector.from_list([1, 2, 3])
+        >>> print(v * v)
+        0| 1
+        1| 4
+        2| 9
+        """
         return self._arith(other, "TIMES", Vector.emult)
 
     def __rmul__(self, other):
@@ -1404,11 +1792,21 @@ class Vector:
         return self.apply(self.type.MINV)
 
     def __neg__(self):
-        """Additive inverse of every element."""
+        """Additive inverse of every element.
+
+        >>> print(-Vector.from_list([1, -2]))
+        0|-1
+        1| 2
+        """
         return self.apply(self.type.AINV)
 
     def __abs__(self):
-        """Absolute value of every element."""
+        """Absolute value of every element.
+
+        >>> print(abs(Vector.from_list([-1, 2])))
+        0| 1
+        1| 2
+        """
         return self.apply(self.type.ABS)
 
     # ------------------------------------------------------------------
@@ -1486,7 +1884,24 @@ class Vector:
     @_timed("Vector.assign")
     def assign(self, value, index=None, mask=None, accum=None, desc=None):
         """Assign a sub-vector (GrB_Vector_assign; a slice is stop
-        inclusive)."""
+        inclusive).
+
+        >>> v = Vector.sparse(types.INT64, 3)
+        >>> v.assign(Vector.from_list([9, 8, 7]))
+        >>> print(v)
+        0| 9
+        1| 8
+        2| 7
+
+        A slice (stop-inclusive) assigns into part of the vector:
+
+        >>> w = Vector.from_list([1, 2, 3])
+        >>> w.assign(Vector.from_list([8, 9]), slice(1, 2))
+        >>> print(w)
+        0| 1
+        1| 8
+        2| 9
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         iset = _build_range(index if not _is_int(index)
                             else slice(index, index), self._size - 1)
@@ -1530,7 +1945,25 @@ class Vector:
     def assign_scalar(self, value, index=None, mask=None, accum=None,
                       desc=None):
         """Assign a scalar to a region of the Vector (all of it by
-        default; with a mask, only the mask's pattern)."""
+        default; with a mask, only the mask's pattern).
+
+        >>> v = Vector.sparse(types.INT64, 3)
+        >>> v.assign_scalar(42)
+        >>> print(v)
+        0|42
+        1|42
+        2|42
+
+        With a mask, only the mask's pattern is written:
+
+        >>> w = Vector.sparse(types.INT64, 3)
+        >>> m = Vector.from_lists([0, 2], [True, True], 3)
+        >>> w.assign_scalar(5, mask=m)
+        >>> print(w)
+        0| 5
+        1|
+        2| 5
+        """
         mask, accum, desc = self._get_args(mask, accum, desc)
         iset = _build_range(index if not _is_int(index)
                             else slice(index, index), self._size - 1)

@@ -5,6 +5,9 @@ fixture, never at import).  Run on a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1247,3 +1250,25 @@ def test_frontier_all_to_all_world_of_one(mesh):
     assert np.array_equal(ri.cpu().numpy()[0], want)
     assert np.array_equal(rv.cpu().numpy()[0][:keep.sum()],
                           np.arange(16)[keep] / 2)
+
+
+def test_run_doctests_on_the_card(card):
+    """The docstring examples with the card as their default device."""
+    import pygraphblas_tpu_torch as T
+
+    assert T.run_doctests() == 0
+
+
+_DEMOS = sorted((Path(__file__).resolve().parent.parent / "demo_torch")
+                .glob("[0-9]*.py"))
+
+
+@pytest.mark.parametrize("script", _DEMOS, ids=[d.name for d in _DEMOS])
+def test_demo_on_the_card(card, script, capsys):
+    """Each gallery script's main on the card prints OK last."""
+    spec = importlib.util.spec_from_file_location(
+        "demo_torch_" + script.stem, script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(["--device", "cuda"])
+    assert capsys.readouterr().out.strip().splitlines()[-1] == "OK"

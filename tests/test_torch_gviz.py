@@ -2,11 +2,13 @@
 CPU (graphviz sources equal as strings, PIL images equal byte for
 byte), ``run_doctests`` over the port's modules, and the public names:
 the port lacks none of the JAX package's, the distributed tier
-(``parallel`` and ``Matrix.shard``) included."""
+(``parallel`` and ``Matrix.shard``) included, and none of its gallery
+scripts and GAP drivers."""
 
 import doctest
 import importlib
 import pkgutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -80,7 +82,7 @@ def test_images_and_exports_equal_jax():
 
 
 def test_run_doctests_passes(monkeypatch):
-    """run_doctests returns 0 failures, having tried the I/O
+    """run_doctests on the CPU returns 0 failures, having tried the I/O
     constructors', gviz's and scalar's examples."""
     tried = {}
     orig = doctest.testmod
@@ -91,7 +93,7 @@ def test_run_doctests_passes(monkeypatch):
         return r
 
     monkeypatch.setattr(doctest, "testmod", counting)
-    assert T.run_doctests() == 0
+    assert T.run_doctests(device="cpu") == 0
     assert sum(tried.values()) > 0
     assert tried["pygraphblas_tpu_torch.gviz"] == 23
     assert tried["pygraphblas_tpu_torch.matrix"] >= 24
@@ -105,12 +107,17 @@ def _public(pkg):
                     if not m.name.startswith("_")}
 
 
-def test_port_lacks_only_the_distributed_tier():
+def test_port_lacks_no_public_name_or_entry_point():
     """Of the JAX package's public names (top level, submodules, and the
     names of Matrix, Vector, Scalar, algorithms, fused, gviz, io and the
-    distributed tier's modules), the port lacks none: the distributed
-    tier (`parallel`, `Matrix.shard`) was the last (the test keeps the
-    name it had while that tier was missing)."""
+    distributed tier's modules), the port lacks none; and each script of
+    the JAX gallery (demo/NN_*.py) and each GAP driver (gap/*.py) has
+    its counterpart of the same name in demo_torch/ and gap_torch/."""
+    root = Path(__file__).resolve().parent.parent
+    for jax_dir, glob in (("demo", "[0-9]*.py"), ("gap", "*.py")):
+        want = {p.name for p in (root / jax_dir).glob(glob)}
+        have = {p.name for p in (root / f"{jax_dir}_torch").glob(glob)}
+        assert want and want <= have, (jax_dir, want - have)
     assert _public(J) - _public(T) == set()
     for mod in ("gviz", "io", "io.mm", "io.binfile", "io.native",
                 "parallel", "parallel.dist", "parallel.checkpoint"):

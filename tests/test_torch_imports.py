@@ -27,21 +27,26 @@ def _imports(path):
 
 
 def _port_files():
-    pkg = os.path.join(ROOT, "pygraphblas_tpu_torch")
-    out = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, files in os.walk(pkg):
-        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    """The package, the gallery, the GAP drivers, the docs generator and
+    chip_smoke.py."""
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "docs", "generate_torch.py")]
+    for top in ("pygraphblas_tpu_torch", "demo_torch", "gap_torch"):
+        for d, _, files in os.walk(os.path.join(ROOT, top)):
+            out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
 
 
 def test_port_never_imports_jax():
     files = _port_files()
     assert len(files) > 10
+    for top in ("demo_torch", "gap_torch", "generate_torch"):
+        assert any(top in f for f in files), top
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "pygraphblas_tpu"), \
-                (path, mod)
+            assert top not in ("jax", "jaxlib", "pygraphblas_tpu", "demo",
+                               "gap"), (path, mod)
     # and at run time, in a fresh interpreter
     code = ("import sys, pygraphblas_tpu_torch.fused, "
             "pygraphblas_tpu_torch.convert, pygraphblas_tpu_torch._kernels, "
@@ -65,7 +70,8 @@ def test_port_never_imports_jax():
             "pygraphblas_tpu_torch.descriptor, pygraphblas_tpu_torch.scalar, "
             "pygraphblas_tpu_torch.base, pygraphblas_tpu_torch.gviz, "
             "pygraphblas_tpu_torch.io.mm, pygraphblas_tpu_torch.io.binfile, "
-            "pygraphblas_tpu_torch.io.native;"
+            "pygraphblas_tpu_torch.io.native, demo_torch.graphs, "
+            "demo_torch.dnn.challenge, gap_torch.prmark, gap_torch.bcmark;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pygraphblas_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
