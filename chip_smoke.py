@@ -61,7 +61,20 @@ Phases, in order; any failure exits non-zero:
               package's route shown by the counters: BOOL LOR_PAIR
               launches pair_count, INT16 PLUS_TIMES pair_fold, BOOL
               LOR_LAND and UINT32 BXOR_PAIR neither (the generic
-              intersect); each equal to scipy;
+              intersect); each equal to scipy; FP32 MIN_ATAN2 and INT32
+              MAX_BXOR (new_semiring) pair_fold at the codes added for
+              the JAX rule, equal to the generic intersect on the card;
+       then a user-defined semiring, LogSum32 (testing.logsum32: x + y
+       under a log-add-exp monoid, values log p, p uniform in (0, 1]),
+       carried into the kernels at its generated functors (_opgen.py:
+       one nvcc unit, built first and timed):
+       gudf14 gustavson.spgemm A @ A on esc14's graph through ESC: three
+              built-in segfold scans and one generated a call, no
+              masked_spgemm and no generic intersect; pattern equal to
+              scipy's, exp(C) within rtol 1e-4 of its float64 product;
+       gudf16 masked_spgemm C<L> = W (+.x) W on tc16's L: a generated
+              pair_fold a width bucket, no generic intersect; exp(C)
+              within rtol 1e-4 of scipy's (P @ P) .* L;
        then the container API (Matrix and Vector) over the earlier
        paths' graphs, matrices and xspmv plans (no new xspmv plan):
        gpr20  algorithms.pagerank (Matrix.mxv, desc=T0, accum=PLUS) on
@@ -169,7 +182,9 @@ Phases, in order; any failure exits non-zero:
      kt14's and kt16's first run and of gtc16's runs too, segfold on each of a call's four
      scans, esc_gather at every slot; before sr14, segfold at every fold
      code the algebra adds and pair_fold at its new mul and fold codes,
-     testing.SEGFOLD_CODES and PAIR_FOLD_CODES), and timed at the shapes of the
+     testing.SEGFOLD_CODES and PAIR_FOLD_CODES; before gudf14 and gudf16
+     the generated segfold and pair_fold, within rtol 1e-5, timed), and
+     timed at the shapes of the
      path named for it in TIMED (and inner3 at pr21, mid_pass at bc16's
      S = 124, lane_gather_tasc without the fold at bfs18, and pair_count
      at tc16, too); the redesigned kernels (inner3 at pr20 and pr21,
@@ -385,6 +400,11 @@ EXPECTED_SPGEMM = {
     "gtc16 cohen": ("pair_count", "bucket"),
     "gtc16 sandia_dot": ("pair_count", "bucket"),
     "sr16 PLUS_TIMES": ("pair_fold", "bucket"),
+    # slice 15: muls coded for the JAX rule, and a user semiring through
+    # the generated pair_fold
+    "sr16 MIN_ATAN2": ("pair_fold", "bucket"),
+    "sr16 MAX_BXOR": ("pair_fold", "bucket"),
+    "gudf16": ("pair_fold", "bucket"),
 }
 # the algebra's masked calls that the JAX package's rule sends to its
 # generic intersect (spgemm.py:886-913): no kernel launches
@@ -397,7 +417,9 @@ EXPECTED_ESC = {"esc14": {"segfold": 4, "esc_gather": 1},
                 "sr14": {"segfold": 4, "esc_gather": 1},
                 "gesc14": {"segfold": 4, "esc_gather": 1},
                 "glv16": {"segfold": 4, "esc_gather": 1},
-                "gdnn_coo hyperdnn": {"segfold": 4, "esc_gather": 1}}
+                "gdnn_coo hyperdnn": {"segfold": 4, "esc_gather": 1},
+                # a user semiring: three built-in scans, one generated
+                "gudf14": {"segfold": 4, "esc_gather": 1}}
 
 # kernel symbol prefix in a profile -> kernel name
 _SYMBOLS = {"mono_span_kernel": "mono_span",
@@ -861,6 +883,7 @@ class PathRunner:
         if counts[kernel] == 0:
             raise AssertionError(f"{path}: kernel {kernel} never ran")
         self.counts[path] = dict(counts=counts,
+                                 generated=dict(K.generated),
                                  spgemm_calls=SG.stats["calls"],
                                  host_s={**ALG.seconds,
                                          **SG.stats["seconds"]})
@@ -927,6 +950,7 @@ class PathRunner:
                     f"{path}: kernel {k} launched {counts[k]} times in "
                     f"{calls} ESC calls, expected {want.get(k, 0)}")
         self.counts[path] = dict(counts=counts, esc_calls=calls,
+                                 generated=dict(K.generated),
                                  dense_matmuls=len(mxm_calls),
                                  host_s=dict(E.stats["seconds"]))
         return out
@@ -2287,10 +2311,13 @@ def check_algebra_codes(torch, ck):
     the run_across_blocks edge lists, through each of its kernels; a mul
     or fold the algebra added takes the warp kernel at every width),
     against their plain versions: exact (ANY folds as MAX in both; the
-    FP32 cases' values have no zero divisor, so no NaN)."""
+    FP32 cases' values have no zero divisor, so no NaN), but FP32 PLUS
+    (another fold order) and POW, ATAN2 and HYPOT (CUDA's powf, atan2f
+    and hypotf against torch's, a few ulp apart) within rtol 1e-5."""
     from pygraphblas_tpu_torch import _kernels as K, types
     from pygraphblas_tpu_torch.core import scan as SC, spgemm as SG
     from pygraphblas_tpu_torch.testing import (PAIR_FOLD_CODES,
+                                               PAIR_FOLD_INEXACT,
                                                SEGFOLD_CODES, pair_fold_case,
                                                typed_values)
 
@@ -2330,7 +2357,8 @@ def check_algebra_codes(torch, ck):
                                             w, mop, fop),
                        lambda: SG._pair_fold_plain(a, xa, b, xb, ast, wa,
                                                    bst, wb, w, mop, fop), 0,
-                       rtol=1e-5 if (add, typ) == ("PLUS", "FP32")
+                       rtol=1e-5 if typ == "FP32" and (
+                           add == "PLUS" or mul in PAIR_FOLD_INEXACT)
                        else None)
     finally:
         SG._RUNS_WIDTH, SG._RUNS_EDGES = rule
@@ -2488,10 +2516,15 @@ def sr16_path(torch, ck, drv, card, L):
     PLUS_TIMES pair_fold (an int output of 4 bytes or less), BOOL
     LOR_LAND and UINT32 BXOR_PAIR (made with new_semiring: no family has
     it) neither (a BOOL output, and a parity monoid: the generic
-    intersect).  LOR_* equal scipy's pattern of
-    (W @ W) .* L, all true; PLUS_TIMES its values wrapped to int16;
-    BXOR_PAIR the parity of scipy's counts.  Before it, pair_fold on
-    every launch of the INT16 call against its plain version."""
+    intersect); FP32 MIN_ATAN2 and INT32 MAX_BXOR (made with
+    new_semiring) pair_fold, at the mul codes coded for the JAX rule.
+    LOR_* equal scipy's pattern of (W @ W) .* L, all true; PLUS_TIMES
+    its values wrapped to int16; BXOR_PAIR the parity of scipy's counts;
+    MIN_ATAN2 and MAX_BXOR the generic intersect's on the card
+    (PYGB_VAL_FUSED=0; FP32 within rtol 1e-5: CUDA's atan2f against
+    torch's).  Before it, pair_fold on every launch of the INT16,
+    MIN_ATAN2 and MAX_BXOR calls against its plain version (exact, FP32
+    within rtol 1e-5)."""
     from pygraphblas_tpu_torch import types
     from pygraphblas_tpu_torch.core import spgemm as SG
 
@@ -2508,17 +2541,23 @@ def sr16_path(torch, ck, drv, card, L):
               ("LOR_PAIR", types.BOOL.LOR_PAIR, np.bool_),
               ("PLUS_TIMES", types.INT16.PLUS_TIMES, np.int16),
               ("BXOR_PAIR", types.UINT32.new_semiring(
-                  types.UINT32.BXOR_MONOID, types.UINT32.PAIR), np.uint32))
-    _, launches = record_pair_fold(lambda: call(*routes[2][1:]))
-    for i, (a, av, b, bv, ast, wa, bst, wb, w, mul, add) in \
-            enumerate(launches):
-        ck.run("pair_fold", "sr16", f"launch {i} W={w} E={ast.numel()} "
-               f"{add.op}_{mul.name}",
-               lambda: SG.pair_fold(a, av, b, bv, ast, wa, bst, wb, w, mul,
-                                    add),
-               lambda: SG._pair_fold_plain(a, av, b, bv, ast, wa, bst, wb,
-                                           w, mul, add), 0)
-    del launches
+                  types.UINT32.BXOR_MONOID, types.UINT32.PAIR), np.uint32),
+              ("MIN_ATAN2", types.FP32.new_semiring(
+                  types.FP32.MIN_MONOID, types.FP32.ATAN2), np.float32),
+              ("MAX_BXOR", types.INT32.new_semiring(
+                  types.INT32.MAX_MONOID, types.INT32.BXOR), np.int32))
+    for r in (2, 4, 5):
+        _, launches = record_pair_fold(lambda: call(*routes[r][1:]))
+        for i, (a, av, b, bv, ast, wa, bst, wb, w, mul, add) in \
+                enumerate(launches):
+            ck.run("pair_fold", "sr16", f"launch {i} W={w} E={ast.numel()} "
+                   f"{add.op}_{mul.name}",
+                   lambda: SG.pair_fold(a, av, b, bv, ast, wa, bst, wb, w,
+                                        mul, add),
+                   lambda: SG._pair_fold_plain(a, av, b, bv, ast, wa, bst,
+                                               wb, w, mul, add), 0,
+                   rtol=1e-5 if av.is_floating_point() else None)
+        del launches
     want = masked_square(W)
     ones = W.copy()
     ones.data[:] = 1.0
@@ -2546,11 +2585,265 @@ def sr16_path(torch, ck, drv, card, L):
                                (cnt[0], cnt[1],
                                 (cnt[2].astype(np.int64) % 2)
                                 .astype(np.uint32)))
+    for tag, sem, dt in routes[4:]:
+        ref = with_env("PYGB_VAL_FUSED", "0", lambda: call(sem, dt))
+        checks[tag] = (same(got[tag][:2], ref[:2]) and (
+            np.allclose(got[tag][2], ref[2], rtol=1e-5, atol=0)
+            if dt == np.float32 else np.array_equal(got[tag][2], ref[2])))
     log(f"  sr16: {checks}; {len(want[0])} present; seconds {secs}; "
         f"card {card}")
     if not all(checks.values()):
         raise AssertionError(f"sr16: a product differs from scipy: {checks}")
     return dict(seconds=secs, checks=checks, present=len(want[0]))
+
+
+# ---------------------------------------------------------------------------
+# slice 15: a user-defined semiring (testing.logsum32: log-space
+# probabilities) through segfold and pair_fold at its generated functors
+# (_opgen.py), as the JAX package traces a user semiring into its kernels
+# ---------------------------------------------------------------------------
+
+
+def log_probabilities(n, seed=7):
+    """n values log p, p uniform in (0, 1] from `seed`, as float32."""
+    return np.log(1.0 - np.random.RandomState(seed).rand(n)).astype(
+        np.float32)
+
+
+class CountCalls:
+    """Counts the calls of module.name while the block runs."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self.orig(*a, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def as_p(fn):
+    """fn's log-space values (its last output; counts before it kept) as
+    p = exp(value) in float64: a fold order's error in a log value is
+    p's relative error, while log values near 0 have no relative
+    precision, so LogSum32's kernels are held to their plain versions
+    in p (their rows keep the log values' max_abs_err, and p's as
+    p_max_abs_err)."""
+    def run():
+        out = fn()
+        if isinstance(out, tuple):
+            return (*out[:-1], out[-1].double().exp())
+        return out.double().exp()
+    return run
+
+
+def gen_build(card):
+    """Build LogSum32's generated unit at FP32 (its fold and multiply:
+    gudf14's segfold and gudf16's pair_fold share it); its seconds."""
+    from pygraphblas_tpu_torch import _opgen, testing, types
+
+    sem = testing.logsum32()
+    t = time.perf_counter()
+    _opgen.unit(sem.add_monoid, types.FP32, sem.mul_op)
+    secs = time.perf_counter() - t
+    log(f"gen build: LogSum32 at FP32 (segfold and pair_fold) {secs:.1f} s "
+        f"(nvcc {_opgen.build_seconds}); card {card}")
+    return secs
+
+
+def gudf14_path(torch, ck, drv, card):
+    """C = A @ A under the user semiring LogSum32 (testing.logsum32) on
+    esc14's graph (kron-14 ef16 directed) with values log p, p uniform in
+    (0, 1] (seed 7), through gustavson.spgemm ("auto": ESC on the card):
+    each call three built-in segfold scans, one generated (the products'
+    log-add-exp fold) and one esc_gather; no masked_spgemm (so neither
+    the host's scipy symbolic nor the generic intersect).  C's pattern
+    equal to scipy's A @ A, exp(C) to scipy's float64 product of the p
+    values within rtol 1e-4.  Before it, the built-in scans and the
+    gather against their plain versions at the call's shapes, and the
+    generated segfold, timed, its p = exp(value) within rtol 1e-5 of
+    the plain version's over the F live slots (another fold order;
+    as_p); the dead slots past them, one segment of about 14M zero
+    products that C drops, are logged beside it (their p-sum rounds by
+    fold order, as check_esc_kernels' float PLUS scans' do)."""
+    import scipy.sparse as sp
+    from pygraphblas_tpu_torch import testing
+    from pygraphblas_tpu_torch.core import (gustavson as G, scan as SC,
+                                            spgemm as SG)
+
+    build_s = gen_build(card)
+    sem = testing.logsum32()
+    rows, cols, n = graph(14)
+    w = log_probabilities(len(rows))
+    F = int(np.bincount(rows, minlength=n)[cols].sum())
+
+    def call():
+        return G.spgemm(rows, cols, w, rows, cols, w, sem, np.float32)
+
+    t = time.perf_counter()
+    first, scans, gathers = record_esc(call)
+    t_first = time.perf_counter() - t
+    F_pad = scans[0][0].numel()
+    log(f"gudf14: kron-14 ef16 n={n} nnz={len(rows)}, LogSum32 over log p; "
+        f"F={F} (F_pad {F_pad}), nnz(C)={len(first[0])}; first call "
+        f"{t_first:.4f} s")
+    check_esc_kernels(torch, ck, "gudf14", "", scans[:3], gathers, F,
+                      timed=False)
+    v, f, add = scans[3]
+
+    def kfn():
+        return SC.segfold(v, f, add)
+
+    def pfn():
+        return SC._segfold_plain(v, f, add)
+
+    ck.run("segfold", "gudf14", f"generated totals {add.name} float32 "
+           f"M={v.numel()} (as p = exp, the {F} live slots)",
+           as_p(lambda: kfn()[:F]), as_p(lambda: pfn()[:F]), v.numel() * 9,
+           timed=True, rtol=1e-5, time_fns=(kfn, pfn))
+    got, want = kfn(), pfn()
+    dead = (got[F:].double().exp() / want[F:].double().exp() - 1).abs()
+    ck.rows[-1].update(generated=add.name,
+                       p_max_abs_err=ck.rows[-1]["max_abs_err"],
+                       max_abs_err=max_abs_diff(torch, got[:F], want[:F]),
+                       dead_max_rel_err_p=float(dead.max()))
+    log(f"  the {v.numel() - F} dead slots (one segment of zero products "
+        f"past the expansion, dropped from C): p within "
+        f"{float(dead.max()):.3e} relative of the plain version's")
+    del got, want, dead
+    del scans, gathers, v, f
+    runs = []
+
+    def best_of_3():
+        for _ in range(3):
+            t = time.perf_counter()
+            out = call()
+            runs.append(time.perf_counter() - t)
+        return out
+
+    SG.reset_stats()
+    with CountCalls(SG, "_generic_intersect") as generic:
+        got = drv.drive_esc("gudf14", best_of_3)
+    c = drv.counts["gudf14"]
+    want_gen = {f"segfold {add.name}": c["esc_calls"]}
+    if (c["esc_calls"] != 3 or c["generated"] != want_gen
+            or SG.stats["calls"] or generic.n):
+        raise AssertionError(
+            f"gudf14: {c['esc_calls']} ESC calls of 3, generated launches "
+            f"{c['generated']} (want {want_gen}), {SG.stats['calls']} "
+            f"masked_spgemm calls and {generic.n} generic intersects (the "
+            "host's symbolic tier; want 0)")
+    t = time.perf_counter()
+    P = sp.csr_matrix((np.exp(w.astype(np.float64)), (rows, cols)), (n, n))
+    want = csr_coo(P @ P)
+    t_scipy = time.perf_counter() - t
+    pattern = esc_same(got[:2], want[:2])
+    err = float(np.max(np.abs(np.exp(got[2].astype(np.float64)) - want[2])
+                       / want[2])) if pattern else None
+    log(f"  gudf14: C's pattern equal to scipy's A @ A: {pattern} "
+        f"({len(got[0])} entries); max relative |exp(C) - scipy| {err} "
+        f"(limit 1e-4); warm best of 3 {min(runs):.4f} s ({runs}); "
+        f"{F / min(runs):.6e} products/s; generated launches "
+        f"{c['generated']}; masked_spgemm 0, generic intersect 0; scipy "
+        f"{t_scipy:.4f} s; card {card}")
+    if not pattern or not err <= 1e-4 or not np.isfinite(got[2]).all():
+        raise AssertionError(f"gudf14: C differs from scipy's A @ A "
+                             f"(pattern {pattern}, rel err {err})")
+    return dict(seconds=min(runs), runs_s=runs, first_s=t_first, F=F,
+                F_pad=F_pad, nnz_out=len(got[0]), products_per_s=F / min(runs),
+                max_rel_err=err, gen_build_s=build_s, scipy_s=t_scipy,
+                host_s_per_call=host_split(drv, "gudf14", 3))
+
+
+def gudf16_path(torch, ck, drv, card, L):
+    """C<L> = W (+.x) W under LogSum32 on tc16's L with values log p (seed
+    7) through masked_spgemm's valued path: one generated pair_fold
+    launch a width bucket, no generic intersect; C's pattern equal to
+    scipy's (P @ P) .* L (P = exp(W)), exp(C) to its values within rtol
+    1e-4.  Before it, the generated pair_fold against its plain version
+    at every width bucket, timed, with the kernel fold_path picks:
+    counts equal, p = exp(value) within rtol 1e-5 (as_p)."""
+    from pygraphblas_tpu_torch import testing
+    from pygraphblas_tpu_torch.core import spgemm as SG
+
+    sem = testing.logsum32()
+    add, mul = sem.add_monoid, sem.mul_op
+    W = L.copy()
+    W.data = log_probabilities(W.nnz).astype(np.float64)
+    bk = Buckets(torch, W, vals=True)
+    log(f"gudf16: LogSum32 over log p on L ({W.nnz} entries); "
+        f"{bk.summary}")
+    av, bv = bk.vals[np.float32]
+    for b in bk.buckets:
+        w, m = b["w"], b["meta"]
+        def kfn():
+            return SG.pair_fold(bk.a, av, bk.b, bv, *m, w, mul, add)
+
+        def pfn():
+            return SG._pair_fold_plain(bk.a, av, bk.b, bv, *m, w, mul, add)
+
+        ck.run("pair_fold", "gudf16", f"generated W={w} E={b['n']} "
+               f"{add.name} {mul.name} (as p = exp)", as_p(kfn), as_p(pfn),
+               2 * bk.id_bytes(b) + 24 * b["n"], ops=b["compares"],
+               timed=True, rtol=1e-5, ops_per_s=INT32_OPS_PER_S,
+               time_fns=(kfn, pfn))
+        ck.rows[-1].update(generated=f"{add.name} {mul.name}",
+                           kernel_path=SG.fold_path(w, b["n"]),
+                           p_max_abs_err=ck.rows[-1]["max_abs_err"],
+                           max_abs_err=max_abs_diff(torch, kfn()[1],
+                                                    pfn()[1]))
+    del bk, av, bv
+    lr, lc, lv = csr_coo(W)
+    tr, tc, tv = csr_coo(W.T)
+
+    def call():
+        return SG.masked_spgemm(lr, lc, lv.astype(np.float32), tr, tc,
+                                tv.astype(np.float32), lr, lc, sem,
+                                np.float32)
+
+    call()                                      # warm
+    runs = []
+
+    def best_of_3():
+        for _ in range(3):
+            t = time.perf_counter()
+            out = call()
+            runs.append(time.perf_counter() - t)
+        return out
+
+    with CountCalls(SG, "_generic_intersect") as generic:
+        got = drv.drive_spgemm("gudf16", best_of_3)
+    c = drv.counts["gudf16"]
+    want_gen = {f"pair_fold {add.name} {mul.name}": c["counts"]["pair_fold"]}
+    if c["generated"] != want_gen or generic.n:
+        raise AssertionError(f"gudf16: generated launches {c['generated']} "
+                             f"(want {want_gen}), {generic.n} generic "
+                             "intersects (want 0)")
+    P = W.copy()
+    P.data = np.exp(W.data)
+    want = masked_square(P)
+    pattern = esc_same(got[:2], want[:2])
+    err = float(np.max(np.abs(np.exp(got[2].astype(np.float64)) - want[2])
+                       / want[2])) if pattern else None
+    log(f"  gudf16: C's pattern equal to scipy's (P @ P) .* L: {pattern} "
+        f"({len(got[0])} present); max relative |exp(C) - scipy| {err} "
+        f"(limit 1e-4); best of 3 {min(runs):.4f} s ({runs}); generated "
+        f"launches {c['generated']}; generic intersect 0; card {card}")
+    if not pattern or not err <= 1e-4:
+        raise AssertionError(f"gudf16: C differs from scipy's (P @ P) .* L "
+                             f"(pattern {pattern}, rel err {err})")
+    return dict(seconds=min(runs), runs_s=runs, edges=W.nnz,
+                present=len(got[0]), max_rel_err=err,
+                host_s_per_call=host_split(drv, "gudf16", 3))
 
 
 # ---------------------------------------------------------------------------
@@ -4081,6 +4374,51 @@ def gallery_phase(torch, drv, card):
     return out
 
 
+def gen_launches(counts, name):
+    """A path's launches of kernel `name`'s generated variants."""
+    return sum(n for k, n in counts.get("generated", {}).items()
+               if k.split(" ")[0] == name)
+
+
+def generated_entries(ck, drv):
+    """The kernels line's entries of the generated variants (slice 15):
+    segfold at gudf14's product fold and pair_fold at gudf16's buckets,
+    each instantiated at LogSum32's functors (_opgen.py), with its
+    launches over the whole run, its checks and its time at its path."""
+    out = []
+    for name, path, src in (
+            ("segfold", "gudf14", "pygraphblas_tpu_torch/csrc/scan.cuh"),
+            ("pair_fold", "gudf16",
+             "pygraphblas_tpu_torch/csrc/spgemm.cuh")):
+        rows = [c for c in ck.rows if c["kernel"] == name
+                and c.get("generated")]
+        timed = [c for c in rows if c["timed"] and c["path"] == path]
+        ops = sorted({c["generated"] for c in rows})
+        out.append(dict(
+            name=f"{name} (generated: {', '.join(ops)})", route="cuda",
+            source=src, generated_by="pygraphblas_tpu_torch/_opgen.py",
+            replaces=KERNELS[name][1],
+            launches=sum(gen_launches(v, name) for v in drv.counts.values()),
+            launches_by_path={p: gen_launches(v, name)
+                              for p, v in drv.counts.items()
+                              if gen_launches(v, name)},
+            timed_path=path,
+            max_abs_err=max(c["max_abs_err"] for c in rows),
+            ms=sum(c["ms"] for c in timed),
+            plain_ms=sum(c["plain_ms"] for c in timed),
+            bound_ms=sum(c["bound_ms"] for c in timed),
+            bound_by=("bytes" if all(c["bound_by"] == "bytes"
+                                     for c in timed) else "operations"),
+            library_ms=None,
+            library_note=("none: torch has no segmented scan under a "
+                          "user monoid" if name == "segfold" else
+                          "none: no single PyTorch call computes a masked "
+                          "intersection fold"),
+            checks=f"{sum(c['ok'] for c in rows)}/{len(rows)} within "
+            "tolerance"))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200,
@@ -4096,7 +4434,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from pygraphblas_tpu_torch import _kernels, _native, fused, types
+    from pygraphblas_tpu_torch import _kernels, _native, _opgen, fused, types
     from pygraphblas_tpu_torch.generators import to_matrix
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4404,6 +4742,9 @@ def main():
             ("sr14", lambda: sr14_path(torch, ck, drv, card)),
             ("sr16", lambda: sr16_path(torch, ck, drv, card,
                                        degree_lower(*kron16s))),
+            ("gudf14", lambda: gudf14_path(torch, ck, drv, card)),
+            ("gudf16", lambda: gudf16_path(torch, ck, drv, card,
+                                           degree_lower(*kron16s))),
             ("gkr", lambda: gkr_path(torch, drv, card))):
         t0 = time.perf_counter()
         e2e[path] = run()
@@ -4411,6 +4752,9 @@ def main():
             if tag in e2e[path]:
                 in_path[path + tag[7:]] = e2e[path][tag]["per_kernel"]
         phase_s[path] = time.perf_counter() - t0
+    log(f"generated kernels: nvcc seconds a unit {_opgen.build_seconds}; "
+        f"ops that did not lower (_kernels.unlowered): "
+        f"{_kernels.unlowered}")
 
     # 3g. slice 12: the frontier BFS on a lattice, the sparse DNN dense
     # and on the COO tier
@@ -4480,7 +4824,8 @@ def main():
             per = dict(launches_per_xspmv=EXPECTED.get(tp, {}).get(name, 0))
         timed = [c for c in ck.rows if c["kernel"] == name and c["timed"]
                  and c["path"] == TIMED[name]]
-        allc = [c for c in ck.rows if c["kernel"] == name]
+        allc = [c for c in ck.rows if c["kernel"] == name
+                and not c.get("generated")]
         # the gathers' library call: torch.take at the recipe's index,
         # summed over the timed launches where every one only moves data
         take_rows = [c for c in timed if "library_ms" in c]
@@ -4502,10 +4847,11 @@ def main():
             per["no_fold_bfs18"]["launches_per_xspmv"] = len(nf)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=sum(v["counts"][name] for v in drv.counts.values()),
-            launches_by_path={p: v["counts"][name]
+            launches=sum(v["counts"][name] - gen_launches(v, name)
+                         for v in drv.counts.values()),
+            launches_by_path={p: v["counts"][name] - gen_launches(v, name)
                               for p, v in drv.counts.items()
-                              if v["counts"][name]},
+                              if v["counts"][name] - gen_launches(v, name)},
             timed_path=tp,
             in_path_ms=in_path.get(tp, {}).get(name),
             max_abs_err=max(c["max_abs_err"] for c in allc),
@@ -4525,6 +4871,7 @@ def main():
             checks=f"{sum(c['ok'] for c in allc)}/{len(allc)} "
             + ("exact" if all(c["tol"] == "exact" for c in allc)
                else "within tolerance"), **per))
+    kernels += generated_entries(ck, drv)
     with open(os.path.join(OUT_DIR, "chip_smoke_checks.json"), "w") as f:
         json.dump(dict(checks=ck.rows, repairs=repairs, launches=drv.counts,
                        e2e=e2e,
@@ -4532,7 +4879,9 @@ def main():
                        redesigned_vs_perf_md={
                            f"{k} {p}": v for (k, p), v in redesigned.items()},
                        phase_s=phase_s,
-                       build_seconds=_kernels.build_seconds), f, indent=1)
+                       build_seconds=_kernels.build_seconds,
+                       gen_build_seconds=_opgen.build_seconds,
+                       unlowered=_kernels.unlowered), f, indent=1)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     log("end to end: " + json.dumps(e2e))

@@ -11,7 +11,11 @@ the sources, at first use: importing this module compiles nothing.
 
 ``launches`` counts kernel launches by name.  Each wrapper adds one
 exactly where it launches its kernel, so a run can show which kernels
-its path went through (``reset_launches`` before, read after).
+its path went through (``reset_launches`` before, read after); a launch
+of a generated kernel (``_opgen.py``: a user op's ``segfold`` or
+``pair_fold``) counts under its kernel's name and, per op, in
+``generated``.  ``unlowered`` names each op that did not lower to a
+generated kernel, and why.
 """
 
 import csv
@@ -31,12 +35,18 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# nvcc's flags for every kernel source, the generated ones too
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset
 launches = {"mono_span": 0, "mono_cascade": 0, "mono_rows": 0,
             "lane_gather": 0, "lane_gather_tdesc": 0, "lane_gather_tasc": 0,
             "inner3": 0, "mid_pass": 0, "pair_count": 0, "fill_keys": 0,
             "pair_fold": 0, "segfold": 0, "esc_gather": 0}
+# "<kernel> <op names>" -> launches of a generated kernel since the last
+# reset; op name -> why it did not lower (since the process started)
+generated = {}
+unlowered = {}
 
 _lib = None
 build_log = ""
@@ -62,7 +72,10 @@ MULS = {"TIMES": 0, "PLUS": 1, "MINUS": 2, "RMINUS": 3, "DIV": 4,
         "RDIV": 5, "FIRST": 6, "SECOND": 7, "PAIR": 8, "MIN": 9, "MAX": 10,
         "ISEQ": 11, "ISNE": 12, "ISGT": 13, "ISLT": 14, "ISGE": 15,
         "ISLE": 16, "LOR": 17, "LAND": 18, "LXOR": 19, "EQ": 20, "NE": 21,
-        "GT": 22, "LT": 23, "GE": 24, "LE": 25, "ANY": 7}
+        "GT": 22, "LT": 23, "GE": 24, "LE": 25, "ANY": 7, "POW": 26,
+        "BOR": 27, "BAND": 28, "BXOR": 29, "BXNOR": 30, "BGET": 31,
+        "BSET": 32, "BCLR": 33, "BSHIFT": 34, "ATAN2": 35, "HYPOT": 36,
+        "FMOD": 37, "REMAINDER": 38, "LDEXP": 39, "COPYSIGN": 40}
 # BOOL arithmetic (ops/table.py): PLUS is OR, TIMES is AND, MINUS is XOR,
 # DIV is FIRST, MIN is AND, MAX is OR; on 0/1 words EQ is LXNOR
 _BOOL_OPS = {"PLUS": "LOR", "TIMES": "LAND", "MINUS": "LXOR",
@@ -75,10 +88,16 @@ _FLOAT_FOLDS = ("PLUS", "MIN", "MAX", "TIMES", "ANY")
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    generated.clear()
 
 
-def count(name):
+def count(name, ops=None):
+    """One launch of kernel `name` (of its generated variant for the op
+    names `ops`)."""
     launches[name] += 1
+    if ops is not None:
+        key = f"{name} {ops}"
+        generated[key] = generated.get(key, 0) + 1
 
 
 def _nvcc():
@@ -133,9 +152,8 @@ def build():
         t0 = time.perf_counter()
         for src in _sources():
             obj = os.path.join(work, os.path.basename(src) + ".o")
-            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-                   "-Xcompiler", "-fPIC", "--time", obj + ".csv", "-c", src,
-                   "-o", obj]
+            cmd = [nvcc, *COMPILE_FLAGS, "-Xptxas", "-v", "--time",
+                   obj + ".csv", "-c", src, "-o", obj]
             # the compiler's output to a file: a pipe nobody reads while
             # the others run would fill and stall it
             with open(obj + ".log", "w") as log:
@@ -280,8 +298,9 @@ def binaryop_of(mul, typ):
 def fold_code(monoid, typ, name):
     """The kernels' fold code for add monoid `monoid` over words of type
     `typ` (-1 for None); derived from its op's name.  Raises TypeError
-    for a monoid no kernel folds (a user monoid, a bitwise or logical
-    one on float words)."""
+    for a monoid no built-in code folds (a user monoid, which
+    ``segfold`` and ``pair_fold`` take through ``_opgen`` where it
+    lowers; a bitwise or logical one on float words)."""
     if monoid is None:
         return -1
     op = monoid.binaryop
@@ -297,7 +316,9 @@ def fold_code(monoid, typ, name):
 
 def mul_code(op, typ, name):
     """The kernels' mul code for binary op `op` over words of type `typ`
-    (-1 for None); derived from its name."""
+    (-1 for None); derived from its name.  Raises TypeError for an op
+    with no code (a user op: ``pair_fold`` takes it through ``_opgen``
+    where it lowers; a positional one)."""
     if op is None:
         return -1
     nm = op.op if op.builtin and op.positional is None else None

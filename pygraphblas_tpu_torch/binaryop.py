@@ -15,7 +15,7 @@ import sys
 
 import numpy as np
 
-from . import types
+from . import _unsigned, types
 from .ops import table
 
 current_accum = contextvars.ContextVar("current_accum")
@@ -81,7 +81,9 @@ class BinaryOp:
     def apply(self, x, y, pos=None):
         """The operator on tensors of its type's held dtype (a struct
         UDT's op on dicts of member tensors; a structured numpy array is
-        turned into one at this boundary)."""
+        turned into one at this boundary).  A user op at UINT16, UINT32
+        or UINT64 gets the unsigned values, as the JAX package's does
+        (``_unsigned.call``)."""
         if self.positional is not None:
             key, off = self.positional
             return pos[key] + off
@@ -102,7 +104,7 @@ class BinaryOp:
             return zd
         if self.builtin:
             return self.fn(x, y, self.type_cls)
-        return self.fn(x, y)
+        return _unsigned.call(self.fn, self.type_cls, x, y)
 
 
 def at_type(op, typ):

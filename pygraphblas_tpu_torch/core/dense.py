@@ -54,6 +54,22 @@ def _full_fp32():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def apply_present(f, mask, *xs):
+    """f.apply(*xs) (f an op or a monoid; xs of one shape), a user op's
+    only where `mask` (a bool tensor of that shape, or a slice) selects,
+    zeros elsewhere: applied to the zeros of absent cells or pads it may
+    divide by zero, which raises on the CPU, where the JAX package's XLA
+    does not.  Built-in ops are total: applied everywhere."""
+    op = getattr(f, "binaryop", f)
+    if op.builtin or op.positional is not None \
+            or getattr(op, "udt", None) is not None:
+        return f.apply(*xs)
+    z = f.apply(*(x[mask] for x in xs))
+    out = torch.zeros(xs[0].shape, dtype=z.dtype, device=z.device)
+    out[mask] = z
+    return out
+
+
 def _truthy(vals):
     return vals if vals.dtype == torch.bool else vals != 0
 
@@ -92,7 +108,7 @@ def writeback(c_vals, c_mask, t_vals, t_mask, mask_vals, mask_mask,
         z_vals, z_mask = t_vals, t_mask
     else:
         both = c_mask & t_mask
-        acc = at_type(accum, typ).apply(c_vals, t_vals)
+        acc = apply_present(at_type(accum, typ), both, c_vals, t_vals)
         z_vals = torch.where(both, acc.to(c_vals.dtype),
                              torch.where(t_mask, t_vals, c_vals))
         z_mask = c_mask | t_mask
@@ -134,7 +150,8 @@ def eadd(a_vals, a_mask, b_vals, b_mask, op, a_typ, b_typ, out_typ):
     f = at_type(op, out_typ)
     pos = _binary_pos(a_vals.shape, a_vals.device) \
         if op.positional is not None else None
-    z = f.apply(a_c, b_c, pos)
+    z = f.apply(a_c, b_c, pos) if pos is not None else \
+        apply_present(f, both, a_c, b_c)
     z = types.cast(z, f.ztype(out_typ), out_typ)
     t_vals = torch.where(both, z, torch.where(a_mask, a_c, b_c))
     return t_vals, a_mask | b_mask
@@ -152,8 +169,10 @@ def emult(a_vals, a_mask, b_vals, b_mask, op, a_typ, b_typ, out_typ):
     f = at_type(op, in_typ)
     pos = _binary_pos(a_vals.shape, a_vals.device) \
         if op.positional is not None else None
-    z = types.cast(f.apply(a_c, b_c, pos), f.ztype(in_typ), out_typ)
     t_mask = a_mask & b_mask
+    z = f.apply(a_c, b_c, pos) if pos is not None else \
+        apply_present(f, t_mask, a_c, b_c)
+    z = types.cast(z, f.ztype(in_typ), out_typ)
     return torch.where(t_mask, z, _zero(out_typ, z.device)), t_mask
 
 
@@ -162,7 +181,9 @@ def apply_unary(vals, mask, op, in_typ, out_typ):
     pos = _pos_grids(vals.shape, vals.device) \
         if op.positional is not None else None
     f = unary_at_type(op, in_typ)
-    z = types.cast(f.apply(vals, pos), f.ztype(in_typ), out_typ)
+    z = f.apply(vals, pos) if pos is not None else \
+        apply_present(f, mask, vals)
+    z = types.cast(z, f.ztype(in_typ), out_typ)
     return torch.where(mask, z, _zero(out_typ, z.device)), mask
 
 
@@ -174,7 +195,8 @@ def apply_binary_bound(vals, mask, scalar, op, in_typ, out_typ, bind_first):
         z = f.apply(vals, vals, _binary_pos(vals.shape, vals.device))
     else:
         s = torch.full_like(vals, in_typ.scalar(scalar))
-        z = f.apply(s, vals) if bind_first else f.apply(vals, s)
+        z = apply_present(f, mask, s, vals) if bind_first else \
+            apply_present(f, mask, vals, s)
     z = types.cast(z, f.ztype(in_typ), out_typ)
     return torch.where(mask, z, _zero(out_typ, z.device)), mask
 
@@ -324,10 +346,11 @@ def kronecker(a_vals, a_mask, b_vals, b_mask, op, a_typ, b_typ, out_typ):
     a_c = types.cast(a_vals, a_typ, out_typ)
     b_c = types.cast(b_vals, b_typ, out_typ)
     f = at_type(op, out_typ)
-    z = f.apply(a_c[:, None, :, None], b_c[None, :, None, :])
+    t_mask = a_mask[:, None, :, None] & b_mask[None, :, None, :]
+    z = apply_present(f, t_mask, a_c[:, None, :, None].expand(m, p, n, q),
+                      b_c[None, :, None, :].expand(m, p, n, q))
     t_vals = types.cast(z, f.ztype(out_typ), out_typ).reshape(m * p, n * q)
-    t_mask = (a_mask[:, None, :, None]
-              & b_mask[None, :, None, :]).reshape(m * p, n * q)
+    t_mask = t_mask.reshape(m * p, n * q)
     return torch.where(t_mask, t_vals, _zero(out_typ, t_vals.device)), t_mask
 
 
@@ -402,7 +425,8 @@ def mxm(a_vals, a_mask, b_vals, b_mask, semiring, out_dtype):
 
     def combine(acc, acc_m, val, val_m):
         both = acc_m & val_m
-        merged = torch.where(both, addf.apply(acc, val).to(tdt),
+        merged = torch.where(both,
+                             apply_present(addf, both, acc, val).to(tdt),
                              torch.where(val_m, val, acc))
         return merged, acc_m | val_m
 
@@ -421,7 +445,7 @@ def mxm(a_vals, a_mask, b_vals, b_mask, semiring, out_dtype):
             z = torch.broadcast_to(mulf.apply(None, None, pos).to(tdt),
                                    (m, k1 - k0, n))
         else:
-            z = mulf.apply(x, y).to(tdt)
+            z = apply_present(mulf, pm, x, y).to(tdt)
         part, part_m = z[:, 0, :], pm[:, 0, :]
         for q in range(1, k1 - k0):
             part, part_m = combine(part, part_m, z[:, q, :], pm[:, q, :])

@@ -26,8 +26,9 @@ folds to zero.  Returns None where the JAX package's would (the caller
 then takes the host tiers, core/gustavson.py): the same caps (span,
 expansion, B's residency), with "the device is ``cuda``" where the JAX
 code asks for a TPU; on the card the values must be of 4 bytes or less
-and the add monoid one that ``segfold`` folds (a user monoid takes the
-host tiers).  Values travel as 4-byte words (``_kernels.to_words``):
+and the add monoid one that ``segfold`` folds (a user monoid through
+its generated fold, ``_opgen``; one that does not lower takes the host
+tiers).  Values travel as 4-byte words (``_kernels.to_words``):
 float32 for FP32, int32 for the other types, BOOL among them.
 """
 
@@ -36,9 +37,10 @@ import time
 import numpy as np
 import torch
 
-from .. import _kernels, types
+from .. import _kernels, _opgen, types
 from .._device import as_tensor, resolve_device
 from ..semiring import ops_at
+from .dense import apply_present
 from .scan import segfold
 from .spgemm import _pull, add_seconds
 
@@ -74,7 +76,9 @@ def esc_supported(semiring, out_dtype, va_dtype, vb_dtype, device):
     """Static (pre-plan) support check (esc.py:66-82): a non-positional
     mul and an add monoid with an identity in the value dtype; on the
     card no dtype wider than 4 bytes (as on a TPU) and an add monoid
-    ``segfold`` folds (``_kernels.fold_code``)."""
+    ``segfold`` folds: a fold code (``_kernels.fold_code``), or a user
+    monoid that lowers to a generated fold (``_opgen.lowers``), as the
+    JAX kernel folds with any traced monoid."""
     out_dtype = np.dtype(out_dtype)
     typ = types._gb_from_dtype(out_dtype)
     add, mul = ops_at(semiring, typ)
@@ -92,7 +96,7 @@ def esc_supported(semiring, out_dtype, va_dtype, vb_dtype, device):
         try:
             _kernels.fold_code(add, typ, "segfold")
         except TypeError:
-            return False
+            return _opgen.lowers(add, typ)
     return True
 
 
@@ -190,7 +194,9 @@ def _esc_device(ptr, sb_e, ri_e, va_e, cols2d, vals2d, F, nc, add, mul, typ,
     if vdt != typ.torch_dtype:
         av = _kernels.from_words(av, typ)
         bv = _kernels.from_words(bv, typ)
-    prod = mul.apply(av, bv.reshape(F_pad)).to(typ.torch_dtype)
+    # a user op sees the expansion's F products only, not the pads
+    prod = apply_present(mul, slice(0, F), av,
+                         bv.reshape(F_pad)).to(typ.torch_dtype)
     del av, bv
     ci = ci.reshape(F_pad)
     if narrow:

@@ -16,6 +16,11 @@ Kernel (``csrc/scan.cu``), beside its plain PyTorch version:
     carries across grid blocks in SMEM, which needs the TPU's in-order
     grid; the card's blocks take 4096-value tiles by ticket and look
     back instead.
+A user add monoid (or any other without a fold code) that lowers
+(``_opgen.lower``) folds in the same kernel instantiated at its
+generated functor (``pgb_segfold_gen``), as the JAX kernel folds with
+any traced ``combine``; one that does not lower raises TypeError here
+(its callers decide before: ``esc.esc_supported``).
 The plain version is a Hillis-Steele log-step scan over the segmented
 combine ``(va,fa)·(vb,fb) = (fb ? vb : fold(va,vb), fa|fb)``, the
 counterpart of the JAX package's ``lax.associative_scan`` path.  Integer
@@ -24,7 +29,7 @@ and MIN/MAX folds agree exactly; a float PLUS differs by fold order.
 
 import torch
 
-from .. import _kernels
+from .. import _kernels, _opgen
 
 
 def _segfold_plain(values, flags, add):
@@ -68,7 +73,8 @@ def segfold(values, flags, add):
     segment-start `flags` (M,) bool under the add monoid `add` (a Monoid,
     or its name at the type values' dtype is read as); M % 1024 == 0.
     Values of any type of 4 bytes or less on the card (ANY folds as
-    MAX there and in the plain version: any value of the segment)."""
+    MAX there and in the plain version: any value of the segment); a
+    user monoid through its generated kernel where it lowers."""
     m = values.numel()
     if m % 1024:
         raise ValueError(f"segfold needs a 1024-multiple length, not {m}")
@@ -79,7 +85,13 @@ def segfold(values, flags, add):
         raise ValueError(f"{name}: unsupported device {values.device}")
     typ = _kernels.value_type(values, add)
     code = _kernels.dtype_code(typ, name)
-    fop = _kernels.fold_code(_kernels.monoid_of(add, typ), typ, name)
+    add = _kernels.monoid_of(add, typ)
+    try:
+        fop, gen = _kernels.fold_code(add, typ, name), None
+    except TypeError:
+        if not _opgen.lowers(add, typ):
+            raise
+        fop, gen = None, _opgen.fold_unit(add, typ)
     values = _kernels.to_words(values, typ)
     _kernels.cuda_args(name, values, flags)
     if flags.dtype != torch.bool or flags.numel() != m or values.dim() != 1:
@@ -91,10 +103,15 @@ def segfold(values, flags, add):
     lib = _kernels.lib()
     status, ticket, epoch = _scan_state(values.device,
                                         lib.pgb_segfold_tiles(m))
-    rc = lib.pgb_segfold(values.data_ptr(), flags.data_ptr(), out.data_ptr(),
-                         m, code, fop, status.data_ptr(), epoch,
-                         ticket.data_ptr(), _kernels.stream())
+    if gen is None:
+        rc = lib.pgb_segfold(values.data_ptr(), flags.data_ptr(),
+                             out.data_ptr(), m, code, fop, status.data_ptr(),
+                             epoch, ticket.data_ptr(), _kernels.stream())
+    else:
+        rc = gen.pgb_segfold_gen(values.data_ptr(), flags.data_ptr(),
+                                 out.data_ptr(), m, code, status.data_ptr(),
+                                 epoch, ticket.data_ptr(), _kernels.stream())
     _kernels.check(rc, name)
-    _kernels.count(name)
+    _kernels.count(name, None if gen is None else add.name)
     return _kernels.from_words(out, typ)
 

@@ -41,9 +41,10 @@ import time
 import numpy as np
 import torch
 
-from .. import _kernels, types
+from .. import _kernels, _opgen, types
 from .._device import as_tensor, resolve_device
 from ..semiring import ops_at
+from .dense import apply_present
 from .sparse import segment_fold_generic
 
 WIDTH_CAP = 32768
@@ -238,7 +239,7 @@ def _pair_fold_plain(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb,
         ks, order = torch.sort(keys, dim=1)
         v = torch.gather(v, 1, order)
         match = _match(ks)
-        prod = mul.apply(v[:, :-1], v[:, 1:])
+        prod = apply_present(mul, match, v[:, :-1], v[:, 1:])
         cnts.append(match.sum(1, dtype=torch.int32))
         vals.append(_masked_fold(add, typ, match, prod, typ.scalar(ident)))
     return torch.cat(cnts), torch.cat(vals)
@@ -321,6 +322,17 @@ def fold_path(width, n_edges):
             else "search")
 
 
+def _fold_ops(mul, add, typ):
+    """Whether ``pair_fold`` takes (mul, add) at `typ`: built-in codes, or
+    ops that lower (``_opgen``).  Static: nothing is launched."""
+    try:
+        _kernels.mul_code(mul, typ, "pair_fold")
+        _kernels.fold_code(add, typ, "pair_fold")
+        return True
+    except TypeError:
+        return _opgen.lowers(mul, typ) and _opgen.lowers(add, typ)
+
+
 def pair_fold(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb, width,
               mul, add):
     """Kernel 11: per mask edge, the match count (int32) and the fold
@@ -330,9 +342,13 @@ def pair_fold(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb, width,
     at the type the values' dtype is read as.  `width` (the bucket's,
     >= wa + wb) shapes the plain version's key rows; with the edge count
     it picks the kernel (``fold_path``) and its lanes per edge; a mul or
-    fold the algebra added (ISEQ .. ISLE, LOR, LAND, LXOR; the logical
-    and bitwise folds) takes the first port's warp kernel at every
-    width (csrc/spgemm.cu)."""
+    fold the algebra added (ISEQ .. ISLE, LOR, LAND, LXOR, POW ..
+    COPYSIGN; the logical and bitwise folds) takes the first port's
+    warp kernel at every width (csrc/spgemm.cu).  A user mul or monoid
+    (an op without a code) that lowers takes the kernels instantiated
+    at the generated functors of both (``_opgen``: ``pgb_pair_fold_gen``,
+    by ``fold_path`` as the arithmetic codes); one that does not lower
+    raises TypeError (``masked_spgemm`` decides before)."""
     if a_cols.device.type == "cpu":
         return _pair_fold_plain(a_cols, a_vals, b_cols, b_vals, a_st, wa,
                                 b_st, wb, width, mul, add)
@@ -341,8 +357,14 @@ def pair_fold(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb, width,
     mul = _kernels.binaryop_of(mul, typ)
     add = _kernels.monoid_of(add, typ)
     code = _kernels.dtype_code(typ, name)
-    mop = _kernels.mul_code(mul, typ, name)
-    fop = _kernels.fold_code(add, typ, name)
+    try:
+        mop = _kernels.mul_code(mul, typ, name)
+        fop = _kernels.fold_code(add, typ, name)
+        gen = None
+    except TypeError:
+        if not _fold_ops(mul, add, typ):
+            raise
+        gen = _opgen.unit(add, typ, mul)
     if b_vals.dtype != a_vals.dtype:
         raise TypeError(f"{name}: values of two dtypes")
     a_w = _kernels.to_words(a_vals, typ)
@@ -353,16 +375,19 @@ def pair_fold(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb, width,
     vals = torch.empty(E, dtype=a_w.dtype, device=a_cols.device)
     if a_w.numel() != a_cols.numel() or b_w.numel() != b_cols.numel():
         raise ValueError(f"{name}: values and column ids of unequal lengths")
-    rc = _kernels.lib().pgb_pair_fold(
-        a_cols.data_ptr(), a_w.data_ptr(), a_cols.numel(),
-        b_cols.data_ptr(), b_w.data_ptr(), b_cols.numel(), a_st.data_ptr(),
-        wa.data_ptr(), b_st.data_ptr(), wb.data_ptr(), cnt.data_ptr(),
-        vals.data_ptr(), E, int(width), int(fold_path(width, E) == "runs"),
-        code, mop, fop,
-        _kernels.fill_bits(_kernels.fold_fill(add, typ), typ),
-        _kernels.stream())
+    args = (a_cols.data_ptr(), a_w.data_ptr(), a_cols.numel(),
+            b_cols.data_ptr(), b_w.data_ptr(), b_cols.numel(),
+            a_st.data_ptr(), wa.data_ptr(), b_st.data_ptr(), wb.data_ptr(),
+            cnt.data_ptr(), vals.data_ptr(), E, int(width),
+            int(fold_path(width, E) == "runs"), code)
+    ident = _kernels.fill_bits(_kernels.fold_fill(add, typ), typ)
+    if gen is None:
+        rc = _kernels.lib().pgb_pair_fold(*args, mop, fop, ident,
+                                          _kernels.stream())
+    else:
+        rc = gen.pgb_pair_fold_gen(*args, ident, _kernels.stream())
     _kernels.check(rc, name)
-    _kernels.count(name)
+    _kernels.count(name, None if gen is None else f"{add.name} {mul.name}")
     return cnt, _kernels.from_words(vals, typ)
 
 
@@ -420,7 +445,7 @@ def _generic_intersect(a_cols, a_vals, b_cols, b_vals, a_st, wa, b_st, wb,
         va = torch.gather(va, 1, order)
         vb = torch.gather(vb, 1, order)
         match = _match(ks)
-        prod = mul.apply(va[:, :-1], vb[:, 1:]).to(out_dt)
+        prod = apply_present(mul, match, va[:, :-1], vb[:, 1:]).to(out_dt)
     return (_masked_fold(add, typ, match, prod, ident),
             match.sum(1, dtype=torch.int32))
 
@@ -559,12 +584,11 @@ def masked_spgemm(a_rows, a_cols, a_vals, bt_rows, bt_cols, bt_vals,
                  and fits(len(a_cols), 4) and fits(len(bt_cols), 4))
     # the valued path (spgemm.py:907-913): a non-positional, non-UDT
     # semiring with an int or float output of 4 bytes or less, whose ops
-    # the kernel has codes for
+    # the kernel has codes for or that lower to its generated functors
     val_fast = (not pair_fast and narrow and mul.positional is None
                 and mul.udt is None and out_dtype.kind in "fi"
                 and out_dtype.itemsize <= 4 and card
-                and builtin_mul and mul.op in _kernels.MULS
-                and add_name in _kernels.FOLDS
+                and _fold_ops(mul, add, typ)
                 and fits(len(a_cols), 8) and fits(len(bt_cols), 8)
                 and os.environ.get("PYGB_VAL_FUSED", "1") != "0")
     # the fused paths take whole 128-lane rows

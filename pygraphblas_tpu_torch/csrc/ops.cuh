@@ -34,7 +34,10 @@ enum {
   MUL_MAX = 10, MUL_ISEQ = 11, MUL_ISNE = 12, MUL_ISGT = 13, MUL_ISLT = 14,
   MUL_ISGE = 15, MUL_ISLE = 16, MUL_LOR = 17, MUL_LAND = 18, MUL_LXOR = 19,
   MUL_EQ = 20, MUL_NE = 21, MUL_GT = 22, MUL_LT = 23, MUL_GE = 24,
-  MUL_LE = 25
+  MUL_LE = 25, MUL_POW = 26, MUL_BOR = 27, MUL_BAND = 28, MUL_BXOR = 29,
+  MUL_BXNOR = 30, MUL_BGET = 31, MUL_BSET = 32, MUL_BCLR = 33,
+  MUL_BSHIFT = 34, MUL_ATAN2 = 35, MUL_HYPOT = 36, MUL_FMOD = 37,
+  MUL_REMAINDER = 38, MUL_LDEXP = 39, MUL_COPYSIGN = 40
 };
 enum {
   DT_F32 = 0, DT_I32 = 1, DT_U32 = 2, DT_I8 = 3, DT_I16 = 4, DT_U8 = 5,
@@ -177,12 +180,112 @@ __device__ __forceinline__ T fold_c(T a, T b) {
   else return ~(a ^ b);
 }
 
+// the fold of code OP as a functor (segfold's instantiations)
+template <int OP>
+struct FoldCode {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    return fold_c<OP, T>(a, b);
+  }
+};
+
 // the folds a word type takes: floats fold arithmetically only; uint32
 // words differ from int32 ones only where order matters (MIN, MAX, ANY)
 template <typename T>
 __host__ __device__ constexpr bool fold_ok(int op) {
   return std::is_floating_point<T>::value ? op >= FOLD_PLUS && op <= FOLD_ANY
                                           : op >= FOLD_PLUS && op <= FOLD_BXNOR;
+}
+
+// the bits of the narrow type of dtype code `nt`: 8, 16 or 32
+__device__ __forceinline__ int nt_bits(int nt) {
+  return nt == DT_I8 || nt == DT_U8 ? 8
+                                    : nt == DT_I16 || nt == DT_U16 ? 16 : 32;
+}
+
+// an integer word's bits of its type `nt`, as an unsigned value
+template <typename T>
+__device__ __forceinline__ uint32_t type_bits(T x, int nt) {
+  const int b = nt_bits(nt);
+  return b == 32 ? (uint32_t)x : (uint32_t)x & ((1u << b) - 1u);
+}
+
+// x << s in the type: 0 unless 0 <= s < its bits (ops/table.py:_shl)
+template <typename T>
+__device__ __forceinline__ T shl_t(T x, int64_t s, int nt) {
+  return s >= 0 && s < nt_bits(nt) ? (T)((uint32_t)x << s) : (T)0;
+}
+
+// x >>> s, logical over the type's bits: 0 unless 0 <= s < its bits
+// (ops/table.py:_shr_logical)
+template <typename T>
+__device__ __forceinline__ T shr_t(T x, int64_t s, int nt) {
+  return s >= 0 && s < nt_bits(nt) ? (T)(type_bits(x, nt) >> s) : (T)0;
+}
+
+// x ** e by squaring, wrapping in 32 bits (the type's low bits are
+// right: ops/table.py:_ipow)
+__device__ __forceinline__ uint32_t ipow_u(uint32_t x, uint32_t e) {
+  uint32_t r = 1u;
+  for (; e; e >>= 1, x *= x)
+    if (e & 1u) r *= x;
+  return r;
+}
+
+// The binary ops the masked SpGEMM's valued path took from the JAX rule
+// (POW .. COPYSIGN), at the types ops/table.py gives them: POW at every
+// type, the bitwise ones at the integer types, the rest at FP32.  Each
+// computes its ops/table.py function at the type `nt`, narrowed: integer
+// POW by squaring over the exponent's unsigned bits (|y| for a signed
+// type, and then, for y < 0, 1 / x^|y| with DIV's rule at 0), BOOL POW
+// x | !y; the shifts read y's value in the type (BSHIFT: as int32, a
+// negative y a logical right shift); FP32 REMAINDER is x - rint(x / y)
+// y and LDEXP x * 2^(int)y, rounded as torch's are.
+template <typename T>
+__device__ __forceinline__ T apply_mul_x(int op, T a, T b, int nt) {
+  if constexpr (std::is_floating_point<T>::value) {
+    switch (op) {
+      case MUL_POW: return powf(a, b);
+      case MUL_ATAN2: return atan2f(a, b);
+      case MUL_HYPOT: return hypotf(a, b);
+      case MUL_FMOD: return fmodf(a, b);
+      case MUL_REMAINDER:
+        return __fsub_rn(a, __fmul_rn(rintf(__fdiv_rn(a, b)), b));
+      case MUL_LDEXP: {
+        const int e = (int)b;
+        const float p = e > 127 ? __int_as_float(0x7f800000)
+                                : e < -149 ? 0.0f : ldexpf(1.0f, e);
+        return __fmul_rn(a, p);
+      }
+      default: return copysignf(a, b);  // MUL_COPYSIGN
+    }
+  } else {
+    T r;
+    switch (op) {
+      case MUL_POW: {
+        if (nt == DT_BOOL) return (T)(a != 0 || b == 0);
+        if (std::is_same<T, uint32_t>::value || nt == DT_U8 || nt == DT_U16)
+          return narrow((T)ipow_u((uint32_t)a, type_bits(b, nt)), nt);
+        const int32_t x = (int32_t)a, y = (int32_t)b;
+        const uint32_t e = y < 0 ? 0u - (uint32_t)y : (uint32_t)y;
+        const int32_t mag = narrow((int32_t)ipow_u((uint32_t)x,
+                                                   type_bits(e, nt)), nt);
+        return (T)(y < 0 ? op_div(1, mag, nt) : mag);
+      }
+      case MUL_BOR: r = a | b; break;
+      case MUL_BAND: r = a & b; break;
+      case MUL_BXOR: r = a ^ b; break;
+      case MUL_BXNOR: r = ~(a ^ b); break;
+      case MUL_BGET: r = shr_t(a, (int64_t)b, nt) & (T)1; break;
+      case MUL_BSET: r = a | shl_t((T)1, (int64_t)b, nt); break;
+      case MUL_BCLR: r = a & ~shl_t((T)1, (int64_t)b, nt); break;
+      default: {  // MUL_BSHIFT: y as int32 (a UINT16 word is its value)
+        const int64_t y = (int32_t)b;
+        r = y >= 0 ? shl_t(a, y, nt) : shr_t(a, -y, nt);
+      }
+    }
+    return narrow(r, nt);
+  }
 }
 
 // a = matrix value, b = gathered x value (mono.py: mul(vals, gathered));
@@ -216,7 +319,8 @@ __device__ __forceinline__ T apply_mul(int op, T a, T b, int nt) {
           case MUL_ISLE: case MUL_LE: return (T)(a <= b);
           case MUL_LOR: return (T)(a != (T)0 || b != (T)0);
           case MUL_LAND: return (T)(a != (T)0 && b != (T)0);
-          default: return (T)((a != (T)0) != (b != (T)0));  // MUL_LXOR
+          case MUL_LXOR: return (T)((a != (T)0) != (b != (T)0));
+          default: return apply_mul_x(op, a, b, nt);
         }
       }
   }
@@ -229,3 +333,21 @@ template <typename T, bool EXT = true>
 __device__ __forceinline__ T apply_mul_packed(int op_nt, T a, T b) {
   return apply_mul<T, EXT>(op_nt & 0xff, a, b, op_nt >> 8);
 }
+
+// pair_fold's built-in ops as functors (csrc/spgemm.cuh): the codes,
+// picked at run time; EXT: the algebra's added codes too
+template <typename T, bool EXT>
+struct MulSwitch {
+  int op_nt;  // op | dtype << 8
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    return apply_mul_packed<T, EXT>(op_nt, a, b);
+  }
+};
+
+template <typename T, bool EXT>
+struct FoldSwitch {
+  int op;
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    return apply_fold<T, EXT>(op, a, b);
+  }
+};

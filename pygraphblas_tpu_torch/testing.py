@@ -6,9 +6,13 @@ them to the device they test), the index recipe by which one
 and the GraphChallenge DNN's test data: RadiX-Net layers, biases and
 images from a seed (`radix_net`, `build_biases`, `fullscale_images`; the
 same matrices as the JAX package's ``demo/dnn``) with the scipy oracle
-of the challenge's recurrence (`scipy_dnn_oracle`); and `RankPool`,
+of the challenge's recurrence (`scipy_dnn_oracle`); `RankPool`,
 spawned gloo ranks on the CPU that run the distributed tier's jobs
-(``job_*``) in lockstep for its tests."""
+(``job_*``) in lockstep for its tests; and `logsum32`, the user-defined
+semiring that the generated kernels' tests and chip_smoke use."""
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -435,7 +439,49 @@ PAIR_FOLD_CODES = [(add, mul, typ)
                                     ("MIN", "FP32"))] + [
     ("ANY", "TIMES", "INT32"), ("ANY", "PLUS", "FP32"),
     ("ANY", "MINUS", "INT8"), ("MIN", "DIV", "UINT32"),
-    ("MAX", "TIMES", "UINT16"), ("PLUS", "TIMES", "UINT8")]
+    ("MAX", "TIMES", "UINT16"), ("PLUS", "TIMES", "UINT8")] + [
+    # the muls coded for the valued path's JAX rule, at every type of 4
+    # bytes or less each takes (ops/table.py), folded exactly
+    ({"FP32": "MIN", "BOOL": "LOR"}.get(typ, "PLUS"), mul, typ)
+    for mul, typs in (("POW", ("BOOL", "INT8", "INT16", "INT32", "UINT8",
+                               "UINT16", "UINT32", "FP32")),
+                      *((m, ("INT8", "INT16", "INT32", "UINT8", "UINT16",
+                             "UINT32"))
+                        for m in ("BOR", "BAND", "BXOR", "BXNOR", "BGET",
+                                  "BSET", "BCLR", "BSHIFT")),
+                      *((m, ("FP32",))
+                        for m in ("ATAN2", "HYPOT", "FMOD", "REMAINDER",
+                                  "LDEXP", "COPYSIGN")))
+    for typ in typs]
+# the FP32 muls whose device functions (powf, atan2f, hypotf) round
+# within a few ulp of torch's: held within rtol 1e-5
+PAIR_FOLD_INEXACT = ("POW", "ATAN2", "HYPOT")
+
+
+@functools.lru_cache(maxsize=None)
+def logsum32():
+    """The user semiring "LogSum32" at FP32, over log-space values (log
+    p): the multiply x + y, the add monoid the log-add-exp
+    where(x == y, x + ln 2, max(x, y) + log1p(exp(-|x - y|))) with
+    identity -inf (NaN-free where both operands are -inf, unlike
+    x + log1p(exp(y - x))).  One object a process, so that its
+    generated kernels are built once."""
+    from . import types
+    from .binaryop import binary_op
+
+    ln2 = math.log(2.0)
+
+    @binary_op(types.FP32)
+    def logsum(x, y):
+        return torch.where(x == y, x + ln2, torch.maximum(x, y)
+                           + torch.log1p(torch.exp(-torch.abs(x - y))))
+
+    @binary_op(types.FP32)
+    def logmul(x, y):
+        return x + y
+
+    monoid = types.FP32.new_monoid(logsum, float("-inf"))
+    return types.FP32.new_semiring(monoid, logmul)
 
 
 # ---------------------------------------------------------------------------

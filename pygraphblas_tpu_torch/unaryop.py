@@ -10,7 +10,7 @@ __all__ = ["UnaryOp", "unary_op", "at_type"]
 
 import sys
 
-from . import types
+from . import _unsigned, types
 from .ops import table
 
 
@@ -64,12 +64,15 @@ class UnaryOp:
         return input_type
 
     def apply(self, x, pos=None):
+        """The operator on a tensor of its type's held dtype; a user op
+        at UINT16, UINT32 or UINT64 gets the unsigned values, as the JAX
+        package's does (``_unsigned.call``)."""
         if self.positional is not None:
             key, off = self.positional
             return pos[key] + off
         if self.builtin:
             return self.fn(x, self.type_cls)
-        return self.fn(x)
+        return _unsigned.call(self.fn, self.type_cls, x)
 
 
 def at_type(op, typ):

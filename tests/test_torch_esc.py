@@ -20,8 +20,8 @@ import torch
 
 from pygraphblas_tpu import types as jtypes
 from pygraphblas_tpu.core import esc as jesc
-from pygraphblas_tpu_torch import (binaryop, convert, generators, monoid,
-                                   semiring, types)
+from pygraphblas_tpu_torch import (_kernels, binaryop, convert, generators,
+                                   monoid, semiring, types)
 from pygraphblas_tpu_torch.core import esc
 from pygraphblas_tpu_torch.testing import SR_CASES, sr_values
 
@@ -130,7 +130,10 @@ def test_esc_falls_back_where_jax_does(cap, monkeypatch):
 def test_esc_supported_dtype_rules():
     """8-byte dtypes are refused on the card (as on a TPU) and taken on
     the CPU; on the card every dtype of 4 bytes or less is taken (as on
-    a TPU), and an add monoid segfold does not fold is refused."""
+    a TPU), a user add monoid that lowers to a generated fold is taken
+    (as the JAX kernel folds with any traced monoid), and one that does
+    not lower (a value-dependent branch) is refused, with its reason in
+    ``_kernels.unlowered``."""
     sem = types.INT64.PLUS_TIMES
     card = torch.device("cuda")
     for dt in (np.int64, np.float64):
@@ -146,7 +149,18 @@ def test_esc_supported_dtype_rules():
     usr = semiring.Semiring("PLUS", "TIMES", "INT32", add=user,
                             attach=False)
     assert esc.esc_supported(usr, np.int32, np.int32, np.int32, CPU)
+    assert esc.esc_supported(usr, np.int32, np.int32, np.int32, card)
+
+    def branchy(x, y):
+        return x + y if bool((x > 0).all()) else x - y
+
+    lost = monoid.Monoid("PLUS", "INT32", op_obj=binaryop.binary_op(
+        types.INT32)(branchy), identity=0, attach=False)
+    usr = semiring.Semiring("PLUS", "TIMES", "INT32", add=lost,
+                            attach=False)
+    assert esc.esc_supported(usr, np.int32, np.int32, np.int32, CPU)
     assert not esc.esc_supported(usr, np.int32, np.int32, np.int32, card)
+    assert "tracing failed" in _kernels.unlowered["branchy_INT32"]
 
 
 def test_esc_empty_operands():
