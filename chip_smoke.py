@@ -145,6 +145,25 @@ Phases, in order; any failure exits non-zero:
               esc_gather a call, every call's launches held against
               their plain versions), each layer's route counted;
               categories equal to the scipy oracle's;
+       then slice 16, the JAX perf scripts' workloads through the
+       port's twins (perf/torch_*.py, each run through its run(args)):
+       gurand20 perf/torch_urand_e2e.py at urand-20 (GURAND_SCALE)
+              ef16, 50 iterations, seed 20, a cold plan: the first touch
+              on the planless COO loop while the plan builds in its
+              thread (and the loop again alone), the plan's shape, the
+              upgraded first and warm runs through the xspmv kernels
+              (each xspmv the plan's launches, counted on one xspmv of
+              it after the run; every kernel of the plan held against
+              its plain version at its shapes); tiers within 1e-5, the
+              COO oracle within 1e-3 x the largest rank;
+       groadc2048 perf/torch_road_bfs.py at side 2048 (a 2048 x 2048
+              grid with n / 20 chords): algorithms.bfs_level from 0,
+              fused.bfs_frontier from 0 and 1, levels equal to scipy's,
+              each call's route, levels and ms a level (no kernel);
+       gdewise16m perf/torch_dewise_bench.py at 16M + 16M entries over
+              2^24 (FP32 PLUS union): the host engine, the device
+              engine end to end cold and warm, the resident merge under
+              CUDA events, equal to the host's (no kernel);
      then the distributed tier (parallel/dist.py): make_mesh() with no
      device, a world of one over NCCL and a (1, 1) mesh on the card; no
      hand kernel may launch (torch ops and collectives); the process
@@ -182,7 +201,9 @@ Phases, in order; any failure exits non-zero:
      kt14's and kt16's first run and of gtc16's runs too, segfold on each of a call's four
      scans, esc_gather at every slot; before sr14, segfold at every fold
      code the algebra adds and pair_fold at its new mul and fold codes,
-     testing.SEGFOLD_CODES and PAIR_FOLD_CODES; before gudf14 and gudf16
+     testing.SEGFOLD_CODES and PAIR_FOLD_CODES, pair_fold's integer POW
+     and BSHIFT at the JAX rule's operands and the generated kernel of
+     a user x ** y (testing.pow_operands); before gudf14 and gudf16
      the generated segfold and pair_fold, within rtol 1e-5, timed), and
      timed at the shapes of the
      path named for it in TIMED (and inner3 at pr21, mid_pass at bc16's
@@ -216,7 +237,10 @@ Phases, in order; any failure exits non-zero:
      version's answer on the card with no launch; UINT16/32/64 value
      selects and comparisons (values past the sign bit of the signed
      bit view), user predicates among them, on both tiers, Matrix and
-     Vector, equal to the JAX package's answers;
+     Vector, equal to the JAX package's answers; slice 16's repairs (ANY
+     over all-negative rows on the COO tier, integer POW and BSHIFT at
+     the JAX rule, a user x ** y, UINT64 user //, %, /, >>, **), each
+     equal to the JAX package's answer, written out;
   5. one JSON line of kernel results, the card line, and the final
      {"ok": true, "device": ...} line.
 
@@ -374,6 +398,11 @@ EXPECTED = {
     # dnn's products on the COO tier (the compact-dense tier) and the
     # I/O: no kernel of the port
     "groad": {},
+    # slice 16: the road twin's frontier loops and the dewise twin's
+    # merges (torch ops); gurand20's launches an xspmv are its plan's,
+    # measured after its run (gurand20_path)
+    "groadc2048": {},
+    "gdewise16m": {},
     "gdnn1024": {},
     "gdnn_coo dnn": {},
     "gio binfile": {},
@@ -831,7 +860,8 @@ class PathRunner:
 
     def drive(self, path, run, per_xspmv):
         """Run `run()` with the counters at 0; check every kernel of the
-        path ran exactly `per_xspmv` times per xspmv call."""
+        path ran exactly `per_xspmv` times per xspmv call (a callable:
+        called after the run, for a plan that the run builds)."""
         torch, K = self.torch, self.K
         torch.cuda.synchronize()
         K.reset_launches()
@@ -839,6 +869,8 @@ class PathRunner:
         out = run()
         torch.cuda.synchronize()
         counts, calls = dict(K.launches), self.calls
+        if callable(per_xspmv):
+            per_xspmv = per_xspmv()
         want = {k: v * calls for k, v in per_xspmv.items()}
         log(f"  {path}: {calls} xspmv calls; launches "
             + ", ".join(f"{k} {c}" for k, c in counts.items() if c))
@@ -1007,10 +1039,12 @@ def graph(scale, sym=False):
 def symmetrise(rows, cols, n):
     """Both directions of every edge, no self-loops, no duplicates, in
     (row, col) order (bench.py:285-299)."""
+    from pygraphblas_tpu_torch.generators import unique_keys
+
     r = np.concatenate([rows, cols])
     c = np.concatenate([cols, rows])
     keep = r != c
-    key = np.unique(r[keep] * n + c[keep])
+    key = unique_keys(r[keep] * n + c[keep])
     return key // n, key % n, n
 
 
@@ -1418,6 +1452,97 @@ def check_repairs(torch):
                  lambda: P._mid_pass_plain(x3, ix[2], ssel, ix[3]))):
             check(f"{name} {str(dt)[6:]}", kfn, pfn)
     rows += check_unsigned_selects()
+    rows += check_slice16_repairs()
+    return rows
+
+
+# slice 16's repairs on the card: (case, operands, op, the JAX package's
+# answer): integer POW and BSHIFT at the JAX rule (ROADMAP Queue C
+# item 3's probe table), a user op's integer x ** y, and UINT64 user ops
+_U64_A = [100, 7, 0, 2**62 + 3, 5, 2**40]
+_U64_B = [7, 2, 0, 3, 0, 2**40 + 1]
+SLICE16_CASES = [
+    ("INT64 POW", "INT64", [3, 2], [64, 70], "POW", [1, 64]),
+    ("INT32 POW", "INT32", [3, -2], [100, 65], "POW", [-1953380655, -2]),
+    ("INT8 POW", "INT8", [-6], [-128], "POW", [1]),
+    ("UINT64 POW", "UINT64", [8, 3], [2**63 + 11, 64], "POW", [2**33, 1]),
+    ("INT32 BSHIFT", "INT32", [7, 7], [-2**31, -1], "BSHIFT", [7, 3]),
+    ("INT64 BSHIFT", "INT64", [7, 7], [-2**31, 2], "BSHIFT", [7, 28]),
+    ("INT32 user x ** y", "INT32", [3, -2], [100, 65], "user_pow",
+     [-1953380655, -2]),
+    ("INT64 user x ** y", "INT64", [3, 2], [64, 70], "user_pow", [1, 64]),
+    ("UINT64 user x // y", "UINT64", _U64_A, _U64_B, "floordiv",
+     [14, 3, 2**64 - 1, 1537228672809129302, 2**64 - 1, 0]),
+    ("UINT64 user x % y", "UINT64", _U64_A, _U64_B, "mod",
+     [2, 1, 0, 1, 0, 2**40]),
+    ("UINT64 user x / y", "UINT64", _U64_A, _U64_B, "truediv",
+     [14, 3, 0, 1537228672809129216, 2**64 - 1, 0]),
+    ("UINT64 user x >> y", "UINT64", _U64_A, _U64_B, "rshift",
+     [0, 1, 0, 576460752303423488, 5, 0]),
+    ("UINT64 user x ** y", "UINT64", _U64_A, _U64_B, "user_pow",
+     [10**14, 49, 1, 13835058055282163739, 1, 2**40])]
+_SLICE16_FNS = {"user_pow": lambda x, y: x ** y,
+                "floordiv": lambda x, y: x // y,
+                "mod": lambda x, y: x % y, "truediv": lambda x, y: x / y,
+                "rshift": lambda x, y: x >> y}
+
+
+def check_slice16_repairs():
+    """ROADMAP Queue C's four faults, repaired, on the card: ANY over
+    rows whose values are all negative on the COO tier (reduce_vector,
+    mxv and vxm under ANY_TIMES at INT8, INT32 and FP32: the row's
+    largest value, as both packages fold it there), and SLICE16_CASES
+    through A.emult(B, op), each equal to the JAX package's answer,
+    written out.  Returns the checks (name, ok)."""
+    from pygraphblas_tpu_torch import (Matrix, Vector, binaryop,
+                                       options_set, types)
+
+    rows = []
+
+    def record(case, got, want):
+        ok = got == want
+        rows.append(dict(check=f"slice16 {case}", ok=ok))
+        log(f"  repair slice16 {case:34s} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"repair slice16 {case}: {got} != {want}")
+
+    rng = np.random.RandomState(16)
+    key = np.unique(rng.randint(0, 1600, 300))
+    r, c = key // 40, key % 40
+    v = rng.randint(-8, 0, len(key))
+    rmax, cmax = np.full(40, -9), np.full(40, -9)
+    np.maximum.at(rmax, r, v)
+    np.maximum.at(cmax, c, v)
+    options_set(bitmap_max_cells=1, vector_max_cells=1)
+    try:
+        for tname in ("INT8", "INT32", "FP32"):
+            t = getattr(types, tname)
+            A = Matrix.from_lists(r.tolist(), c.tolist(), v.tolist(), 40, 40,
+                                  typ=t, device="cuda")
+            x = Vector.from_lists(list(range(40)), [1] * 40, 40, typ=t,
+                                  device="cuda")
+            for name, got, want in (
+                    ("reduce_vector", A.reduce_vector(t.ANY_MONOID), rmax),
+                    ("mxv", A.mxv(x, t.ANY_TIMES), rmax),
+                    ("vxm", x.vxm(A, t.ANY_TIMES), cmax)):
+                got = got.to_lists()
+                want = [list(map(int, np.flatnonzero(want > -9))),
+                        [int(w) for w in want if w > -9]]
+                record(f"{tname} coo ANY {name}",
+                       [got[0], [int(g) for g in got[1]]], want)
+    finally:
+        options_set(bitmap_max_cells=1 << 26, vector_max_cells=1 << 27)
+    for case, tname, a, b, op, want in SLICE16_CASES:
+        t = getattr(types, tname)
+        ix = list(range(len(a)))
+        dt = t.numpy_dtype
+        A = Matrix.from_lists(ix, ix, np.array(a, object).astype(dt), typ=t,
+                              device="cuda")
+        B = Matrix.from_lists(ix, ix, np.array(b, object).astype(dt), typ=t,
+                              device="cuda")
+        f = getattr(t, op) if op in ("POW", "BSHIFT") else \
+            binaryop.binary_op(t)(_SLICE16_FNS[op])
+        record(case, [int(z) for z in A.emult(B, f).to_lists()[2]], want)
     return rows
 
 
@@ -1435,6 +1560,8 @@ DNN_COO_IMAGES = 1024
 # layers (156 s at 120 layers on an H100 80GB HBM3 at 700 W, in a whole
 # run of 1017.7 s); 60 layers keep the whole run well inside its 1200 s
 DNN_COO_LAYERS = 60
+# gurand20's urand scale (slice 16)
+GURAND_SCALE = 20
 
 
 def check_unsigned_selects():
@@ -2313,12 +2440,18 @@ def check_algebra_codes(torch, ck):
     against their plain versions: exact (ANY folds as MAX in both; the
     FP32 cases' values have no zero divisor, so no NaN), but FP32 PLUS
     (another fold order) and POW, ATAN2 and HYPOT (CUDA's powf, atan2f
-    and hypotf against torch's, a few ulp apart) within rtol 1e-5."""
+    and hypotf against torch's, a few ulp apart) within rtol 1e-5; then
+    integer POW and BSHIFT at the JAX rule's operands
+    (testing.pow_operands: exponents of 64 and more, the type's minimum,
+    -2^31), and the generated kernel of the user op x ** y at INT32,
+    exact.  segfold folds monoids only: no POW or BSHIFT reaches it."""
     from pygraphblas_tpu_torch import _kernels as K, types
     from pygraphblas_tpu_torch.core import scan as SC, spgemm as SG
     from pygraphblas_tpu_torch.testing import (PAIR_FOLD_CODES,
                                                PAIR_FOLD_INEXACT,
-                                               SEGFOLD_CODES, pair_fold_case,
+                                               POW_EXTREME_CODES,
+                                               SEGFOLD_CODES, int_pow32,
+                                               pair_fold_case, pow_operands,
                                                typed_values)
 
     for add, typ in SEGFOLD_CODES:
@@ -2360,6 +2493,22 @@ def check_algebra_codes(torch, ck):
                        rtol=1e-5 if typ == "FP32" and (
                            add == "PLUS" or mul in PAIR_FOLD_INEXACT)
                        else None)
+            # integer POW and BSHIFT at the JAX rule's operands, through
+            # the codes and the generated kernel of the user op x ** y
+            for add, mul, typ in POW_EXTREME_CODES + [
+                    ("PLUS", "user x ** y", "INT32")]:
+                T = getattr(types, typ)
+                xa, xb = (T.to_torch(z).cuda()
+                          for z in pow_operands(T, len(av), len(bv)))
+                mop = int_pow32() if mul.startswith("user") \
+                    else getattr(T, mul)
+                fop = getattr(T, add + "_MONOID")
+                ck.run("pair_fold", "sr16", f"codes extremes {path} "
+                       f"{fop.op}_{mop.name} W={w}",
+                       lambda: SG.pair_fold(a, xa, b, xb, ast, wa, bst, wb,
+                                            w, mop, fop),
+                       lambda: SG._pair_fold_plain(a, xa, b, xb, ast, wa,
+                                                   bst, wb, w, mop, fop), 0)
     finally:
         SG._RUNS_WIDTH, SG._RUNS_EDGES = rule
 
@@ -4419,6 +4568,113 @@ def generated_entries(ck, drv):
     return out
 
 
+def twin(name):
+    """The port's perf script perf/torch_<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(HERE, "perf", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gurand20_path(torch, ck, drv, card, scale=GURAND_SCALE):
+    """perf/torch_urand_e2e.py's run at `scale`, edgefactor 16, 50
+    iterations, seed 20, its plan cold (its cache file deleted): the
+    first touch on the planless COO loop while the plan builds in its
+    thread, the plan landing, then the upgraded first and warm runs
+    through the xspmv kernels; the twin's gates (tiers within 1e-5, the
+    COO oracle within 1e-3 x the largest rank).  The launches: none in
+    the first touch, then each xspmv the plan's, counted on one xspmv
+    of the plan after the run; every kernel of the plan then held
+    against its plain version at its shapes."""
+    from pygraphblas_tpu_torch import _kernels as K, types
+    from pygraphblas_tpu_torch.core import xspmv as xs
+
+    ur = twin("urand_e2e")
+    args = ur.parser().parse_args(["--scale", str(scale), "--iters", "50",
+                                   "--seed", "20", "--plan-wait", "900"])
+    state, per = {}, {}
+    sem = types.FP32.PLUS_SECOND
+
+    def launches_an_xspmv():
+        plan = state["A"]._xspmv_plan(True, np.float32, device="cuda")
+        w = torch.rand(plan.ncols, device="cuda")
+        torch.cuda.synchronize()
+        K.reset_launches()
+        xs.xspmv(plan, w, sem, np.float32)
+        torch.cuda.synchronize()
+        per.update((k, c) for k, c in K.launches.items() if c)
+        return per
+
+    res = drv.drive("gurand20", lambda: ur.run(args, state),
+                    launches_an_xspmv)
+    A = state["A"]
+    plan = plan_for(A, True, "gurand20")
+    w = torch.from_numpy((np.random.RandomState(1).rand(A.nrows) * 1e-6)
+                         .astype(np.float32)).cuda()
+    check_xspmv_kernels(torch, ck, plan, w, sem, "gurand20")
+    c = drv.counts["gurand20"]
+    log(f"  gurand20: urand-{scale} ef16 n={res['n']} nnz={res['nnz']} "
+        f"seed 20; first touch ({res['first_engine']} tier) "
+        f"{res['first_pr_s']:.4f} s with the plan build beside it, "
+        f"{res['coo_quiet_s']:.4f} s alone; the plan landed "
+        f"{res['plan_build_s']:.2f} s after the first touch began "
+        f"(waited {res['plan_wait_s']:.2f} s); upgraded "
+        f"({res['upgraded_engine']}) first {res['upgraded_first_s']:.4f} "
+        f"s, warm {res['warm_pr_s']:.4f} s ({res['warm_nnz_per_s']:.6e} "
+        f"nnz/s, {res['warm_pr_s'] / args.iters * 1e3:.4f} ms/iteration); "
+        f"{c['xspmv_calls']} xspmv, launches an xspmv {per}; tiers differ "
+        f"by {res['tier_max_diff']:.3e}, the oracle by "
+        f"{res['oracle_max_diff']:.3e} (max rank {res['max_rank']:.3e}); "
+        f"card {card}")
+    return dict(res, launches_per_xspmv=dict(per))
+
+
+def groadc2048_path(torch, drv, card, side=2048):
+    """perf/torch_road_bfs.py's run at `side` (a side x side grid with
+    n / 20 chords): algorithms.bfs_level from 0, fused.bfs_frontier from
+    0 and 1, each's levels equal to scipy's, the reach equal; each
+    call's route (frontier, retry or dense), levels and ms a level; no
+    kernel of the port (the frontier loop is torch ops)."""
+    rb = twin("road_bfs")
+    args = rb.parser().parse_args(["--side", str(side)])
+    res = drv.drive("groadc2048", lambda: rb.run(args),
+                    EXPECTED["groadc2048"])
+    log(f"  groadc2048: {side} x {side} grid with chords, n={res['n']}, "
+        f"{res['entries']} entries ({res['nnz']} stored); " + "; ".join(
+            f"{res[t]['call']} from {res[t]['source']} ({t}) "
+            f"{res[t]['seconds']:.4f} s, route {res[t]['route']['route']}, "
+            f"{res[t]['levels']} levels, {res[t]['ms_per_level']:.4f} ms a "
+            f"level" for t in ("host", "device_first", "device_warm"))
+        + f"; levels equal scipy's; graph {res['graph_s']:.1f} s, scipy "
+        f"{res['scipy_s']:.1f} s; card {card}")
+    return res
+
+
+def gdewise16m_path(torch, drv, card, nnz=16_000_000):
+    """perf/torch_dewise_bench.py's run at `nnz` entries a side over n =
+    2^24 (FP32 PLUS union): the host engine, the device engine end to
+    end cold and warm, the resident merge's mean of 10 under CUDA
+    events; the device result equal to the host's (indices exact,
+    values rtol 1e-6); no kernel of the port (torch ops)."""
+    dw = twin("dewise_bench")
+    args = dw.parser().parse_args(["--nnz", str(nnz)])
+    res = drv.drive("gdewise16m", lambda: dw.run(args),
+                    EXPECTED["gdewise16m"])
+    log(f"  gdewise16m: {res['nnz_a']} + {res['nnz_b']} entries -> "
+        f"{res['out_nnz']}; host {res['host_s']:.4f} s, device end to end "
+        f"cold {res['device_e2e_cold_s']:.4f} s, warm "
+        f"{res['device_e2e_warm_s']:.4f} s, resident merge "
+        f"{res['device_merge_s'] * 1e3:.4f} ms "
+        f"({res['merge_elems_per_s']:.6e} entries/s, host / merge "
+        f"{res['host_over_merge']:.1f}x); equal to the host engine (check "
+        f"{res['check_s']:.1f} s); operands made in {res['make_s']:.1f} s; "
+        f"card {card}")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=200,
@@ -4764,6 +5020,16 @@ def main():
             ("gdnn_coo", lambda: gdnn_coo_path(torch, ck, drv, card,
                                                DNN_COO_IMAGES,
                                                DNN_COO_LAYERS))):
+        t0 = time.perf_counter()
+        e2e[path] = run()
+        phase_s[path] = time.perf_counter() - t0
+
+    # 3g'. slice 16: the JAX perf scripts' workloads through the port's
+    # twins (perf/torch_*.py)
+    for path, run in (
+            ("gurand20", lambda: gurand20_path(torch, ck, drv, card)),
+            ("groadc2048", lambda: groadc2048_path(torch, drv, card)),
+            ("gdewise16m", lambda: gdewise16m_path(torch, drv, card))):
         t0 = time.perf_counter()
         e2e[path] = run()
         phase_s[path] = time.perf_counter() - t0

@@ -31,6 +31,8 @@ import time
 import numpy as np
 import torch
 
+from .ops import table
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -335,10 +337,12 @@ def fold_fill(monoid, typ):
     """The fill a kernel folds with for `monoid` over type `typ` (a
     numpy scalar): the monoid's identity, except ANY, which the kernels
     fold as MAX (any product is the largest of some products, and an
-    identity lane never beats a product): MAX's identity."""
+    identity lane never beats a product): the type's least value, MAX's
+    identity (from the table: ``typ.MAX_MONOID`` is rebound by
+    ``new_monoid``, as ``algorithms.relu_neuron_semiring`` does)."""
     if monoid.binaryop.builtin and monoid.binaryop.op == "ANY" \
             and typ.__name__ != "BOOL":
-        return typ.MAX_MONOID.identity(typ.numpy_dtype)
+        return table.MONOIDS["MAX"][1](typ.numpy_dtype)
     return monoid.identity(typ.numpy_dtype)
 
 

@@ -47,7 +47,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import _kernels
+from . import _kernels, _unsigned
+from .ops import table
 
 GEN_DIR = os.path.join(_kernels.BUILD_DIR, "gen")
 _HEADERS = ("ops.cuh", "gen.cuh", "scan.cuh", "spgemm.cuh")
@@ -98,7 +99,7 @@ _BINARY = {
     "div_floor": ("gen::div_floor",
                   lambda a, b: torch.div(a, b, rounding_mode="floor")),
     "remainder": ("gen::remainder", torch.remainder),
-    "fmod": ("gen::fmod_", torch.fmod), "pow": ("gen::pow_", torch.pow),
+    "fmod": ("gen::fmod_", torch.fmod), "pow": ("gen::ipow", table.power),
     "minimum": ("gen::minimum", torch.minimum),
     "maximum": ("gen::maximum", torch.maximum),
     "atan2": ("gen::m_atan2", torch.atan2),
@@ -312,7 +313,9 @@ def _trace(op, typ):
 
     dt = typ.torch_dtype
     try:
-        return make_fx(lambda x, y: op.apply(x, y))(_meta(dt), _meta(dt))
+        with _unsigned.lowering():
+            return make_fx(lambda x, y: op.apply(x, y))(_meta(dt),
+                                                        _meta(dt))
     except Exception as e:  # the op's own error, from any line of it
         msg = str(e).strip().splitlines()
         raise Unlowered(f"tracing failed: {type(e).__name__}: "

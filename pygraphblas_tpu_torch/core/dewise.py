@@ -41,6 +41,15 @@ def ewise(ra, ca, va, rb, cb, vb, fn, compute_dtype, out_dtype, union=True,
     executables; torch compiles nothing, so the port takes none.)"""
     ctyp = types._gb_from_dtype(np.dtype(compute_dtype))
     otyp = types._gb_from_dtype(np.dtype(out_dtype))
+    r, c, v = merge(*concat(ra, ca, va, rb, cb, vb, ctyp, device), fn,
+                    ctyp, otyp, union)
+    return r.cpu().numpy(), c.cpu().numpy(), otyp.to_numpy(v)
+
+
+def concat(ra, ca, va, rb, cb, vb, ctyp, device):
+    """The two COOs' (rows, cols, values) concatenated, A then B, as
+    tensors on `device` (values in Type ctyp's held dtype): ``merge``'s
+    operands."""
     r = torch.as_tensor(np.concatenate([np.asarray(ra, np.int64),
                                         np.asarray(rb, np.int64)]),
                         device=device)
@@ -50,6 +59,13 @@ def ewise(ra, ca, va, rb, cb, vb, fn, compute_dtype, out_dtype, union=True,
     v = ctyp.to_torch(np.concatenate([np.asarray(va).astype(ctyp._numpy_t),
                                       np.asarray(vb).astype(ctyp._numpy_t)]),
                       device)
+    return r, c, v
+
+
+def merge(r, c, v, fn, ctyp, otyp, union=True):
+    """The merge on the operands' device: ``concat``'s tensors in, the
+    canonical (rows, cols, values in otyp's held dtype) tensors out."""
+    device = r.device
     # stable sort: an equal (r, c) keeps the concatenation's order, A
     # then B
     _, order = torch.sort(_key(r, c), stable=True)
@@ -65,8 +81,7 @@ def ewise(ra, ca, va, rb, cb, vb, fn, compute_dtype, out_dtype, union=True,
     else:
         keep = nxt_same
         out_v = combined
-    return (r[keep].cpu().numpy(), c[keep].cpu().numpy(),
-            otyp.to_numpy(out_v[keep]))
+    return r[keep], c[keep], out_v[keep]
 
 
 def select(rows, cols, vals, fn, thunk=0, device="cpu"):

@@ -16,6 +16,7 @@ import torch
 
 from .. import types
 from ..binaryop import at_type, np_binop
+from ..ops import table
 
 # the monoids a torch reduction computes (index_add_, scatter_reduce_)
 _REDUCES = ("PLUS", "MIN", "MAX", "TIMES", "ANY", "LOR", "LAND", "LXOR")
@@ -42,8 +43,11 @@ def _segment_reduce(name, data, seg, nseg, ident, typ):
     if name == "TIMES":
         out = torch.full((nseg,), ident, dtype=data.dtype, device=dev)
         return out.scatter_reduce_(0, seg, data, reduce="prod")
-    # MIN, MAX, ANY (as MAX): a bit view reduces its order-preserving
-    # signed image (the sign bit flipped)
+    # MIN, MAX, ANY (as MAX, from the type's least value, so that the
+    # result is one of the values folded): a bit view reduces its
+    # order-preserving signed image (the sign bit flipped)
+    if name == "ANY":
+        ident = typ.scalar(table.MONOIDS["MAX"][1](typ.numpy_dtype))
     flip = (-(1 << (typ._bits - 1))) if typ._view else 0
     out = torch.full((nseg,), ident, dtype=data.dtype, device=dev) ^ flip \
         if flip else torch.full((nseg,), ident, dtype=data.dtype, device=dev)

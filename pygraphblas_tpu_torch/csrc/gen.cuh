@@ -190,6 +190,23 @@ __device__ __forceinline__ T pow_(T a, T b) {
   }
 }
 
+// an integer tensor ** tensor as the JAX package traces it (jnp.power's
+// _pow_int_int; _unsigned.py): square and multiply over b's low six
+// bits, wrapping, from 0 where a == 0 and b != 0; floats and bools as
+// pow_ (ops/table.py:power)
+template <typename T>
+__device__ __forceinline__ T ipow(T a, T b) {
+  if constexpr (is_f<T> || is_b<T>) {
+    return pow_(a, b);
+  } else {
+    W<T> r = (a == 0 && b != 0) ? 0 : 1, x = (W<T>)a;
+#pragma unroll
+    for (int k = 0; k < 6; ++k, x *= x)
+      r = ((b >> k) & 1) ? (W<T>)(r * x) : r;
+    return (T)r;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T minimum(T a, T b) {
   if constexpr (is_f<T>) return a != a ? a : (b != b ? b : (b < a ? b : a));

@@ -223,12 +223,15 @@ __device__ __forceinline__ T shr_t(T x, int64_t s, int nt) {
   return s >= 0 && s < nt_bits(nt) ? (T)(type_bits(x, nt) >> s) : (T)0;
 }
 
-// x ** e by squaring, wrapping in 32 bits (the type's low bits are
-// right: ops/table.py:_ipow)
+// x ** e as the JAX package's jnp.power over integers (ops/table.py:
+// _ipow): square and multiply over e's low six bits only, wrapping in 32
+// bits (the type's low bits are right), from 0 where x == 0 and e != 0;
+// six fixed rounds, no branch on the data
 __device__ __forceinline__ uint32_t ipow_u(uint32_t x, uint32_t e) {
-  uint32_t r = 1u;
-  for (; e; e >>= 1, x *= x)
-    if (e & 1u) r *= x;
+  uint32_t r = (x == 0u && e != 0u) ? 0u : 1u;
+#pragma unroll
+  for (int k = 0; k < 6; ++k, x *= x)
+    r = ((e >> k) & 1u) ? r * x : r;
   return r;
 }
 
@@ -236,10 +239,11 @@ __device__ __forceinline__ uint32_t ipow_u(uint32_t x, uint32_t e) {
 // (POW .. COPYSIGN), at the types ops/table.py gives them: POW at every
 // type, the bitwise ones at the integer types, the rest at FP32.  Each
 // computes its ops/table.py function at the type `nt`, narrowed: integer
-// POW by squaring over the exponent's unsigned bits (|y| for a signed
-// type, and then, for y < 0, 1 / x^|y| with DIV's rule at 0), BOOL POW
-// x | !y; the shifts read y's value in the type (BSHIFT: as int32, a
-// negative y a logical right shift); FP32 REMAINDER is x - rint(x / y)
+// POW by ipow_u over the exponent's bits in the type (|y|, wrapping, for
+// a signed type, and then, for y < 0, 1 / x^|y| with DIV's rule at 0),
+// BOOL POW x | !y; the shifts read y's value in the type (BSHIFT: as
+// int32, a negative y a logical right shift by -y negated in int32, so
+// that -2^31 shifts by 0); FP32 REMAINDER is x - rint(x / y)
 // y and LDEXP x * 2^(int)y, rounded as torch's are.
 template <typename T>
 __device__ __forceinline__ T apply_mul_x(int op, T a, T b, int nt) {
@@ -280,8 +284,10 @@ __device__ __forceinline__ T apply_mul_x(int op, T a, T b, int nt) {
       case MUL_BSET: r = a | shl_t((T)1, (int64_t)b, nt); break;
       case MUL_BCLR: r = a & ~shl_t((T)1, (int64_t)b, nt); break;
       default: {  // MUL_BSHIFT: y as int32 (a UINT16 word is its value)
-        const int64_t y = (int32_t)b;
-        r = y >= 0 ? shl_t(a, y, nt) : shr_t(a, -y, nt);
+        const int32_t y = (int32_t)b;
+        const int32_t ny = (int32_t)(0u - (uint32_t)y);
+        r = y >= 0 ? shl_t(a, (int64_t)y, nt)
+                   : shr_t(a, (int64_t)(ny < 0 ? 0 : ny), nt);
       }
     }
     return narrow(r, nt);

@@ -8,7 +8,18 @@ seed (same numpy RandomState draws in the same order).
 
 import numpy as np
 
-__all__ = ["rmat_edges", "urand_edges", "to_matrix"]
+__all__ = ["rmat_edges", "urand_edges", "to_matrix", "unique_keys"]
+
+
+def unique_keys(keys):
+    """``np.unique(keys)`` of a 1-d integer array, by one sort: numpy
+    2.3's ``np.unique`` hashes, and took 41.4 s for 16M int64 keys where
+    ``np.sort`` took 0.28 s (numpy 2.3.5 on the host of an NVIDIA H100
+    80GB HBM3 machine)."""
+    keys = np.sort(keys)
+    if len(keys):
+        keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
+    return keys
 
 
 def rmat_edges(scale, edgefactor=16, a=0.57, b=0.19, c=0.19, seed=42,
@@ -46,8 +57,7 @@ def _dedup(rows, cols, scale):
     keep = rows != cols
     if scale > 31:          # packed keys would overflow int64
         return rows[keep], cols[keep]
-    keys = (rows[keep] << scale) | cols[keep]
-    keys = np.unique(keys)
+    keys = unique_keys((rows[keep] << scale) | cols[keep])
     return keys >> scale, keys & ((np.int64(1) << scale) - 1)
 
 

@@ -189,19 +189,26 @@ def _max(x, y, T):
     return torch.maximum(x, y)
 
 
-def _ipow(x, e, T):
-    """x ** e for e >= 0 (unsigned for bit views), wrapping: square and
-    multiply over e's bits."""
-    r = torch.ones_like(x)
-    b = x
-    one = torch.ones_like(e)
-    while True:
-        live = e != 0
-        if not bool(live.any()):
-            return r
-        r = torch.where(live & ((e & 1) == 1), r * b, r)
-        b = b * b
-        e = _shr_logical(e, one, T)
+def _ipow(x, e):
+    """Integer x ** e as the JAX package computes it (``jnp.power``'s
+    ``_pow_int_int``): square and multiply over e's low six bits only,
+    wrapping, from 0 where x == 0 and e != 0.  Six fixed rounds, so no
+    value is read on the host."""
+    r = torch.where((x == 0) & (e != 0), torch.zeros_like(x),
+                    torch.ones_like(x))
+    for k in range(6):
+        r = torch.where(((e >> k) & 1) == 1, r * x, r)
+        x = x * x
+    return r
+
+
+def power(x, y):
+    """torch's pow, but an integer tensor ** tensor is the JAX
+    package's (``_ipow``): the lowered user ops' ``pow``."""
+    if x.dtype.is_floating_point or x.dtype.is_complex \
+            or x.dtype == torch.bool:
+        return torch.pow(x, y)
+    return _ipow(x, y)
 
 
 def _pow(x, y, T):
@@ -209,9 +216,10 @@ def _pow(x, y, T):
         return torch.logical_or(x, torch.logical_not(y))
     if _is_int(T):
         # C-style: negative exponent -> integer reciprocal of x**|y|
+        # (|y| wrapping at the type's minimum, as jnp.abs)
         if _is_uint(T):
-            return _ipow(x, y, T)
-        mag = _ipow(x, y.abs(), T)
+            return _ipow(x, y)
+        mag = _ipow(x, y.abs())
         recip = _idiv(torch.ones_like(mag), mag, T)
         return torch.where(y < 0, recip, mag)
     return torch.pow(x, y)
@@ -249,13 +257,13 @@ def _bclr(x, y, T):
 
 def _bshift(x, y, T):
     # positive y: left shift; negative: logical right shift (y read as
-    # int32, as the JAX package's y.astype(int32))
+    # int32, as the JAX package's y.astype(int32), and negated there with
+    # wrap: -2^31 shifts by 0)
     yi = y.to(torch.int32)
     if T._view and T._bits == 16:
         yi = yi & 0xFFFF
-    yi = yi.to(torch.int64)
-    left = _shl(x, yi.clamp(min=0), T)
-    right = _shr_logical(x, (-yi).clamp(min=0), T)
+    left = _shl(x, yi.to(torch.int64).clamp(min=0), T)
+    right = _shr_logical(x, (-yi).to(torch.int64).clamp(min=0), T)
     return torch.where(yi >= 0, left, right)
 
 

@@ -7,8 +7,8 @@ function ``(i, j, x, thunk) -> bool`` over tensors), which
 (:meth:`SelectOp.at_type`): UINT16, UINT32 and UINT64 are held as
 signed bit views, and a predicate reads them as their unsigned values.
 At UINT64, which torch cannot widen, a user predicate is handed
-:class:`Unsigned64` values: they compare as unsigned and refuse
-arithmetic.
+:class:`Unsigned64` values (``_unsigned.Wrapping64``): they compare and
+compute as uint64 on the int64 bits.
 
 >>> from pygraphblas_tpu_torch import Matrix, selectop
 >>> A = Matrix.from_lists([0, 0, 1], [0, 1, 1], [-1, 0, 1])
@@ -25,6 +25,8 @@ import operator
 import sys
 
 import torch
+
+from . import _unsigned
 
 
 class SelectOp:
@@ -71,7 +73,8 @@ class SelectOp:
             return self        # positional, ==, != (right on the view)
         elif T._bits == 64:
             def fn(i, j, x, t):
-                return self.fn(i, j, Unsigned64(x), Unsigned64(t))
+                r = self.fn(i, j, Unsigned64(x), Unsigned64(t))
+                return r.bits if isinstance(r, Unsigned64) else r
         else:
             wide = torch.int32 if T._bits == 16 else torch.int64
             low = (1 << T._bits) - 1
@@ -81,93 +84,9 @@ class SelectOp:
         return SelectOp(self.name, fn, self.needs_thunk)
 
 
-_FLIP64 = -(1 << 63)
-
-
-class Unsigned64:
-    """UINT64 values held as their int64 bit view, as a user select
-    predicate sees them: ``<``, ``<=``, ``>``, ``>=``, ``==`` and ``!=``
-    against another Unsigned64 or a Python int in [0, 2**64) compare the
-    unsigned values (sign-flipped keys, as ``ops/table.py:_key``) and
-    give bool tensors.  Anything else (arithmetic, a torch function, a
-    float or a plain tensor operand) raises TypeError, so that no
-    predicate reads the signed view by mistake."""
-
-    __slots__ = ("bits",)
-    __hash__ = None
-
-    def __init__(self, bits):
-        self.bits = bits
-
-    @staticmethod
-    def _refuse(what):
-        raise TypeError(
-            f"a user select predicate at UINT64 can only compare its "
-            f"value and thunk (<, <=, >, >=, ==, !=) with each other or "
-            f"with a Python int in [0, 2**64); not {what}: torch has no "
-            f"uint64 arithmetic")
-
-    def _keys(self, other):
-        if isinstance(other, Unsigned64):
-            o = other.bits
-        elif isinstance(other, int) and not isinstance(other, bool) \
-                and 0 <= other < (1 << 64):
-            o = other - (1 << 64) if other >= (1 << 63) else other
-        else:
-            self._refuse(type(other).__name__)
-        return self.bits ^ _FLIP64, o ^ _FLIP64
-
-    def __lt__(self, other):
-        a, b = self._keys(other)
-        return a < b
-
-    def __le__(self, other):
-        a, b = self._keys(other)
-        return a <= b
-
-    def __gt__(self, other):
-        a, b = self._keys(other)
-        return a > b
-
-    def __ge__(self, other):
-        a, b = self._keys(other)
-        return a >= b
-
-    def __eq__(self, other):
-        a, b = self._keys(other)
-        return a == b
-
-    def __ne__(self, other):
-        a, b = self._keys(other)
-        return a != b
-
-    def __bool__(self):
-        self._refuse("truth testing")
-
-    @classmethod
-    def __torch_function__(cls, func, types, args=(), kwargs=None):
-        cls._refuse(getattr(func, "__name__", str(func)))
-
-    def __getattr__(self, name):
-        if name.startswith("__"):
-            raise AttributeError(name)
-        self._refuse(f"attribute {name!r}")
-
-
-def _refuse_op(name):
-    def op(self, *args):
-        self._refuse(name)
-    op.__name__ = name
-    return op
-
-
-for _name in ("add", "radd", "sub", "rsub", "mul", "rmul", "truediv",
-              "rtruediv", "floordiv", "rfloordiv", "mod", "rmod", "pow",
-              "rpow", "and", "rand", "or", "ror", "xor", "rxor", "lshift",
-              "rlshift", "rshift", "rrshift", "neg", "pos", "abs",
-              "invert", "int", "float", "index", "getitem"):
-    setattr(Unsigned64, f"__{_name}__", _refuse_op(f"__{_name}__"))
-del _name
+# a user predicate's UINT64 values: unsigned comparisons and arithmetic
+# on the int64 bits (``_unsigned.Wrapping64``)
+Unsigned64 = _unsigned.Wrapping64
 
 
 _BUILTINS = {

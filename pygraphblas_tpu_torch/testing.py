@@ -457,6 +457,41 @@ PAIR_FOLD_CODES = [(add, mul, typ)
 # within a few ulp of torch's: held within rtol 1e-5
 PAIR_FOLD_INEXACT = ("POW", "ATAN2", "HYPOT")
 
+# integer POW and BSHIFT operands where the JAX package's rule differs
+# from squaring over every bit of the exponent or negating in int64
+# (ops/table.py: _ipow, _bshift): bases, and exponents of 64 and more,
+# the type's minimum and BSHIFT's -2^31, each wrapped to the type
+POW_BASES = (3, 2, -2, -6, 0, 1, -1, 8, 7, 5)
+POW_EXPONENTS = (64, 65, 70, 100, 127, -128, -(1 << 31), (1 << 31) - 1, 63,
+                 71, -1, -2, 0, 5)
+# pair_fold's integer POW and BSHIFT rows, held at those operands
+POW_EXTREME_CODES = [c for c in PAIR_FOLD_CODES
+                     if c[1] in ("POW", "BSHIFT")
+                     and c[2] not in ("BOOL", "FP32")]
+
+
+def pow_operands(T, nx, ny, seed=16):
+    """nx bases and ny exponents of integer Type T drawn from POW_BASES
+    and POW_EXPONENTS: numpy arrays of T.numpy_dtype, wrapped."""
+    rng = np.random.RandomState(seed)
+
+    def pick(pool, n):
+        v = np.array(pool, np.int64)[rng.randint(0, len(pool), n)]
+        return v.astype(T.numpy_dtype)
+
+    return pick(POW_BASES, nx), pick(POW_EXPONENTS, ny)
+
+
+@functools.lru_cache(maxsize=None)
+def int_pow32():
+    """The user op x ** y at INT32 (jnp.power's six-bit rule on both of
+    the port's routes; ``csrc/gen.cuh``'s ``ipow`` in a generated
+    kernel).  One object a process, so that its unit is built once."""
+    from . import types
+    from .binaryop import binary_op
+
+    return binary_op(types.INT32)(lambda x, y: x ** y)
+
 
 @functools.lru_cache(maxsize=None)
 def logsum32():

@@ -350,3 +350,89 @@ def test_udt_struct_of_tensors_and_binop():
     sr = types.FP32.new_semiring(m, types.FP32.TIMES)
     assert sr.name == "MAX_TIMES_FP32" and sr.add_monoid is m
     assert m.identity(np.float32) == -np.inf
+
+
+# integer POW's probe (type, x, y, the JAX package's x POW y): jnp.power
+# over integers squares over the exponent's low six bits only
+POW_ROWS = [("INT64", 3, 64, 1), ("INT64", 2, 70, 64),
+            ("INT32", 3, 100, -1953380655), ("INT32", -2, 65, -2),
+            ("INT8", -6, -128, 1), ("UINT64", 8, 2**63 + 11, 2**33),
+            ("UINT64", 3, 64, 1)]
+
+
+def _pow_operands(typ):
+    """x and y of `typ`: the probe's rows, 0 ** 64, the exponents 63 .. 71,
+    100, 127, the type's extremes and negatives, and BSHIFT's -2^31
+    (2^31 at UINT32, its int32 reading)."""
+    dt = np.dtype(getattr(jtypes, typ)._numpy_t)
+    info = np.iinfo(dt)
+    rows = [(x, y) for t, x, y, _ in POW_ROWS if t == typ]
+    xs = [3, 2, -2, -6, 0, 1, -1, 8, 5, 7, -3, int(info.min), int(info.max)]
+    ys = [64, 70, 100, 65, 63, 71, 127, -128, -1, -2, int(info.min),
+          int(info.max), 0, 2**31, -2**31, 2**63 + 11]
+    pairs = rows + [(x, y) for x in xs for y in ys]
+    x = np.array([int(p[0]) & ((1 << 64) - 1) for p in pairs],
+                 np.uint64).astype(dt)
+    y = np.array([p[1] for p in pairs], object)
+    y = np.array([int(v) & ((1 << 64) - 1) for v in y], np.uint64)
+    return x, y.astype(dt)
+
+
+@pytest.mark.parametrize("typ", ["INT8", "INT16", "INT32", "INT64", "UINT8",
+                                 "UINT16", "UINT32", "UINT64"])
+def test_integer_pow_and_bshift_follow_jax(typ):
+    """POW and BSHIFT at the extremes, against the JAX closures: POW
+    squares over the exponent's low six bits (|y| wrapping, then DIV's
+    rule for y < 0), so 3^64 is 1 at INT64 and 8^(2^63+11) is 2^33 at
+    UINT64; BSHIFT negates y in int32 with wrap, so a shift by -2^31
+    returns x.  The probe's rows are held to their constants too."""
+    T, jT = getattr(types, typ), getattr(jtypes, typ)
+    x, y = _pow_operands(typ)
+    for name in ("POW", "BSHIFT"):
+        want = np.asarray(getattr(jT, name).apply(jnp.asarray(x),
+                                                  jnp.asarray(y)))
+        got = T.to_numpy(getattr(T, name).apply(T.to_torch(x),
+                                                T.to_torch(y)))
+        np.testing.assert_array_equal(got, want, err_msg=f"{name} {typ}")
+        if name == "POW":
+            rows = [w for t, _, _, w in POW_ROWS if t == typ]
+            assert got[:len(rows)].tolist() == rows
+        elif typ in ("INT32", "INT64"):
+            at = (y == -2**31)
+            assert at.any() and np.array_equal(got[at], x[at])
+
+
+@pytest.mark.parametrize("typ", ["INT32", "INT64", "UINT32"])
+def test_user_op_integer_pow_follows_jax(typ):
+    """A user op's integer tensor ** tensor (and Python int ** tensor)
+    is jnp.power's six-bit rule on both of the port's routes: the
+    closure (``_unsigned.call``, through emult) and, where the type has
+    a kernel word, the lowered functor's torch rendering
+    (``_opgen.evaluate``; ``csrc/gen.cuh``'s ``ipow`` on the card); a
+    Python int exponent keeps the whole exponent, as lax.integer_pow."""
+    from pygraphblas_tpu_torch import Matrix, _kernels, _opgen
+    import pygraphblas_tpu as J
+    T, jT = getattr(types, typ), getattr(jtypes, typ)
+    dt = T.numpy_dtype
+    xs = np.array([3, 2, 3, -2, 2, 0, 1, -1, 5, 7], np.int64)
+    ys = np.array([64, 70, 100, 65, -1, 64, -5, -3, 71, 127], np.int64)
+    if typ == "UINT32":
+        xs, ys = np.abs(xs), np.abs(ys)
+    x, y = xs.astype(dt), ys.astype(dt)
+    ix = np.arange(len(x))
+    fns = {"pow": (lambda a, b: a ** b), "rpow": (lambda a, b: 3 ** b),
+           "const": (lambda a, b: a ** 64 + b)}
+    for name, fn in fns.items():
+        jop = jbinaryop.binary_op(jT)(fn)
+        want = J.Matrix.from_lists(ix, ix, x, typ=jT).emult(
+            J.Matrix.from_lists(ix, ix, y, typ=jT), jop).to_lists()
+        op = binaryop.binary_op(T)(fn)
+        got = Matrix.from_lists(ix, ix, x, typ=T, device=CPU).emult(
+            Matrix.from_lists(ix, ix, y, typ=T, device=CPU), op).to_lists()
+        assert got == want, name
+        if typ in _kernels.TYPE_CODES:
+            ir = _opgen.lower(op, T)
+            ev = _opgen.evaluate(ir, T.to_torch(x), T.to_torch(y))
+            assert T.to_numpy(ev).tolist() == want[2], name
+            if name == "pow":
+                assert "gen::ipow" in _opgen.functor(ir, T, "F")

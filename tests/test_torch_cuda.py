@@ -19,7 +19,8 @@ from pygraphblas_tpu_torch.core import (esc, gustavson, mono, perm, scan,
 from pygraphblas_tpu_torch.testing import (MONO_ROWS_CASES, PAIR_COUNT_CASES,
                                            cascade_runs_case, mono_rows_case,
                                            pair_count_case, pair_fold_case,
-                                           PAIR_FOLD_CODES, SEGFOLD_CODES,
+                                           PAIR_FOLD_CODES, POW_EXTREME_CODES,
+                                           SEGFOLD_CODES,
                                            typed_plains, typed_values,
                                            typed_wrappers, wrapper_cases)
 
@@ -856,6 +857,33 @@ def test_segfold_kernel_new_folds(card, add, typ):
     assert torch.equal(got, scan._segfold_plain(v, f, m))
 
 
+@pytest.mark.parametrize("add,mul,typ", POW_EXTREME_CODES + [
+    ("PLUS", "user x ** y", "INT32")])
+def test_pair_fold_pow_bshift_at_the_jax_rule(card, add, mul, typ):
+    """Integer POW and BSHIFT at exponents of 64 and more, the type's
+    minimum and -2^31 (testing.pow_operands), through pair_fold's codes
+    (csrc/ops.cuh) and the generated kernel of the user op x ** y
+    (csrc/gen.cuh's ipow): one launch, equal to the plain version, which
+    the CPU tests hold to the JAX package's closures."""
+    from pygraphblas_tpu_torch.testing import int_pow32, pow_operands
+    T = getattr(types, typ)
+    a, av, b, bv, ast, wa, bst, wb, W = pair_fold_case("run_across_blocks",
+                                                       np.int32)
+    av, bv = pow_operands(T, len(av), len(bv))
+    av, bv = (T.to_torch(x).to(card) for x in (av, bv))
+    a, b, ast, wa, bst, wb = (torch.from_numpy(x).to(card)
+                              for x in (a, b, ast, wa, bst, wb))
+    mop = int_pow32() if mul.startswith("user") else getattr(T, mul)
+    fop = getattr(T, add + "_MONOID")
+    _kernels.reset_launches()
+    cnt, vals = spgemm.pair_fold(a, av, b, bv, ast, wa, bst, wb, W, mop, fop)
+    torch.cuda.synchronize()
+    assert _kernels.launches["pair_fold"] == 1
+    wcnt, wvals = spgemm._pair_fold_plain(a, av, b, bv, ast, wa, bst, wb, W,
+                                          mop, fop)
+    assert torch.equal(cnt, wcnt) and torch.equal(vals, wvals)
+
+
 @pytest.mark.parametrize("add,mul,typ", PAIR_FOLD_CODES)
 @pytest.mark.parametrize("path", ["search", "runs"])
 def test_pair_fold_new_codes(card, add, mul, typ, path, monkeypatch):
@@ -1045,8 +1073,9 @@ def test_louvain_on_card(card, coo_tier):
 
 @pytest.mark.parametrize("tier", ["bitmap", "coo"])
 def test_uint64_user_predicate_on_card(card, tier):
-    """A user select predicate at UINT64 compares unsigned values on the
-    card, Matrix and Vector, on both tiers; arithmetic raises."""
+    """A user select predicate at UINT64 compares and computes unsigned
+    values on the card, Matrix and Vector, on both tiers; a float
+    operand raises."""
     from pygraphblas_tpu_torch import Matrix, Vector
 
     big = 2**63 + 2048
@@ -1061,8 +1090,10 @@ def test_uint64_user_predicate_on_card(card, tier):
             assert c.select(lambda i, j, x, t: x > t, 8).to_lists() == want
             assert c.select(lambda i, j, x, t: x >= t, big).to_lists() == \
                 want
+            assert c.select(lambda i, j, x, t: x + 1 > t, 8).to_lists() \
+                == want
             with pytest.raises(TypeError, match="UINT64"):
-                c.select(lambda i, j, x, t: x + 1 > t, 8)
+                c.select(lambda i, j, x, t: x > 0.5, 8)
     finally:
         options_set(bitmap_max_cells=1 << 26, vector_max_cells=1 << 27)
 

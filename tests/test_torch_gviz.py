@@ -110,14 +110,19 @@ def _public(pkg):
 def test_port_lacks_no_public_name_or_entry_point():
     """Of the JAX package's public names (top level, submodules, and the
     names of Matrix, Vector, Scalar, algorithms, fused, gviz, io and the
-    distributed tier's modules), the port lacks none; and each script of
+    distributed tier's modules), the port lacks none; each script of
     the JAX gallery (demo/NN_*.py) and each GAP driver (gap/*.py) has
-    its counterpart of the same name in demo_torch/ and gap_torch/."""
+    its counterpart of the same name in demo_torch/ and gap_torch/; and
+    each JAX perf script whose workload the port runs has its
+    perf/torch_ twin."""
     root = Path(__file__).resolve().parent.parent
     for jax_dir, glob in (("demo", "[0-9]*.py"), ("gap", "*.py")):
         want = {p.name for p in (root / jax_dir).glob(glob)}
         have = {p.name for p in (root / f"{jax_dir}_torch").glob(glob)}
         assert want and want <= have, (jax_dir, want - have)
+    for script in ("urand_e2e", "road_bfs", "dewise_bench", "louvain_scale"):
+        assert (root / "perf" / f"{script}.py").exists()
+        assert (root / "perf" / f"torch_{script}.py").exists(), script
     assert _public(J) - _public(T) == set()
     for mod in ("gviz", "io", "io.mm", "io.binfile", "io.native",
                 "parallel", "parallel.dist", "parallel.checkpoint"):

@@ -26,11 +26,21 @@ def _imports(path):
             yield node.module or ""
 
 
+# the JAX package's measurement scripts, as modules (perf/*.py but the
+# port's own perf/torch_*.py, bench.py, __graft_entry__.py)
+_JAX_SCRIPTS = ("perf", "bench", "__graft_entry__") + tuple(
+    f[:-3] for f in os.listdir(os.path.join(ROOT, "perf"))
+    if f.endswith(".py") and not f.startswith("torch_"))
+
+
 def _port_files():
-    """The package, the gallery, the GAP drivers, the docs generator and
-    chip_smoke.py."""
+    """The package, the gallery, the GAP drivers, the docs generator,
+    chip_smoke.py and the port's perf scripts (perf/torch_*.py)."""
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "docs", "generate_torch.py")]
+    out += [os.path.join(ROOT, "perf", f)
+            for f in sorted(os.listdir(os.path.join(ROOT, "perf")))
+            if f.startswith("torch_") and f.endswith(".py")]
     for top in ("pygraphblas_tpu_torch", "demo_torch", "gap_torch"):
         for d, _, files in os.walk(os.path.join(ROOT, top)):
             out += [os.path.join(d, f) for f in files if f.endswith(".py")]
@@ -40,13 +50,17 @@ def _port_files():
 def test_port_never_imports_jax():
     files = _port_files()
     assert len(files) > 10
-    for top in ("demo_torch", "gap_torch", "generate_torch"):
+    for top in ("demo_torch", "gap_torch", "generate_torch",
+                "torch_urand_e2e", "torch_road_bfs", "torch_dewise_bench",
+                "torch_louvain_scale"):
         assert any(top in f for f in files), top
+    assert {"urand_e2e", "road_bfs", "dewise_bench",
+            "louvain_scale"} <= set(_JAX_SCRIPTS)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "pygraphblas_tpu", "demo",
-                               "gap"), (path, mod)
+                               "gap") + _JAX_SCRIPTS, (path, mod)
     # and at run time, in a fresh interpreter
     code = ("import sys, pygraphblas_tpu_torch.fused, "
             "pygraphblas_tpu_torch.convert, pygraphblas_tpu_torch._kernels, "

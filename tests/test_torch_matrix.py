@@ -509,19 +509,98 @@ def test_device_ewise_engine_matches_jax(tname, name):
         _set_tier("bitmap")
 
 
-@pytest.mark.parametrize("pred", [lambda i, j, x, th: x + 1 > th,
-                                  lambda i, j, x, th: x.float() > 0,
-                                  lambda i, j, x, th: x > 0.5,
-                                  lambda i, j, x, th: x > -1],
-                         ids=["add", "method", "float", "negative"])
-def test_uint64_user_predicate_refuses_the_view(tier, pred):
-    """At UINT64 a user predicate gets values that compare as unsigned;
-    arithmetic or a comparison that would read the signed bit view
-    raises a TypeError that names UINT64."""
-    A = T.Matrix.from_lists([0, 1], [0, 1], [2**63 + 2048, 1],
-                            typ=T.types.UINT64, device="cpu")
-    v = T.Vector.from_lists([0, 1], [2**63 + 2048, 1], typ=T.types.UINT64,
+@pytest.mark.parametrize("pred, refused", [
+    (lambda i, j, x, th: x + 1 > th, False),
+    (lambda i, j, x, th: x.float() > 0, True),
+    (lambda i, j, x, th: x > 0.5, True),
+    (lambda i, j, x, th: x > -1, False)],
+    ids=["add", "method", "float", "negative"])
+def test_uint64_user_predicate_refuses_the_view(tier, pred, refused):
+    """At UINT64 a user predicate gets values that compare and compute as
+    unsigned, with Python ints (-1 read as 2^64 - 1): the JAX package's
+    selection; a float operand or a tensor method, which would read the
+    signed bit view, raises a TypeError that names UINT64."""
+    vals = np.array([2**63 + 2048, 1], np.uint64)
+    A = T.Matrix.from_lists([0, 1], [0, 1], vals, typ=T.types.UINT64,
                             device="cpu")
-    for c in (A, v):
-        with pytest.raises(TypeError, match="UINT64"):
-            c.select(pred, 10)
+    v = T.Vector.from_lists([0, 1], vals, typ=T.types.UINT64, device="cpu")
+    jA = J.Matrix.from_lists([0, 1], [0, 1], vals, typ=J.types.UINT64)
+    jv = J.Vector.from_lists([0, 1], vals, typ=J.types.UINT64)
+    for c, jc in ((A, jA), (v, jv)):
+        if refused:
+            with pytest.raises(TypeError, match="UINT64"):
+                c.select(pred, 10)
+            continue
+        want = jc.select(J.selectop.select_op(J.types.UINT64)(pred), 10)
+        assert c.select(pred, 10).to_lists() == want.to_lists()
+
+
+@pytest.mark.parametrize("engine", ["auto", "csr8"])
+def test_any_over_negative_rows_matches_jax(tier, engine, monkeypatch):
+    """ANY over rows whose values are all negative (the COO tier folded
+    ANY from its identity 0, which is none of the values): reduce_vector,
+    mxv and vxm under ANY_TIMES equal the JAX package's at INT8, INT16,
+    INT32, INT64 and FP32, under spmv_engine "auto" and "csr8"; also
+    once the port's FP32.MAX_MONOID is rebound to identity 1, as making
+    algorithms.relu_neuron_semiring() does (restored after)."""
+    from pygraphblas_tpu_torch.algorithms import relu_neuron_semiring
+
+    for name in ("MAX_MONOID", "max_monoid"):
+        monkeypatch.setattr(T.types.FP32, name, T.types.FP32.MAX_MONOID)
+    relu_neuron_semiring()
+    assert T.types.FP32.MAX_MONOID.identity(np.float32) == 1
+    rng = np.random.RandomState(16)
+    r, c = rng.randint(0, 40, 300), rng.randint(0, 40, 300)
+    v = rng.randint(-8, 0, 300)
+    for pkg in (J, T):
+        pkg.options_set(spmv_engine=engine)
+    try:
+        for tname in ("INT8", "INT16", "INT32", "INT64", "FP32"):
+            got, want = [], []
+            for ns, out in ((JNS, want), (TNS, got)):
+                typ = getattr(ns.t, tname)
+                A = ns.mat(tname, r, c, v, 40, 40)
+                x = ns.vec(tname, np.arange(40), np.ones(40), 40)
+                out += [A.reduce_vector(typ.ANY_MONOID),
+                        A.mxv(x, typ.ANY_TIMES), x.vxm(A, typ.ANY_TIMES)]
+            for g, w in zip(got, want):
+                _check(g, w, False, tname)
+                assert (np.asarray(g.to_arrays()[-1]) < 0).all()
+    finally:
+        for pkg in (J, T):
+            pkg.options_set(spmv_engine="auto")
+
+
+# user ops at UINT64 whose answers the signed bits do not give (the JAX
+# package's uint64 closures); "/" by no zero: the JAX COO tier casts a
+# float64 NaN or inf to uint64 through numpy, whose answer is undefined
+_U64_OPS = {"floordiv": lambda x, y: x // y, "mod": lambda x, y: x % y,
+            "truediv": lambda x, y: x / (y | 1), "rshift": lambda x, y: x >> y,
+            "rshift3": lambda x, y: x >> 3, "pow": lambda x, y: x ** y,
+            "rpow": lambda x, y: 3 ** y, "pow2": lambda x, y: x ** 2,
+            "divmod": lambda x, y: divmod(x, y)[1] + (y >> 1)}
+
+
+@pytest.mark.parametrize("tier_name", ["bitmap", "coo"])
+def test_uint64_user_ops_match_jax(tier_name):
+    """A.emult(B, op) at UINT64 for //, %, /, >> and ** (and their
+    reflected forms): top-bit operands, zero divisors (x // 0 is
+    2^64 - 1, x % 0 is 0), exponents past 2^63 (their low six bits),
+    each equal to the JAX package's."""
+    _set_tier(tier_name)
+    try:
+        a = np.array([2**63 + 5, 7, 0, 2**64 - 1, 2**62 + 3, 5, 2**40,
+                      8, 2**63], np.uint64)
+        b = np.array([7, 2**63 + 9, 0, 2**63, 3, 0, 2**40 + 1,
+                      2**63 + 11, 2**64 - 1], np.uint64)
+        ix = np.arange(len(a))
+        jA, jB = (J.Matrix.from_lists(ix, ix, z, typ=J.types.UINT64)
+                  for z in (a, b))
+        A, B = (T.Matrix.from_lists(ix, ix, z, typ=T.types.UINT64,
+                                    device="cpu") for z in (a, b))
+        for name, fn in _U64_OPS.items():
+            want = jA.emult(jB, J.binaryop.binary_op(J.types.UINT64)(fn))
+            got = A.emult(B, T.binaryop.binary_op(T.types.UINT64)(fn))
+            assert got.to_lists() == want.to_lists(), name
+    finally:
+        _set_tier("bitmap")

@@ -8,7 +8,7 @@
    Matrix and Vector, and never at an absent cell or a pad.  UINT64 is
    held to a numpy oracle (the JAX package's ``from_lists`` loses the
    low bits of 2^63 + 5): the unsigned answer, or a TypeError naming
-   UINT64, never the signed answer.
+   UINT64 (a float operand), never the signed answer.
 2. The kernels' routes on the CPU: ESC's A @ A under the user semiring
    LogSum32 (``testing.logsum32``) against the JAX package's
    ``esc_spgemm`` (its probabilities p = exp(value) within rtol 1e-5:
@@ -181,8 +181,9 @@ def test_user_semiring_products_at_unsigned_views(tiers):
 
 @pytest.mark.parametrize("tier_name", ["bitmap", "coo"])
 def test_uint64_user_ops_against_numpy(tier_name, tiers):
-    """UINT64: the unsigned order and wrapping arithmetic (numpy's
-    uint64), or a TypeError naming UINT64; never the signed answer."""
+    """UINT64: the unsigned order, division and wrapping arithmetic
+    (numpy's uint64), or a TypeError naming UINT64 (a float operand);
+    never the signed answer."""
     tiers(tier_name)
     T = types.UINT64
     a = np.array([2 ** 63 + 5, 7, 2 ** 64 - 1], np.uint64)
@@ -197,8 +198,10 @@ def test_uint64_user_ops_against_numpy(tier_name, tiers):
     bits = binaryop.binary_op(T)(lambda x, y: (x ^ y) & ~(y << 1))
     assert _lists(A.emult(B, bits))[2] == ((a ^ b) & ~(b << np.uint64(1))
                                            ).tolist()
+    quot = binaryop.binary_op(T)(QUOT[0])
+    assert _lists(A.emult(B, quot))[2] == (a // b).tolist()
     with pytest.raises(TypeError, match="UINT64"):
-        A.emult(B, binaryop.binary_op(T)(QUOT[0]))
+        A.emult(B, binaryop.binary_op(T)(lambda x, y: x * 1.5 + y))
     step = unaryop.unary_op(T)(lambda x: torch.where(x > 8, x, x + 1))
     assert _lists(A.apply(step))[2] == np.where(a > 8, a, a + 1).tolist()
     m = T.new_monoid(bigger, 0)
